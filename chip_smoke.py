@@ -8,21 +8,46 @@ non-zero and prints no result line):
 
   1. device  — a CUDA card is present; print its name and power limit;
                TF32 off for matmuls and cuDNN.
-  2. build   — compile K1 (csrc/cholesky.cu) with nvcc; print the seconds
-               and the compiler's resource report.
+  2. build   — compile K1 (csrc/cholesky.cu) and K3 (csrc/pair_product.cu),
+               one nvcc each, started together; print the seconds and the
+               compiler's resource report.
   3. K1      — the kernel against its plain PyTorch version on the card,
                n in {1, 5, 37, 128, 300, 441, 1024}, float32 and float64,
                plus the equilibrated S of the BAL-49 problem; a matrix that
                is not positive definite must give all-NaN outputs; n = 1025
                must raise.
-  4. solve   — the main path: synthetic BAL-49 (49 cameras, 7776 points,
-               31104 observations), DENSE_SCHUR LM, 30 steps, float32 on
-               the card; the costs must be finite and fall below 1e-2 of the
-               initial cost, and K1 must launch on every damped solve.
-  5. card vs CPU — synthetic_bal(16, 500, 4), 10 steps in float64, on the
+  4. K2      — the blocked factor (K1 panels) against cuSOLVER's, n in
+               {1025, 2048, 3000}, float32 and float64, panels 1024 and 256:
+               L and a solve within a bound of max|reference|, and the
+               backward errors; a non-PD input gives non-finite outputs.
+  5. K3      — the pair-product kernel against its plain version on a random
+               non-uniform problem (f = 5, e = 3, 1-6 observations per
+               point), float32 and float64, judged on the reduced unique-pair
+               table.
+  6. solve   — the first main path: synthetic BAL-49 (49 cameras, 7776
+               points, 31104 observations), DENSE_SCHUR LM, 30 steps, float32
+               on the card (dense W, K1); the costs must be finite and fall
+               below 1e-2 of the initial cost, and K1 must launch on every
+               damped solve.
+  7. card vs CPU — synthetic_bal(16, 500, 4), 10 steps in float64, on the
                card and on the CPU (plain versions): the same accept/reject
                sequence, costs equal to rtol 1e-8.
-  6. timing  — K1 and its plain version at n = 441, float32, median of 20
+  8. explicit vs dense W — synthetic_bal(120, 2000, 4), float64 on the card:
+               the explicit S (K3) equals the dense-W S to rtol 1e-10.
+  9. card vs CPU, explicit — the same scene, 10 steps in float64 with the
+               dense-W gate at 0: S (1080 rows) is explicit and factored by
+               K2; the same accept/reject sequence and costs to rtol 1e-8.
+ 10. venice  — synthetic_bal(1778, 1_000_000, 5) (venice-1778 shape), float32,
+               evaluation chunks of 262,144 rows: the plan's unique pairs and
+               levels; K3 at full shape against its plain version; K2 on the
+               equilibrated S of the first damped solve, held to backward
+               errors; a torch.profiler breakdown of one damped solve; K3
+               and K2 (n = 16,002) timed against their plain versions.
+ 11. venice solve — the second main path: the same scene through
+               ``stt.solve``, 5 LM steps (explicit S, K3, K2); every cost
+               finite, a step accepted, the final cost below the initial,
+               K3 and K2 launched on every damped solve; peak device memory.
+ 12. timing  — K1 and its plain version at n = 441, float32, median of 20
                runs (10 back-to-back calls each) timed with CUDA events
                after warm-up.
 
@@ -33,6 +58,7 @@ is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -47,6 +73,19 @@ K1_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # bound on the backward errors ||L L^T - A|| / ||A|| and
 # ||L L^-1 - I|| / (||L|| ||L^-1||) (Frobenius), a few hundred ulps at n <= 1024
 K1_BACKWARD = {torch.float32: 1e-5, torch.float64: 1e-12}
+K2_NS = (1025, 2048, 3000)
+K2_PANELS = (1024, 256)
+# K2 at n <= 3000: the same bounds as K1 (sums of n terms in float32)
+K2_RTOL = K1_RTOL
+K2_BACKWARD = K1_BACKWARD
+# K2 on the venice S (n = 16,002 float32): sums 16x longer than K1's
+K2_VENICE_BACKWARD = 1e-4
+# K3: max-abs error of the reduced unique-pair table / max|reference|;
+# each row is a 3-term sum, the table sums a few thousand rows
+K3_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+VENICE = dict(num_cameras=1778, num_points=1_000_000, observations_per_point=5)
+VENICE_CHUNK = 262_144  # evaluation_chunk_size, as tools/bench_venice.py
+VENICE_STEPS = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -83,14 +122,18 @@ def phase_device():
 
 
 def phase_build():
-    from skeres_tpu_torch.ops.cholesky import build_kernels
+    from skeres_tpu_torch.ops import cholesky, pair_product
+    from skeres_tpu_torch.ops.build import build_all
 
     t0 = time.time()
-    _, log = build_kernels()
-    print(f"[build] K1 built in {time.time() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "bytes stack" in line or "Compiling" in line:
-            print(f"[build] {line.strip()}")
+    logs = build_all()
+    print(f"[build] {', '.join(logs)} built in parallel in {time.time() - t0:.2f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "bytes stack" in line or "Compiling" in line:
+                print(f"[build] {name}: {line.strip()}")
+    cholesky.build_kernels()
+    pair_product.build_kernels()
 
 
 def backward_errors(a, l, linv) -> tuple[float, float]:
@@ -136,26 +179,41 @@ def k1_case(a: torch.Tensor, rtol, label: str) -> float:
     return errs["Linv"][0]
 
 
-def bal49_equilibrated_s(device):
-    """The equilibrated reduced camera system of the main path's first
-    damped solve (radius 1e4) at BAL-49 size, float32."""
+def linearize(program, device, dtype, chunk=None):
+    """The minimizer's first linearization, by hand: (schur solver,
+    prepared Jacobi-scaled data, scaled g, scaled diag)."""
     from skeres_tpu_torch.core.evaluator import Evaluator
-    from skeres_tpu_torch.core.linear_solvers import lm_diagonal
     from skeres_tpu_torch.core.schur import SchurSolver
-    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
 
-    problem, _, _ = build_bal_problem(synthetic_bal(49, 7776, 4))
-    program = problem.compile()
-    ev = Evaluator(program, device=device, dtype=torch.float32)
+    ev = Evaluator(program, device=device, dtype=dtype, chunk_size=chunk)
     schur = SchurSolver(ev)
-    _, blocks = ev.blocks(program.initial_state(device, torch.float32))
+    _, blocks = ev.blocks(program.initial_state(device, dtype))
     g, diag = ev.gradient_and_diag(blocks)
     scale = 1.0 / (1.0 + torch.sqrt(diag))
     data = schur.prepare(schur.scale_data(schur.solver_data(blocks), scale))
-    d = lm_diagonal(diag * scale * scale, 1e-4, 1e-6, 1e32)
-    s = schur._dense_s(schur._assemble(data, g * scale, d))
+    return schur, data, g * scale, diag * scale * scale
+
+
+def first_assembly(schur, data, g, diag):
+    """The elimination state of the first damped solve (radius 1e4)."""
+    from skeres_tpu_torch.core.linear_solvers import lm_diagonal
+
+    return schur._assemble(data, g, lm_diagonal(diag, 1e-4, 1e-6, 1e32))
+
+
+def equilibrated(s):
     d_eq = torch.sqrt(torch.diagonal(s))
     return (s / d_eq[:, None] / d_eq[None, :]).contiguous()
+
+
+def bal49_equilibrated_s(device):
+    """The equilibrated reduced camera system of the main path's first
+    damped solve (radius 1e4) at BAL-49 size, float32."""
+    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
+
+    program = build_bal_problem(synthetic_bal(49, 7776, 4))[0].compile()
+    schur, data, g, diag = linearize(program, device, torch.float32)
+    return equilibrated(schur._dense_s(first_assembly(schur, data, g, diag)))
 
 
 def phase_k1(device) -> float:
@@ -240,24 +298,201 @@ def phase_solve(device) -> int:
     return launches
 
 
-def phase_card_vs_cpu(device):
-    from skeres_tpu_torch.io.bal import synthetic_bal
-
-    bal = synthetic_bal(16, 500, 4)
+def card_vs_cpu(device, bal, label: str):
+    """The same float64 solve, 10 steps at initial radius 1, on the card and
+    on the CPU: the same accept/reject sequence, costs to rtol 1e-8.
+    Returns the card's Summary."""
     # initial radius 1: every accept/reject decision of the 10 steps is made
-    # on a cost change far above rounding; at the default radius this scene
-    # converges by step 6 and later decisions compare rounding noise, which
-    # two summation orders need not agree on
+    # on a cost change far above rounding; at the default radius a scene
+    # like synthetic_bal(16, 500, 4) converges by step 6 and later decisions
+    # compare rounding noise, which two summation orders need not agree on
     runs = {dev: solve_bal(bal, dev, torch.float64, 10, initial_trust_region_radius=1.0)
             for dev in (device, "cpu")}
     seq = {dev: [it.step_is_successful for it in s.iterations] for dev, s in runs.items()}
     cost = {dev: np.array([it.cost for it in s.iterations]) for dev, s in runs.items()}
     rel = float(np.max(np.abs(cost[device] - cost["cpu"]) / np.abs(cost["cpu"])))
-    print(f"[card-vs-cpu] accept/reject {seq[device]}; max relative cost "
-          f"difference {rel:.3e} over {len(cost['cpu'])} iterations")
-    check(seq[device] == seq["cpu"], "accept/reject sequences differ")
-    check(len(cost[device]) == len(cost["cpu"]) == 11, "iteration counts differ")
-    check(rel <= 1e-8, f"card and CPU costs differ by {rel:.3e} > 1e-8")
+    print(f"[{label}] path {runs[device].schur_complement_path}; accept/reject "
+          f"{seq[device]}; max relative cost difference {rel:.3e} over "
+          f"{len(cost['cpu'])} iterations")
+    check(seq[device] == seq["cpu"], f"{label}: accept/reject sequences differ")
+    check(len(cost[device]) == len(cost["cpu"]) == 11, f"{label}: iteration counts differ")
+    check(rel <= 1e-8, f"{label}: card and CPU costs differ by {rel:.3e} > 1e-8")
+    return runs[device]
+
+
+def phase_card_vs_cpu(device):
+    from skeres_tpu_torch.io.bal import synthetic_bal
+
+    card = card_vs_cpu(device, synthetic_bal(16, 500, 4), "card-vs-cpu")
+    check(card.schur_complement_path == "dense-W", "card-vs-cpu: not the dense-W path")
+
+
+# -- K2 -----------------------------------------------------------------------
+
+
+def k2_case(a: torch.Tensor, panel: int, label: str, rtol=K2_RTOL, backward=K2_BACKWARD):
+    """K2 against its plain version on ``a``: the factor's and the solve's
+    backward errors within ``backward``, and, unless ``rtol`` is None, L
+    and the solve within ``rtol`` of the plain version's. Returns the
+    max-abs error of L."""
+    from skeres_tpu_torch.ops.cholesky import (
+        blocked_chol_solve,
+        blocked_cholesky_factor,
+        blocked_cholesky_factor_reference,
+    )
+
+    n = a.shape[0]
+    fac = blocked_cholesky_factor(a, panel=panel)
+    l_ref = blocked_cholesky_factor_reference(a)
+    b = torch.as_tensor(np.random.default_rng(n + 1).standard_normal(n),
+                        dtype=a.dtype, device=a.device)
+    x = blocked_chol_solve(fac, b)
+    torch.cuda.synchronize()
+    a64, l64, x64 = a.double(), fac.l.double(), x.double()
+    fac_err = float(torch.linalg.norm(l64 @ l64.T - a64) / torch.linalg.norm(a64))
+    sol_err = float(torch.linalg.norm(a64 @ x64 - b.double())
+                    / (torch.linalg.norm(a64) * torch.linalg.norm(x64)))
+    msg = f"backward errors {fac_err:.3e} (L L^T), {sol_err:.3e} (solve)"
+    errs = {}
+    if bool(torch.isfinite(l_ref).all()):
+        x_ref = torch.cholesky_solve(b[:, None], l_ref)[:, 0]
+        errs = {"L": rel_err(fac.l, l_ref), "solve": rel_err(x, x_ref)}
+        msg += "; " + ", ".join(f"{k} max|err| {e:.3e} (rel {r:.3e})" for k, (e, r) in errs.items())
+    print(f"[K2] {label} panel {panel}: {msg}")
+    bound = backward[a.dtype] if isinstance(backward, dict) else backward
+    check(fac_err <= bound and sol_err <= bound,
+          f"K2 {label} panel {panel}: backward errors {fac_err:.3e}, {sol_err:.3e} > {bound:.0e}")
+    if rtol is not None:
+        check(bool(errs), f"K2 {label}: the plain version failed")
+        for k, (_, r) in errs.items():
+            check(r <= rtol[a.dtype], f"K2 {label} panel {panel}: {k} rel error {r:.3e}")
+    return errs["L"][0] if errs else float("nan")
+
+
+def phase_k2(device) -> float:
+    from skeres_tpu_torch.ops.cholesky import PANEL, blocked_chol_solve, blocked_cholesky_factor
+
+    err = None
+    for dtype in (torch.float32, torch.float64):
+        for n in K2_NS:
+            for panel in K2_PANELS:
+                e = k2_case(spd(n, dtype, device), panel, f"n={n} {dtype}")
+                if n == K2_NS[-1] and dtype == torch.float32 and panel == PANEL:
+                    err = e
+    for dtype in (torch.float32, torch.float64):
+        for at in (5, 2100):  # the first panel fails, or the ninth of 12
+            bad = spd(3000, dtype, device)
+            bad[at, at] = -1.0
+            fac = blocked_cholesky_factor(bad, panel=256)
+            x = blocked_chol_solve(fac, torch.ones(3000, dtype=dtype, device=device))
+            first = at // 256
+            later = torch.cat([v.reshape(-1) for v in fac.dinv[first:]])
+            torch.cuda.synchronize()
+            check(not torch.isfinite(later).any() and not torch.isfinite(x).any(),
+                  f"K2: a failed panel left finite later outputs ({dtype}, pivot {at})")
+    print("[K2] non-PD input: the failed panel, every later one and every entry "
+          "of the solve non-finite (float32, float64; first and ninth panel)")
+    return err
+
+
+# -- K3 -----------------------------------------------------------------------
+
+
+def k3_tables(plan, grid, cinv_flat):
+    """The reduced unique-pair table by K3 and by its plain version."""
+    from skeres_tpu_torch.core.explicit_schur import _apply_hierarchical_sum
+    from skeres_tpu_torch.ops.pair_product import pair_products_reference
+
+    kern = plan.correction_offdiag({"grid": grid}, cinv_flat)
+    vals = pair_products_reference(grid, cinv_flat, plan.swap_mask, plan.pair_valid,
+                                   plan.pair_kl, plan.f, plan.e, plan.chunk_points)
+    plain = _apply_hierarchical_sum(plan.levels, vals)
+    torch.cuda.synchronize()
+    return kern, plain
+
+
+def phase_k3(device):
+    from skeres_tpu_torch.core.explicit_schur import ExplicitSchurPlan
+
+    f, e, npts, nc = 5, 3, 4000, 40
+    rng = np.random.default_rng(7)
+    counts = rng.integers(1, 7, size=npts)
+    pt = np.repeat(np.arange(npts), counts)
+    cam = rng.integers(0, nc, size=len(pt))
+    a_flat = rng.normal(size=(len(pt), f * e))
+    cinv = rng.normal(size=(npts, e, e))
+    cinv = (cinv + np.swapaxes(cinv, 1, 2)).reshape(npts, e * e)
+    plan = ExplicitSchurPlan(cam_idx=cam, pt_idx=pt, num_cameras=nc, num_points=npts,
+                             f_size=f, e_size=e, pad_waste=100.0, device=device)
+    for dtype in (torch.float32, torch.float64):
+        grid = plan.build_grid(torch.as_tensor(a_flat, dtype=dtype, device=device))["grid"]
+        kern, plain = k3_tables(plan, grid.contiguous(), torch.as_tensor(cinv, dtype=dtype, device=device))
+        err, rel = rel_err(kern, plain)
+        print(f"[K3] random f=5 e=3 kp={plan.kp} (1-6 obs/point, {npts} points, "
+              f"{plan.n_uniq} pairs) {dtype}: table max|err| {err:.3e} (rel {rel:.3e})")
+        check(rel <= K3_RTOL[dtype], f"K3 random case {dtype}: rel error {rel:.3e}")
+
+
+# -- the explicit path on a scene with S past K1's 1024 rows ----------------------
+
+
+def explicit_twin(schur, data):
+    """A second solver on the same evaluator with the dense-W gate at 0, so
+    that it takes the explicit S, and its prepare() of the same data."""
+    from skeres_tpu_torch.core import schur as schur_mod
+
+    saved = schur_mod.DENSE_W_LIMIT_BYTES
+    schur_mod.DENSE_W_LIMIT_BYTES = 0
+    try:
+        twin = schur_mod.SchurSolver(schur.ev)
+    finally:
+        schur_mod.DENSE_W_LIMIT_BYTES = saved
+    return twin, twin.prepare([(r, jac) for r, jac, _ in data["per_batch"]])
+
+
+def phase_explicit_vs_dense_w(device):
+    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
+
+    program = build_bal_problem(synthetic_bal(120, 2000, 4))[0].compile()
+    schur, data, g, diag = linearize(program, device, torch.float64)
+    twin, twin_data = explicit_twin(schur, data)
+    check(schur.schur_path == "dense-W" and twin.schur_path == "explicit",
+          "explicit-vs-dense-W: the two solvers do not take the two paths")
+    s_exp = twin._dense_s_explicit(first_assembly(twin, twin_data, g, diag))
+    s_dw = schur._dense_s_dense_w(first_assembly(schur, data, g, diag))
+    torch.cuda.synchronize()
+    diff = (s_exp - s_dw).abs()
+    worst = float((diff / s_dw.abs().clamp(min=1e-300)).max())
+    err, rel = rel_err(s_exp, s_dw)
+    print(f"[explicit-vs-dense-W] synthetic_bal(120, 2000, 4) float64: S {tuple(s_exp.shape)}, "
+          f"max|diff| {err:.3e} (rel to max|S| {rel:.3e}), max elementwise rel {worst:.3e}")
+    # rtol 1e-10, with an atol of 1e-12 max|S| for entries that cancel: each
+    # entry sums ~6,000 float64 products in another order on each path
+    check(bool(torch.all(diff <= 1e-10 * s_dw.abs() + 1e-12 * float(s_dw.abs().max()))),
+          "explicit S and dense-W S differ beyond rtol 1e-10")
+
+
+def phase_card_vs_cpu_explicit(device):
+    from skeres_tpu_torch.core import schur as schur_mod
+    from skeres_tpu_torch.io.bal import synthetic_bal
+    from skeres_tpu_torch.ops.cholesky import PANEL, cholesky_both
+    from skeres_tpu_torch.ops.pair_product import pair_products
+
+    saved = schur_mod.DENSE_W_LIMIT_BYTES
+    schur_mod.DENSE_W_LIMIT_BYTES = 0
+    try:
+        # S has 1080 rows: every K1 launch of this run is one of K2's panels
+        cholesky_both.launches = pair_products.launches = 0
+        card = card_vs_cpu(device, synthetic_bal(120, 2000, 4), "card-vs-cpu explicit")
+        k2, k3 = cholesky_both.launches, pair_products.launches
+    finally:
+        schur_mod.DENSE_W_LIMIT_BYTES = saved
+    print(f"[card-vs-cpu explicit] K3 launches {k3}, K1 panel launches inside K2 {k2}, "
+          f"{card.num_linear_solves} damped solves")
+    check(card.schur_complement_path == "explicit", "card-vs-cpu explicit: not the explicit path")
+    check(k3 >= card.num_linear_solves > 0
+          and k2 >= math.ceil(1080 / PANEL) * card.num_linear_solves,
+          "card-vs-cpu explicit: K2 or K3 did not launch on every damped solve")
 
 
 def cuda_ms(fn, reps: int = 20, calls: int = 10) -> float:
@@ -292,24 +527,230 @@ def phase_timing(device):
     return ms, plain_ms
 
 
+# -- venice-1778 shape ----------------------------------------------------------
+
+
+def venice_scene():
+    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
+
+    t0 = time.time()
+    bal = synthetic_bal(**VENICE)
+    t_gen = time.time() - t0
+    t0 = time.time()
+    problem, _, _ = build_bal_problem(bal)
+    program = problem.compile()
+    t_compile = time.time() - t0
+    print(f"[venice] synthetic_bal{tuple(VENICE.values())}: {bal.num_cameras} cameras, "
+          f"{bal.num_points} points, {bal.num_observations} observations; host time: "
+          f"generate {t_gen:.2f} s, build and compile the problem {t_compile:.2f} s")
+    return problem, program
+
+
+def profile_damped_solve(schur, data, g, diag):
+    """torch.profiler over one damped solve: device time by kernel, and
+    the device's busy share of the solve's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        schur.solve_damped(data, g, diag, 1e-4, 1e-6, 1e32)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    # the device-side events (kernels, copies, sets): one stream, so their
+    # sum is the device's busy time
+    busy = sum(ev.device_time_total for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / 1e3  # ms
+    events = prof.key_averages()
+    print(f"[venice] profile of one damped solve: wall {wall * 1e3:.3f} ms (profiled), "
+          f"device time {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} % busy)")
+    table = events.table(sort_by="self_device_time_total", row_limit=15)
+    for line in table.splitlines():
+        print(f"[venice][profile] {line}")
+
+
+def phase_venice(device, program):
+    """Kernel checks and timings at venice shape, from the first damped
+    solve's state. Returns the K3 and K2 numbers for the kernels line."""
+    from skeres_tpu_torch.core.schur import _jittered
+    from skeres_tpu_torch.ops.cholesky import (
+        PANEL,
+        blocked_cholesky_factor,
+        blocked_cholesky_factor_reference,
+    )
+    from skeres_tpu_torch.ops.pair_product import pair_products, pair_products_reference
+
+    t0 = time.time()
+    schur, data, g, diag = linearize(program, device, torch.float32, VENICE_CHUNK)
+    torch.cuda.synchronize()
+    plan = schur.explicit_plan
+    print(f"[venice] first linearization {time.time() - t0:.2f} s; path {schur.schur_path}; "
+          f"S {schur.num_f} rows; plan: kp {plan.kp}, {plan.npairs} pairs per point, "
+          f"{plan.n_uniq} unique camera pairs, {len(plan.levels)} levels "
+          f"{[(lv.n_dest, lv.cap) for lv in plan.levels]}")
+    check(schur.schur_path == "explicit", "venice: not the explicit path")
+
+    asm = first_assembly(schur, data, g, diag)
+    grid = asm["explicit_grid"]["grid"].contiguous()
+    cinv_flat = asm["cinv"].reshape(-1, 9).contiguous()
+    kern, plain = k3_tables(plan, grid, cinv_flat)
+    k3_err, k3_rel = rel_err(kern, plain)
+    print(f"[K3] venice shape float32: table max|err| {k3_err:.3e} (rel {k3_rel:.3e})")
+    check(k3_rel <= K3_RTOL[torch.float32], f"K3 venice: rel error {k3_rel:.3e}")
+    del kern, plain
+
+    s_eq = equilibrated(schur._dense_s(asm))
+    del asm
+    for jitter in (0.0, 1e-3, 0.1):  # the ladder's rungs
+        fac = blocked_cholesky_factor(_jittered(s_eq, jitter))
+        if bool(torch.isfinite(fac.l).all()):
+            break
+    check(bool(torch.isfinite(fac.l).all()), "K2 venice: every rung of the ladder failed")
+    del fac
+    print(f"[K2] venice equilibrated S ({s_eq.shape[0]} rows float32) factors at jitter {jitter}")
+    # no bound against the plain version: S of a gauge-free BA problem is
+    # ill-conditioned, so two float32 factorizations differ by about
+    # cond(S) * eps; the backward errors are what both guarantee
+    k2_case(_jittered(s_eq, jitter), PANEL, "venice S", rtol=None, backward=K2_VENICE_BACKWARD)
+    del s_eq
+    torch.cuda.empty_cache()
+
+    profile_damped_solve(schur, data, g, diag)
+
+    # K3 at venice shape: kernel, plain, plain, kernel
+    swap, valid, kl = plan.swap_mask, plan.pair_valid, plan.pair_kl
+    run_k = lambda: pair_products(grid, cinv_flat, swap, valid, kl, 9, 3)
+    run_p = lambda: pair_products_reference(grid, cinv_flat, swap, valid, kl, 9, 3,
+                                            plan.chunk_points)
+    t = [cuda_ms(run_k, calls=5), cuda_ms(run_p, calls=1), cuda_ms(run_p, calls=1),
+         cuda_ms(run_k, calls=5)]
+    k3_ms, k3_plain = min(t[0], t[3]), min(t[1], t[2])
+    moved = (plan.n_pair_rows * 81 + grid.numel() + cinv_flat.numel()) * 4 + 2 * swap.numel()
+    print(f"[timing] K3 venice shape ({plan.n_pair_rows} pair rows, {moved / 1e9:.3f} GB "
+          f"moved): kernel {t[0]:.4f}/{t[3]:.4f} ms ({moved / 1e6 / k3_ms:.1f} GB/s), plain "
+          f"{t[1]:.4f}/{t[2]:.4f} ms (median of 20 runs)")
+    del schur, data, g, diag, grid, cinv_flat
+    torch.cuda.empty_cache()
+
+    # K2 at n = 16,002 on a random SPD matrix, both panels: plain, K2, K2, plain
+    n = 9 * VENICE["num_cameras"]
+    gen = torch.Generator(device=device).manual_seed(n)
+    m = torch.randn(n, n, generator=gen, device=device, dtype=torch.float32)
+    a = m @ m.T
+    a.diagonal().add_(float(n))
+    del m
+    times = {"plain": [cuda_ms(lambda: blocked_cholesky_factor_reference(a), calls=1)]}
+    for panel in K2_PANELS:
+        times[panel] = [cuda_ms(lambda: blocked_cholesky_factor(a, panel=panel), calls=1)]
+    for panel in reversed(K2_PANELS):
+        times[panel].append(cuda_ms(lambda: blocked_cholesky_factor(a, panel=panel), calls=1))
+    times["plain"].append(cuda_ms(lambda: blocked_cholesky_factor_reference(a), calls=1))
+    print(f"[timing] K2 n={n} float32: " + ", ".join(
+        f"panel {p} {t[0]:.3f}/{t[1]:.3f} ms" for p, t in times.items() if p != "plain")
+        + f"; plain (cuSOLVER potrf) {times['plain'][0]:.3f}/{times['plain'][1]:.3f} ms "
+        "(median of 20 runs)")
+    k2_case(a, PANEL, f"n={n} random SPD float32", rtol=None, backward=K2_VENICE_BACKWARD)
+    del a
+    torch.cuda.empty_cache()
+    return dict(k3=(k3_err, k3_ms, k3_plain), k2=(min(times[PANEL]), min(times["plain"])))
+
+
+def phase_venice_solve(device, problem, program) -> tuple[int, int]:
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.types import LinearSolverType
+    from skeres_tpu_torch.ops.cholesky import PANEL, cholesky_both
+    from skeres_tpu_torch.ops.pair_product import pair_products
+
+    options = stt.SolverOptions(
+        linear_solver_type=LinearSolverType.DENSE_SCHUR,
+        max_num_iterations=VENICE_STEPS,
+        run_full_iteration_budget=True,
+        dtype=torch.float32,
+        device=device,
+        evaluation_chunk_size=VENICE_CHUNK,
+    )
+    torch.cuda.reset_peak_memory_stats()
+    # S has 16,002 rows: every K1 launch of this run is one of K2's panels
+    cholesky_both.launches = pair_products.launches = 0
+    s = stt.solve(options, problem, program)
+    k2, k3 = cholesky_both.launches, pair_products.launches
+    steps = s.num_successful_steps + s.num_unsuccessful_steps
+    costs = [it.cost for it in s.iterations]
+    panels = math.ceil(9 * VENICE["num_cameras"] / PANEL)
+    print(f"[venice-solve] path {s.schur_complement_path}; costs: {json.dumps(costs)}")
+    print(f"[venice-solve] linear solver iterations: "
+          f"{[it.linear_solver_iterations for it in s.iterations[1:]]}")
+    print(f"[venice-solve] {steps} LM steps ({s.num_successful_steps} accepted) in "
+          f"{s.minimizer_time_in_seconds:.4f} s of minimizer time: "
+          f"{steps / s.minimizer_time_in_seconds:.4f} LM steps/s; preprocessor "
+          f"{s.preprocessor_time_in_seconds:.4f} s, jacobian "
+          f"{s.jacobian_evaluation_time_in_seconds:.4f} s, linear solver "
+          f"{s.linear_solver_time_in_seconds:.4f} s, residual "
+          f"{s.residual_evaluation_time_in_seconds:.4f} s, total {s.total_time_in_seconds:.4f} s")
+    print(f"[venice-solve] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"[venice-solve] {s.num_linear_solves} damped solves: K3 launches {k3} "
+          f"({k3 / max(s.num_linear_solves, 1):.2f} a solve), K1 panel launches inside K2 {k2} "
+          f"({k2 / max(s.num_linear_solves, 1):.2f} a solve, {panels} panels a factor)")
+    check(s.schur_complement_path == "explicit", "venice solve: not the explicit path")
+    check(all(math.isfinite(c) for c in costs), "venice solve: non-finite cost")
+    check(s.num_successful_steps >= 1, "venice solve: no step accepted")
+    check(s.final_cost < s.initial_cost,
+          f"venice solve: final cost {s.final_cost} not below initial {s.initial_cost}")
+    check(k3 >= s.num_linear_solves > 0 and k2 >= panels * s.num_linear_solves,
+          "venice solve: K3 or K2 did not launch on every damped solve")
+    return k2, k3
+
+
 def main() -> int:
     phase_device()
     device = "cuda"
     phase_build()
-    err_441 = phase_k1(device)
-    launches = phase_solve(device)
+    k1_err = phase_k1(device)
+    k2_err = phase_k2(device)
+    phase_k3(device)
+    k1_launches = phase_solve(device)
     phase_card_vs_cpu(device)
-    ms, plain_ms = phase_timing(device)
-    print(json.dumps({"kernels": [{
-        "name": "cholesky_inverse_factor (K1)",
-        "route": "cuda",
-        "source": "skeres_tpu_torch/csrc/cholesky.cu",
-        "replaces": "skeres_tpu/ops/pallas/cholesky.py:98",
-        "launches": launches,
-        "max_abs_err": err_441,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    phase_explicit_vs_dense_w(device)
+    phase_card_vs_cpu_explicit(device)
+    problem, program = venice_scene()
+    venice = phase_venice(device, program)
+    k2_launches, k3_launches = phase_venice_solve(device, problem, program)
+    k1_ms, k1_plain = phase_timing(device)
+    k3_err, k3_ms, k3_plain = venice["k3"]
+    k2_ms, k2_plain = venice["k2"]
+    print(json.dumps({"kernels": [
+        {
+            "name": "cholesky_inverse_factor (K1)",
+            "route": "cuda",
+            "source": "skeres_tpu_torch/csrc/cholesky.cu",
+            "replaces": "skeres_tpu/ops/pallas/cholesky.py:98",
+            "launches": k1_launches,
+            "max_abs_err": k1_err,
+            "ms": k1_ms,
+            "plain_ms": k1_plain,
+        },
+        {
+            "name": "blocked_cholesky_factor (K2; launches: its K1 panel launches)",
+            "route": "cuda",
+            "source": "skeres_tpu_torch/csrc/cholesky.cu",
+            "replaces": "skeres_tpu/ops/pallas/cholesky.py:249",
+            "launches": k2_launches,
+            "max_abs_err": k2_err,
+            "ms": k2_ms,
+            "plain_ms": k2_plain,
+        },
+        {
+            "name": "pair_products (K3)",
+            "route": "cuda",
+            "source": "skeres_tpu_torch/csrc/pair_product.cu",
+            "replaces": "skeres_tpu/ops/pallas/pair_product.py:49",
+            "launches": k3_launches,
+            "max_abs_err": k3_err,
+            "ms": k3_ms,
+            "plain_ms": k3_plain,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

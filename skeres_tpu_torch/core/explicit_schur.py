@@ -1,0 +1,310 @@
+"""Explicit Schur-complement assembly: S from per-point pair products.
+
+PyTorch counterpart of ``skeres_tpu/core/explicit_schur.py``, single
+device (reference lineage: ``schur_complement_solver.cc`` assembling S
+block by block). DENSE_SCHUR builds S this way once the dense per-point W
+of the dense-W path passes its gate (venice-1778: 192 GB):
+
+  S = blockdiag(F^T F + D_f) - W C^-1 W^T
+
+- the per-row ``A_r = F_r^T E_r`` blocks are laid on a point grid
+  (P, kp) (a pure reshape when every point has kp observations in row
+  order);
+- the OFF-diagonal blocks are the pair products ``Y_pk A_pl^T`` (k < l)
+  of every point, computed by K3 (``ops/pair_product.py``), reduced onto
+  the unique camera pairs by a host-planned hierarchical sum: each level
+  is one index-select, a reshape and a sum, with fan-in <= ``pair_cap``.
+  It is deterministic, where an ``index_add_`` would sum in a different
+  order on every run;
+- dense S is then gather-built: every (ci, cj) block position reads its
+  unique-pair row, its transpose, a per-camera diagonal row, or zero.
+
+All index arrays are problem structure, built once on the host. Still to
+port: the mesh (SPMD) plan and the cluster maps of the CLUSTER_*
+preconditioners (ROADMAP items 10 and 8); no caller of the port needs
+them yet, since ``solve()`` refuses a mesh and every linear solver but
+DENSE_SCHUR.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from skeres_tpu_torch.ops.pair_product import pair_products
+
+__all__ = ["ExplicitSchurPlan"]
+
+# cameras per block row of the dense-S gather-build: bounds its transient
+# (chunk * nc, f, f) gather to ~1/14 of S at venice-1778 shape
+_CHUNK_CAMS = 127
+
+
+class _SumLevel(NamedTuple):
+    src: torch.Tensor  # (n_dest * cap,) int64 into the previous level's rows
+    n_dest: int
+    cap: int
+
+
+def _hierarchical_sum_plan(
+    ids: np.ndarray, raw_rows: np.ndarray, n_rows: int, cap: int = 32,
+    adaptive: bool = False,
+) -> Tuple[list, np.ndarray]:
+    """Plan ``out[u] = sum(values[raw_rows][ids == uniq[u]])`` as static
+    gather+reshape+sum levels with fan-in <= cap per level (numpy,
+    vectorized; venice has ~10M pair rows).
+
+    ``adaptive=True`` shrinks each level's fan-in toward the median group
+    size (power of two, >= 2), bounding the padded-row waste even for
+    low-fan-in (unstructured-visibility) id distributions, at the cost of
+    one or two extra levels.
+
+    Returns (levels, uniq_ids (n_uniq,)) with levels as raw
+    ``(src ndarray, n_dest, cap)`` tuples. Level k's gather indexes the
+    output rows of level k-1 (level 0 indexes the raw value rows); the
+    sentinel index == n_rows_of_previous_level selects a zero row appended
+    at run time.
+    """
+    order = np.argsort(ids, kind="stable")
+    sorted_ids = ids[order]
+    uniq, start = np.unique(sorted_ids, return_index=True)
+    counts = np.diff(np.append(start, len(ids)))
+
+    levels = []
+    n_prev = n_rows
+    cur_counts = counts.astype(np.int64)
+    cur_rows = raw_rows[order].astype(np.int64)  # grouped by id
+    max_cap = cap
+    while True:
+        if adaptive and len(cur_counts):
+            med = max(int(np.median(cur_counts)), 2)
+            cap = min(max_cap, 1 << int(np.ceil(np.log2(med))))
+        n_dest = len(cur_counts)
+        n_d = (cur_counts + cap - 1) // cap  # sub-rows per destination
+        sub_start = np.concatenate([[0], np.cumsum(n_d)[:-1]]).astype(np.int64)
+        n_sub = int(n_d.sum())
+        # position of the j-th row of destination d: sub_start[d]*cap + j
+        dest_of_row = np.repeat(np.arange(n_dest), cur_counts)
+        starts = np.concatenate([[0], np.cumsum(cur_counts)[:-1]]).astype(np.int64)
+        j_within = np.arange(len(cur_rows)) - starts[dest_of_row]
+        positions = sub_start[dest_of_row] * cap + j_within
+        src = np.full(n_sub * cap, n_prev, dtype=np.int64)  # sentinel
+        src[positions] = cur_rows
+        levels.append((src, n_sub, cap))
+        if n_dest == 0 or (n_d == 1).all():
+            break
+        # next level reduces each destination's sub-rows
+        cur_rows = np.arange(n_sub, dtype=np.int64)
+        cur_counts = n_d
+        n_prev = n_sub
+    return levels, uniq
+
+
+def _freeze_levels(levels, device) -> List[_SumLevel]:
+    return [_SumLevel(torch.as_tensor(src).to(device), n_dest, cap) for src, n_dest, cap in levels]
+
+
+def _apply_hierarchical_sum(levels: List[_SumLevel], values: torch.Tensor) -> torch.Tensor:
+    """values: (n_rows, D) -> (n_last_dest, D) via the planned levels."""
+    cur = values
+    for lvl in levels:
+        padded = torch.cat([cur, cur.new_zeros((1,) + cur.shape[1:])])
+        cur = padded.index_select(0, lvl.src).view(lvl.n_dest, lvl.cap, -1).sum(dim=1)
+    return cur
+
+
+def _check_level0_waste(levels, n_rows: int, factor: float = 3.0):
+    """Reject pathological (unstructured) visibility: when unique camera
+    pairs have tiny fan-in (every point seeing random cameras), the
+    level-0 padded-gather form inflates to n_uniq*cap rows. Real BA
+    visibility is structured; structured cases sit near 1.0x here."""
+    if levels:
+        src, n_dest, cap = levels[0]
+        # only material sizes: a few hundred KB of padding on a tiny
+        # problem is irrelevant and must not reject it
+        if n_dest * cap >= (1 << 20) and n_dest * cap > factor * max(n_rows, 1):
+            raise ValueError(
+                "unique-pair fan-in too low for the hierarchical padded "
+                f"sum ({n_dest * cap} padded rows vs {n_rows} pair rows)"
+            )
+
+
+def _pair_metadata(grid_cam: np.ndarray, num_cameras: int, iu, ju):
+    """Per-point-row pair bookkeeping from a (Pn, kp) camera grid:
+    (swap (Pn, npair) bool, valid (Pn, npair) bool, pair_id (Pn*npair,)
+    with -1 for invalid)."""
+    npair = len(iu)
+    ca = grid_cam[:, iu].reshape(-1)
+    cb = grid_cam[:, ju].reshape(-1)
+    pair_valid = (ca >= 0) & (cb >= 0)
+    swap = ca > cb
+    lo = np.where(swap, cb, ca)
+    hi = np.where(swap, ca, cb)
+    pair_id = np.where(pair_valid, lo * num_cameras + hi, -1)
+    pn = grid_cam.shape[0]
+    return swap.reshape(pn, npair), pair_valid.reshape(pn, npair), pair_id
+
+
+def _transpose_blocks(flat: torch.Tensor, f: int) -> torch.Tensor:
+    """Transpose every flat (f*f,) f-major block row."""
+    return flat.view(-1, f, f).transpose(1, 2).reshape(-1, f * f)
+
+
+class ExplicitSchurPlan:
+    """Static plan for explicit-S assembly of ONE observation batch with a
+    single retained slot (the bundle-adjustment case), on one device."""
+
+    def __init__(
+        self,
+        cam_idx: np.ndarray,  # (B,) camera block id per row
+        pt_idx: np.ndarray,  # (B,) point block id per row
+        num_cameras: int,
+        num_points: int,
+        f_size: int,
+        e_size: int,
+        pair_cap: int = 32,
+        pad_waste: float = 1.5,
+        chunk_value_budget: int = 1 << 26,  # bytes of pair values the plain
+        # version of K3 materializes at once
+        device="cpu",
+    ):
+        B = len(cam_idx)  # the port's batches have no pad rows
+        self.nc = num_cameras
+        self.np_ = num_points
+        self.f = f_size
+        self.e = e_size
+
+        # -- point grid stats + skew gate ----------------------------------
+        counts = np.bincount(pt_idx, minlength=num_points)
+        kp = int(counts.max()) if num_points else 0
+        self.kp = kp
+        if num_points * kp > pad_waste * B * 2.0:
+            raise ValueError("point-degree skew too high for explicit S")
+
+        iu, ju = np.triu_indices(kp, k=1)
+        self.npairs = npairs = len(iu)
+        self.pair_kl = torch.as_tensor(np.stack([iu, ju]).astype(np.int32)).to(device)
+        # points per chunk of K3's plain version: bound its pair-value bytes
+        self.chunk_points = max(256, chunk_value_budget // max(1, npairs * f_size * f_size * 4))
+
+        order = np.argsort(pt_idx, kind="stable")
+        sorted_pt = pt_idx[order]
+        starts = np.searchsorted(sorted_pt, np.arange(num_points))
+        pos = np.arange(B) - starts[sorted_pt]
+        grid_src = np.full(num_points * kp, B, dtype=np.int64)  # sentinel
+        grid_src[sorted_pt * kp + pos] = order
+        grid_cam = np.full(num_points * kp, -1, dtype=np.int64)
+        gvalid = grid_src < B
+        grid_cam[gvalid] = cam_idx[grid_src[gvalid]]
+        grid_cam = grid_cam.reshape(num_points, kp)
+        swap_g, valid_g, pair_id_g = _pair_metadata(grid_cam, num_cameras, iu, ju)
+        uniq = np.unique(pair_id_g[pair_id_g >= 0])
+        self.n_uniq = n_uniq = len(uniq)
+
+        # uniform point-sorted rows: the grid is the identity reshape of the rows
+        self.grid_is_reshape = bool(
+            num_points * kp == B and (counts == kp).all() and (grid_src == np.arange(B)).all()
+        )
+        self.grid_src = None if self.grid_is_reshape else torch.as_tensor(grid_src).to(device)
+        self.swap_mask = torch.as_tensor(swap_g).to(device)
+        self.pair_valid = torch.as_tensor(valid_g).to(device)
+        rows = np.nonzero(pair_id_g >= 0)[0]
+        self.n_pair_rows = len(pair_id_g)
+        levels, uniq_l = _hierarchical_sum_plan(
+            pair_id_g[rows], rows, self.n_pair_rows, cap=pair_cap, adaptive=True,
+        )
+        assert len(uniq_l) == n_uniq
+        _check_level0_waste(levels, self.n_pair_rows)
+        self.levels = _freeze_levels(levels, device)
+
+        # -- dense-S gather map: block position (ci, cj) -> table row ------
+        # SAME-CAMERA pairs (a point observed twice by one camera) store a
+        # real uniq row at the diagonal position; the dense builds fold both
+        # of its read directions into the per-camera diagonal region
+        pos2u = np.full(num_cameras * num_cameras, n_uniq, dtype=np.int64)
+        pos2u[uniq] = np.arange(n_uniq)
+        lo_all = uniq // num_cameras
+        hi_all = uniq % num_cameras
+        pos2u_t = np.full(num_cameras * num_cameras, n_uniq, dtype=np.int64)
+        pos2u_t[hi_all * num_cameras + lo_all] = np.arange(n_uniq)
+        dd = np.arange(num_cameras)
+        self.diag_pair_idx = torch.as_tensor(pos2u[dd * num_cameras + dd]).to(device)
+        # one read per position from the combined table
+        # [uniq | uniq^T | per-camera diagonal region | zero]
+        comb = np.full(num_cameras * num_cameras, 2 * n_uniq + num_cameras, np.int64)
+        has_up = pos2u < n_uniq
+        comb[has_up] = pos2u[has_up]
+        has_low = (pos2u_t < n_uniq) & ~has_up
+        comb[has_low] = n_uniq + pos2u_t[has_low]
+        comb[dd * num_cameras + dd] = 2 * n_uniq + dd
+        self.pos2u_combined = torch.as_tensor(comb).to(device)
+
+    # -- runtime -----------------------------------------------------------
+
+    def build_grid(self, a_flat: torch.Tensor) -> dict:
+        """mu-independent prep: lay the per-row A = F^T E rows (B, f*e) onto
+        the point grid (P, kp*f*e). Hoisted to once per linearization
+        (SchurSolver.prepare); rejected-step re-solves then pay only the
+        C^-1-dependent pair products."""
+        d = a_flat.shape[1]
+        if self.grid_is_reshape:
+            grid = a_flat.reshape(self.np_, self.kp * d)
+        else:
+            padded = torch.cat([a_flat, a_flat.new_zeros((1, d))])
+            grid = padded[self.grid_src].reshape(self.np_, self.kp * d)
+        return {"grid": grid}
+
+    def _pair_values(self, grid, cinv_rows, swap, valid):
+        """(Pn, kp*f*e) grid -> (Pn*npairs, f*f) pair values by K3."""
+        return pair_products(
+            grid, cinv_rows, swap, valid, self.pair_kl, self.f, self.e, self.chunk_points
+        )
+
+    def correction_offdiag(self, grid: dict, cinv_flat: torch.Tensor) -> torch.Tensor:
+        """sum over points of Y_pk A_pl^T for k < l, reduced to the unique
+        camera-pair blocks: flat (n_uniq, f*f) f-major rows.
+
+        grid:      dict from :meth:`build_grid` (mu-independent);
+        cinv_flat: (P, e*e).
+        """
+        if self.n_uniq == 0 or self.npairs == 0:
+            return cinv_flat.new_zeros((self.n_uniq, self.f * self.f))
+        vals = self._pair_values(
+            grid["grid"].contiguous(), cinv_flat.contiguous(), self.swap_mask, self.pair_valid
+        )
+        return _apply_hierarchical_sum(self.levels, vals)
+
+    def dense_s_full(self, uniq_flat, diag_flat):
+        """The full (nc*f, nc*f) correction-plus-diagonal matrix in one
+        gather-build: the per-camera diagonal blocks ``diag_flat``
+        (nc, f*f) ride as the table's diagonal region. The off-diagonal is
+        exactly symmetric by construction: entries (a, b) and (b, a) read
+        the same table row, one of them transposed."""
+        zero = uniq_flat.new_zeros((1, self.f * self.f))
+        cc = torch.cat([uniq_flat, zero])[self.diag_pair_idx]
+        diag_region = cc + _transpose_blocks(cc, self.f) + diag_flat
+        combined = torch.cat(
+            [uniq_flat, _transpose_blocks(uniq_flat, self.f), diag_region, zero]
+        )
+        return self._rearrange_dense(combined)
+
+    def dense_s_offdiag(self, uniq_flat):
+        """The (nc*f, nc*f) off-diagonal correction from the unique pair
+        blocks, by the same gather-build as :meth:`dense_s_full` with no
+        diagonal blocks beyond the same-camera pair fold."""
+        return self.dense_s_full(uniq_flat, uniq_flat.new_zeros((self.nc, self.f * self.f)))
+
+    def _rearrange_dense(self, table):
+        """Combined-table rows -> the dense (nc*f, nc*f) matrix, written in
+        block rows of ``_CHUNK_CAMS`` cameras so the (nc*nc, f*f) block-row
+        array never materializes whole."""
+        nc, f = self.nc, self.f
+        out = table.new_empty((nc * f, nc * f))
+        pm = self.pos2u_combined.view(nc, nc)
+        for c0 in range(0, nc, _CHUNK_CAMS):
+            c1 = min(c0 + _CHUNK_CAMS, nc)
+            g = table[pm[c0:c1].reshape(-1)].view(c1 - c0, nc, f, f)
+            out[c0 * f : c1 * f].view(c1 - c0, f, nc, f).copy_(g.transpose(1, 2))
+        return out

@@ -1,24 +1,28 @@
 """Schur-complement elimination for bundle-adjustment structure: DENSE_SCHUR.
 
-PyTorch counterpart of the DENSE_SCHUR dense-W path of
-``skeres_tpu/core/schur.py`` (reference lineage:
-``internal/ceres/schur_eliminator_impl.h``, ``schur_complement_solver.cc``):
+PyTorch counterpart of the DENSE_SCHUR paths of ``skeres_tpu/core/schur.py``
+(reference lineage: ``internal/ceres/schur_eliminator_impl.h``,
+``schur_complement_solver.cc``):
 
   - per-point ``C = E^T E + D_e`` by a segment reduction of the batched
     ``e x e`` outer products, inverted in closed form (3x3 cofactors);
-  - S over the retained (camera) coordinates from a dense per-point W,
-    ``S = blockdiag(F^T F) - sum_p W_p C_p^-1 W_p^T + D_f``; the big
-    contraction is one ``torch.einsum`` (a matrix product);
-  - S is equilibrated and factored by K1 (``ops/cholesky.py``), with the
+  - S over the retained (camera) coordinates,
+    ``S = blockdiag(F^T F) - sum_p W_p C_p^-1 W_p^T + D_f``, by one of two
+    paths, in the JAX package's priority: from a dense per-point W while
+    it stays under its 2 GiB gate (one ``torch.einsum``, a matrix
+    product), else by the explicit pair-product plan
+    (``core/explicit_schur.py``, K3) while S stays under
+    ``explicit_schur_limit_bytes``;
+  - S is equilibrated and factored by K1 up to 1024 rows and by K2, the
+    blocked factor over K1 panels, above (``ops/cholesky.py``), with the
     jitter ladder and the capped PCG fallback of the JAX package;
   - back-substitution ``dx_e = C^-1 (b_e - W^T dx_f)`` batched per point.
 
 Structure is declared: the parameter group tagged with
 ``set_schur_elimination_group(arr, 0)`` is eliminated, everything else is
 retained. Still to port: ITERATIVE_SCHUR and its preconditioners, the
-explicit pair-product S (``core/explicit_schur.py``, needed when W passes
-its 2 GB gate), the camera-padded layout, and S larger than K1's 1024 rows
-(K2).
+column-probe S (taken by the JAX package when neither path above is
+viable; the port raises there), and the camera-padded layout.
 """
 
 from __future__ import annotations
@@ -27,12 +31,15 @@ import numpy as np
 import torch
 
 from skeres_tpu_torch.core.evaluator import Evaluator
+from skeres_tpu_torch.core.explicit_schur import ExplicitSchurPlan
 from skeres_tpu_torch.core.linear_solvers import (
     lm_diagonal,
     preconditioned_conjugate_gradients,
 )
 from skeres_tpu_torch.ops.cholesky import (
     MAX_CHOLESKY_N,
+    blocked_chol_solve,
+    blocked_cholesky_factor,
     chol_solve,
     cholesky_inverse_factor,
 )
@@ -45,10 +52,26 @@ DENSE_W_LIMIT_BYTES = 2 << 30  # the JAX package's gate (as float32 bytes)
 FALLBACK_CG_ITERATIONS = 32
 
 
+def _jittered(s, delta: float):
+    """``S + delta * I`` without an n x n identity: ``s`` itself when
+    delta is 0, else a copy with delta added to its diagonal."""
+    if delta == 0.0:
+        return s
+    out = s.clone()
+    out.diagonal().add_(delta)
+    return out
+
+
 class SchurSolver:
     """Damped normal-equation solver eliminating the group-0 parameters."""
 
-    def __init__(self, evaluator: Evaluator):
+    def __init__(
+        self,
+        evaluator: Evaluator,
+        pad_waste: float = 1.5,
+        explicit_s_limit_bytes: int = 2 << 30,
+        pair_cap: int = 32,
+    ):
         self.ev = evaluator
         program = evaluator.program
         device = evaluator.device
@@ -67,8 +90,9 @@ class SchurSolver:
         self.elim_offset = program.tangent_offset[self.elim_group]
         self.elim_span = self.num_points * self.e_size
 
-        # the dense-W path: ONE retained group (the cameras) and ONE batch
-        # coupling a point block to a camera block per row (the BA case)
+        # both S paths need ONE retained group (the cameras) and ONE batch
+        # coupling a point block to a camera block per row (the BA case);
+        # the JAX package's column probe takes the rest
         ret = [gi for gi in range(len(program.groups)) if gi != self.elim_group]
         e_batches = [
             bi for bi, b in enumerate(program.batches)
@@ -77,8 +101,8 @@ class SchurSolver:
         if len(ret) != 1 or len(e_batches) != 1:
             raise NotImplementedError(
                 "DENSE_SCHUR is ported for one eliminated x retained batch "
-                "and one retained group (the dense-W path); the explicit S "
-                "and the column probe are still to port"
+                "and one retained group (dense-W and explicit S); the "
+                "column-probe S (core/schur.py:_dense_s) is not ported yet"
             )
         self.ret_group = ret[0]
         gf = program.groups[self.ret_group]
@@ -88,7 +112,7 @@ class SchurSolver:
 
         # per batch: the eliminated slot's first column (or None), and the
         # retained columns with their retained-space indices (for batches
-        # that add to S outside the dense-W product, e.g. camera priors)
+        # that add to S outside the observation batch, e.g. camera priors)
         self.batch_info = []
         for b in program.batches:
             e_slots = [s for s, gi in enumerate(b.slot_groups) if gi == self.elim_group]
@@ -112,25 +136,66 @@ class SchurSolver:
         b = program.batches[bi]
         if len(b.slot_groups) != 2:
             raise NotImplementedError(
-                "the dense-W path needs two slots per row: one point, one camera"
+                "DENSE_SCHUR is ported for two slots per observation row, "
+                "one point and one camera; the column-probe S "
+                "(core/schur.py:_dense_s) is not ported yet"
             )
         self.e_slot = b.slot_groups.index(self.elim_group)
         self.f_slot = 1 - self.e_slot
         self.f_col = int(np.cumsum((0,) + b.tangent_sizes)[self.f_slot])
+        cam_idx = np.asarray(b.slot_indices[self.f_slot], dtype=np.int64)
+        pt_idx = np.asarray(b.slot_indices[self.e_slot], dtype=np.int64)
+
+        # dense-W path (first priority): viable while the dense per-point
+        # W = (n_pts, n_cams, f, e) stays under the JAX package's gate
+        self.w_plan = None
         w_bytes = self.num_points * self.num_cams * self.f_size * self.e_size * 4
-        if w_bytes > DENSE_W_LIMIT_BYTES:
-            raise NotImplementedError(
-                f"dense W would take {w_bytes >> 20} MiB (gate 2 GiB); the "
-                "explicit S that replaces it is still to port"
+        if w_bytes <= DENSE_W_LIMIT_BYTES:
+            # each (point, camera) cell receives at most a few observations
+            self.w_plan = build_reduce_plan(
+                pt_idx * self.num_cams + cam_idx, self.num_points * self.num_cams, device
             )
-        if self.num_f > MAX_CHOLESKY_N:
-            raise NotImplementedError(
-                f"S has {self.num_f} rows; K1 factors up to {MAX_CHOLESKY_N} and "
-                "the blocked factor beyond (K2) is still to port"
+
+        self.explicit_plan = None
+        self.explicit_reject_reason = None
+        if self.w_plan is not None:
+            return
+        # explicit-S plan (core/explicit_schur.py): where dense W does not
+        # fit, while S fits its own gate
+        s_bytes = self.num_f ** 2 * 4
+        if s_bytes > explicit_s_limit_bytes:
+            self.explicit_reject_reason = (
+                f"S too large: {s_bytes >> 20} MiB > explicit_schur_limit_bytes "
+                f"({explicit_s_limit_bytes >> 20} MiB)"
             )
-        # each (point, camera) cell receives at most a few observations
-        lin_idx = b.slot_indices[self.e_slot] * self.num_cams + b.slot_indices[self.f_slot]
-        self.w_plan = build_reduce_plan(lin_idx, self.num_points * self.num_cams, device)
+        else:
+            try:
+                self.explicit_plan = ExplicitSchurPlan(
+                    cam_idx=cam_idx,
+                    pt_idx=pt_idx,
+                    num_cameras=self.num_cams,
+                    num_points=self.num_points,
+                    f_size=self.f_size,
+                    e_size=self.e_size,
+                    pad_waste=pad_waste,
+                    pair_cap=pair_cap,
+                    device=device,
+                )
+            except ValueError as exc:  # point-degree skew, pair fan-in
+                self.explicit_reject_reason = str(exc)
+        if self.explicit_plan is None:
+            raise NotImplementedError(
+                f"dense W would take {w_bytes >> 20} MiB (gate "
+                f"{DENSE_W_LIMIT_BYTES >> 20} MiB) and the explicit-S plan was "
+                f"rejected ({self.explicit_reject_reason}); the column-probe S "
+                "(core/schur.py:_dense_s) that takes over there is not ported yet"
+            )
+
+    @property
+    def schur_path(self) -> str:
+        """The S-assembly path the damped solves take
+        (``Summary.schur_complement_path``)."""
+        return "dense-W" if self.w_plan is not None else "explicit"
 
     # -- solver data / scaling -------------------------------------------------
 
@@ -163,8 +228,10 @@ class SchurSolver:
 
     def prepare(self, data):
         """Everything that does not depend on mu, once per linearization:
-        the E split and the undamped per-point ``E^T E``. Rejected steps
-        re-solve with a new mu from the same prepared data."""
+        the E split, the undamped per-point ``E^T E`` and, on the explicit
+        path, the A = F^T E rows, their point grid and the per-camera sums
+        of ``F^T F``. Rejected steps re-solve with a new mu from the same
+        prepared data."""
         e = self.e_size
         ete0 = None
         per_batch = []
@@ -176,7 +243,40 @@ class SchurSolver:
                 red = self.ev.slot_reduce(bi, s_e, outer).reshape(self.num_points, e, e)
                 ete0 = red if ete0 is None else ete0 + red
             per_batch.append((r, jac, E))
-        return dict(per_batch=per_batch, ete0=ete0)
+        prep = dict(per_batch=per_batch, ete0=ete0)
+        plan = self.explicit_plan
+        if self.schur_path == "explicit":
+            nc, f = self.num_cams, self.f_size
+            if plan.grid_is_reshape:
+                # uniform point-grouped rows: write the grid rows directly
+                grid = self._explicit_a_grid(per_batch, plan.kp, plan.np_ * plan.kp)
+                a_rows = grid.view(-1, f * self.e_size)
+            else:
+                a_rows = self._explicit_a_flat(per_batch)
+                grid = plan.build_grid(a_rows)["grid"]
+            Fs = per_batch[self.e_batch][1][:, :, self.f_col : self.f_col + f]
+            ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs).reshape(-1, f * f)
+            prep["explicit_grid"] = {"grid": grid}
+            prep["explicit_a"] = a_rows
+            prep["explicit_ftf"] = self.ev.slot_reduce(self.e_batch, self.f_slot, ftf).reshape(nc, f, f)
+        return prep
+
+    def _explicit_a_flat(self, per_batch):
+        """The per-row A = F^T E blocks, flat: (B, f*e), f-major."""
+        _, jac, E = per_batch[self.e_batch]
+        Fs = jac[:, :, self.f_col : self.f_col + self.f_size]
+        return torch.einsum("bmf,bme->bfe", Fs, E).reshape(jac.shape[0], -1)
+
+    def _explicit_a_grid(self, per_batch, kp, n_rows):
+        """The point grid (n_pts, kp*f*e) of the A rows when it is a pure
+        reshape of row order (uniform kp observations per point,
+        point-grouped rows): the first ``n_rows`` rows' products, written
+        once in the grid's layout. Values identical to
+        ``build_grid(_explicit_a_flat(...))``."""
+        _, jac, E = per_batch[self.e_batch]
+        Fs = jac[:n_rows, :, self.f_col : self.f_col + self.f_size]
+        a = torch.einsum("bmf,bme->bfe", Fs, E[:n_rows])
+        return a.reshape(n_rows // kp, kp * self.f_size * self.e_size)
 
     def _assemble(self, data, g, d):
         """Per-mu elimination state: damped C^-1 and the rhs pieces.
@@ -187,6 +287,9 @@ class SchurSolver:
         ete = prep["ete0"] + torch.diag_embed(d_e)
         return dict(
             per_batch=prep["per_batch"],
+            explicit_grid=prep.get("explicit_grid"),
+            explicit_a=prep.get("explicit_a"),
+            explicit_ftf=prep.get("explicit_ftf"),
             cinv=batched_spd_inverse(ete),
             g_f=self._gather_f(g),
             d_f=self._gather_f(d),
@@ -225,7 +328,26 @@ class SchurSolver:
         b_e = -asm["g_e"] - self._wt_apply(asm, dx_f)
         return torch.einsum("pef,pf->pe", asm["cinv"], b_e)
 
-    def _dense_s(self, asm):
+    def _add_other_batches(self, asm, s_mat) -> bool:
+        """Add ``F^T F`` of every batch other than the observation batch
+        that touches retained coordinates (e.g. camera priors) into S, in
+        place. Returns whether there was one."""
+        extra = False
+        for bj, (rb, jacb, Eb) in enumerate(asm["per_batch"]):
+            infob = self.batch_info[bj]
+            if bj == self.e_batch or len(infob["f_cols"]) == 0:
+                continue
+            extra = True
+            Fb = jacb[:, :, infob["f_cols"]]
+            ftfb = torch.einsum("bmf,bmg->bfg", Fb, Fb)
+            fidx = infob["fidx"]
+            s_mat.index_put_(
+                (fidx[:, :, None].expand_as(ftfb), fidx[:, None, :].expand_as(ftfb)),
+                ftfb, accumulate=True,
+            )
+        return extra
+
+    def _dense_s_dense_w(self, asm):
         """S = blockdiag(F^T F) - sum_p W_p C_p^-1 W_p^T + diag(d_f), with W
         (n_pts, n_cams, f, e) built densely by one segment reduction."""
         nc, f, e = self.num_cams, self.f_size, self.e_size
@@ -248,25 +370,67 @@ class SchurSolver:
         s4 = s_mat.view(nc, f, nc, f)
         s4[cams, :, cams, :] += diag_blocks
         s_mat = s_mat + torch.diag(asm["d_f"])
-
-        # other batches touching retained coordinates (e.g. camera priors)
-        for bj, (rb, jacb, Eb) in enumerate(asm["per_batch"]):
-            infob = self.batch_info[bj]
-            if bj == bi or len(infob["f_cols"]) == 0:
-                continue
-            Fb = jacb[:, :, infob["f_cols"]]
-            ftfb = torch.einsum("bmf,bmg->bfg", Fb, Fb)
-            fidx = infob["fidx"]
-            s_mat.index_put_(
-                (fidx[:, :, None].expand_as(ftfb), fidx[:, None, :].expand_as(ftfb)),
-                ftfb, accumulate=True,
-            )
+        self._add_other_batches(asm, s_mat)
         return s_mat
 
+    def _schur_jacobi_blocks(self, asm):
+        """The observation batch's camera blocks of S's block diagonal,
+        (nc, f, f), damping included: the per-camera ``F^T F`` sums of
+        ``prepare()`` minus the per-row ``Y A^T`` (``A = F^T E``,
+        ``Y = A C_p^-1``) summed by camera, the JAX package's generic branch
+        for this batch. Only ``Y A^T`` depends on mu."""
+        nc, f, e = self.num_cams, self.f_size, self.e_size
+        bi = self.e_batch
+        a = asm["explicit_a"].view(-1, f, e)
+        pidx = self.ev._batch_const[bi][1][self.e_slot]
+        y = torch.einsum("bfe,beg->bfg", a, asm["cinv"][pidx])
+        yat = torch.einsum("bfe,bge->bfg", y, a).reshape(-1, f * f)
+        corr = self.ev.slot_reduce(bi, self.f_slot, yat).reshape(nc, f, f)
+        return torch.diag_embed(asm["d_f"].reshape(nc, f)) + asm["explicit_ftf"] - corr
+
+    def _dense_s_explicit(self, asm):
+        """S by the explicit pair-product plan (core/explicit_schur.py):
+
+          off-diagonal blocks   sum_p Y_pk A_pl^T (k<l) by K3, hierarchical
+                                sums onto unique camera pairs, gather-built
+                                into the dense matrix;
+          diagonal blocks       the observation batch's
+                                F^T F - Y C^-1 Y^T + D_f per camera, riding
+                                the gather-build as the table's diagonal
+                                region;
+          other batches         (priors etc.) added via their retained
+                                index maps.
+        """
+        plan = self.explicit_plan
+        uniq = plan.correction_offdiag(
+            asm["explicit_grid"], asm["cinv"].reshape(-1, self.e_size ** 2)
+        )
+        # symmetrize the diagonal blocks' one-ulp asymmetry here (nc*f*f)
+        # so the dense matrix needs no full transpose pass
+        diag_blocks = self._schur_jacobi_blocks(asm)
+        diag_blocks = 0.5 * (diag_blocks + diag_blocks.transpose(1, 2))
+        nc, f = plan.nc, plan.f
+        s_mat = plan.dense_s_full(uniq, -diag_blocks.reshape(nc, f * f)).neg_()
+        if self._add_other_batches(asm, s_mat):
+            # the extra batches' contributions are not symmetric by construction
+            s_mat = 0.5 * (s_mat + s_mat.T)
+        return s_mat
+
+    def _dense_s(self, asm):
+        """Materialize S (N_f, N_f): dense W while it fits its gate, else
+        the explicit pair-product plan (the JAX package's priority)."""
+        if self.w_plan is not None:
+            return self._dense_s_dense_w(asm)
+        return self._dense_s_explicit(asm)
+
     def _factor_solve(self, s, rhs):
-        """Solve S x = rhs through K1's L^-1. Returns (x, solve_fn)."""
-        linv = cholesky_inverse_factor(s)
-        return chol_solve(linv, rhs), lambda b: chol_solve(linv, b)
+        """Solve S x = rhs: K1's L^-1 up to 1024 rows, K2's blocked factor
+        above. Returns (x, solve_fn)."""
+        if s.shape[0] <= MAX_CHOLESKY_N:
+            linv = cholesky_inverse_factor(s)
+            return chol_solve(linv, rhs), lambda b: chol_solve(linv, b)
+        fac = blocked_cholesky_factor(s)
+        return blocked_chol_solve(fac, rhs), lambda b: blocked_chol_solve(fac, b)
 
     def _block_jacobi(self, s):
         """v -> blockdiag(S)^-1 v, the camera blocks read off dense S."""
@@ -293,10 +457,9 @@ class SchurSolver:
         # float32 it moves the point where assembly noise makes S
         # numerically indefinite out by orders of magnitude
         d_eq = torch.sqrt(torch.clamp(torch.diagonal(s), min=torch.finfo(s.dtype).tiny))
-        s = s / d_eq[:, None] / d_eq[None, :]
+        s.div_(d_eq[:, None]).div_(d_eq[None, :])  # S is this solve's own
         rhs_eq = rhs / d_eq
-        eye = torch.eye(s.shape[0], dtype=s.dtype, device=s.device)
-        dx_f, _ = self._factor_solve(s + jitter0 * eye, rhs_eq)
+        dx_f, _ = self._factor_solve(_jittered(s, jitter0), rhs_eq)
 
         # Jitter ladder (see skeres_tpu/core/schur.py:1488-1547): a failed
         # factor (NaN, the only signal K1 gives) is retried on S + delta*I
@@ -307,7 +470,7 @@ class SchurSolver:
         jitter_used = jitter0
         retries = 0
         while retries < 2 and not bool(torch.isfinite(dx_f).all()):
-            dx_f, _ = self._factor_solve(s + delta * eye, rhs_eq)
+            dx_f, _ = self._factor_solve(_jittered(s, delta), rhs_eq)
             jitter_used = delta
             delta = min(delta * 100.0, 0.1)
             retries += 1

@@ -135,8 +135,13 @@ def solve(
         chunk_size=options.evaluation_chunk_size,
         diff_mode=options.jacobian_diff_mode,
     )
-    schur_solver = SchurSolver(evaluator)
-    summary.schur_complement_path = "dense-W"
+    schur_solver = SchurSolver(
+        evaluator,
+        pad_waste=options.jacobian_pad_waste,
+        explicit_s_limit_bytes=options.explicit_schur_limit_bytes,
+        pair_cap=options.schur_pair_cap,
+    )
+    summary.schur_complement_path = schur_solver.schur_path
     minimizer = TrustRegionMinimizer(evaluator, options, summary, schur_solver)
     state = program.initial_state(device, options.dtype)
     synchronize(device)

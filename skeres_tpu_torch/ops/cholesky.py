@@ -1,37 +1,51 @@
-"""K1: dense Cholesky factor plus explicit L^-1, a hand-written CUDA kernel.
+"""K1 and K2: dense Cholesky factors for the reduced camera system.
 
-Counterpart of ``skeres_tpu/ops/pallas/cholesky.py`` (``_chol_inv_kernel``
-through ``_chol_both_padded``, ``cholesky_inverse_factor`` and
-``chol_solve``). ``SchurSolver`` factors the equilibrated reduced camera
-system with it on every damped solve and on every jitter retry; returning
-L^-1 turns both triangular solves into matrix-vector products.
+K1 is a hand-written CUDA kernel: the factor L and the explicit L^-1 of
+one SPD matrix of up to 1024 rows. Counterpart of
+``skeres_tpu/ops/pallas/cholesky.py`` (``_chol_inv_kernel`` through
+``_chol_both_padded``, ``cholesky_inverse_factor`` and ``chol_solve``).
+``SchurSolver`` factors the equilibrated reduced camera system with it on
+every damped solve and on every jitter retry; returning L^-1 turns both
+triangular solves into matrix-vector products.
+
+K2 is the blocked factor past 1024 rows (``blocked_cholesky_factor`` /
+``blocked_chol_solve``, counterparts of the JAX package's
+``_blocked_factor_padded`` / ``_blocked_solve_padded``): a right-looking
+factor over ``panel``-wide block columns, each diagonal panel factored
+and inverted by K1, the panel scale and trailing update as
+``torch.matmul`` (full float32 unless the caller turns TF32 on), and a
+block substitution through the panels' inverses.
 
 The kernel is ``csrc/cholesky.cu`` (its header says what bounds it on the
 card and how the design answers that). It is compiled with ``nvcc`` for
 ``sm_90a`` at first use, from the sources in this checkout, into
 ``build/skeres_tpu_torch/`` keyed by a hash of the source and flags, and
-bound through ``ctypes``. Nothing is compiled at import.
+bound through ``ctypes`` (``ops/build.py``). Nothing is compiled at import.
 
 A CUDA tensor launches the kernel or raises. A CPU tensor takes the plain
-PyTorch version beside it (``cholesky_both_reference``), which the tests
-and ``chip_smoke.py`` also call by name to check the kernel.
+PyTorch version beside it (``cholesky_both_reference``; K2's panel loop runs
+the same on either device, its panels taking K1 or K1's plain version),
+which the tests and ``chip_smoke.py`` also call by name to check the
+kernels. ``blocked_cholesky_factor_reference`` is K2's plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
+from typing import List
 
 import torch
 
+from skeres_tpu_torch.ops.build import load_library
+
 __all__ = [
+    "BlockedCholFactor",
     "MAX_CHOLESKY_N",
+    "PANEL",
+    "blocked_chol_solve",
+    "blocked_cholesky_factor",
+    "blocked_cholesky_factor_reference",
     "build_kernels",
     "cholesky_both",
     "cholesky_both_reference",
@@ -42,52 +56,12 @@ __all__ = [
 
 MAX_CHOLESKY_N = 1024  # one block of 1024 threads; larger S is K2's
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "cholesky.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "skeres_tpu_torch"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: K1 is built from source at first use")
-
 
 @functools.lru_cache(maxsize=None)
 def build_kernels():
-    """Compile ``csrc/cholesky.cu`` (once per source hash) and load it.
-    Returns ``(library, compiler_log)``; the log is empty when an earlier
-    build of the same source was reused."""
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"cholesky-{key}.so"
-    log = ""
-    if not lib_path.exists():
-        nvcc = _nvcc()
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc, *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{proc.stderr}")
-            os.replace(tmp, lib_path)  # atomic: concurrent builds end with the same file
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        log = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(lib_path))
+    """Compile ``csrc/cholesky.cu`` (``ops/build.py``) and bind it.
+    Returns ``(library, compiler_log)``."""
+    lib, log = load_library("cholesky")
     for name in ("skeres_chol_inv_f32", "skeres_chol_inv_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
@@ -95,17 +69,17 @@ def build_kernels():
     return lib, log
 
 
-def _check(a: torch.Tensor) -> None:
+def _check(a: torch.Tensor, what: str = "K1", max_n=MAX_CHOLESKY_N) -> None:
     if a.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"K1 takes float32 or float64, got {a.dtype}")
+        raise TypeError(f"{what} takes float32 or float64, got {a.dtype}")
     if a.ndim != 2 or a.shape[0] != a.shape[1]:
-        raise ValueError(f"K1 takes one square matrix, got shape {tuple(a.shape)}")
-    if not 1 <= a.shape[0] <= MAX_CHOLESKY_N:
-        raise ValueError(f"K1 takes 1 <= n <= {MAX_CHOLESKY_N}, got n = {a.shape[0]}")
+        raise ValueError(f"{what} takes one square matrix, got shape {tuple(a.shape)}")
+    if a.shape[0] < 1 or (max_n is not None and a.shape[0] > max_n):
+        raise ValueError(f"{what} takes 1 <= n <= {max_n}, got n = {a.shape[0]}")
     if not a.is_contiguous():
-        raise ValueError("K1 takes a contiguous (row-major) matrix")
+        raise ValueError(f"{what} takes a contiguous (row-major) matrix")
     if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"K1 runs on cuda (or its plain version on cpu), not {a.device}")
+        raise ValueError(f"{what} runs on cuda (or its plain version on cpu), not {a.device}")
 
 
 def cholesky_both_reference(a: torch.Tensor):
@@ -157,3 +131,73 @@ def cholesky_inverse_factor_reference(a: torch.Tensor) -> torch.Tensor:
 def chol_solve(linv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve ``A x = b`` given ``linv = L^-1``: two matrix-vector products."""
     return linv.T @ (linv @ b)
+
+
+# ---------------------------------------------------------------------------
+# K2: blocked factor past K1's 1024 rows (venice-1778's S has 16,002).
+# ---------------------------------------------------------------------------
+
+PANEL = 256  # K2's panel width: K1's work grows as n * panel^2 (PERF.md)
+
+
+class BlockedCholFactor:
+    """K2's factorization of an n x n SPD matrix: ``l`` the lower factor
+    (upper triangle zero), ``dinv`` the inverses of its diagonal panels,
+    each ``panel`` wide except a shorter last one."""
+
+    def __init__(self, l: torch.Tensor, dinv: List[torch.Tensor], panel: int):
+        self.l = l
+        self.dinv = dinv
+        self.panel = panel
+
+    @property
+    def n(self) -> int:
+        return self.l.shape[0]
+
+
+def blocked_cholesky_factor(a: torch.Tensor, panel: int = PANEL) -> BlockedCholFactor:
+    """Factor SPD ``a`` (only its lower triangle is read). A failed panel
+    leaves it and every later panel NaN, and so every entry of a solve
+    through the factor. Its kernel launches are K1's, one a panel on the
+    card, counted by ``cholesky_both.launches``."""
+    _check(a, "K2", max_n=None)
+    if panel < 1 or panel > MAX_CHOLESKY_N:
+        raise ValueError(f"K2 takes 1 <= panel <= {MAX_CHOLESKY_N}, got {panel}")
+    n = a.shape[0]
+    l = a.clone()
+    dinv = []
+    for off in range(0, n, panel):
+        end = min(off + panel, n)
+        lkk, vkk = cholesky_both(l[off:end, off:end].contiguous())
+        dinv.append(vkk)
+        l[off:end, off:end] = lkk
+        if end < n:
+            pcol = l[end:, off:end] @ vkk.T
+            l[end:, off:end] = pcol
+            l[end:, end:].addmm_(pcol, pcol.T, alpha=-1.0)
+    return BlockedCholFactor(l.tril_(), dinv, panel)
+
+
+def blocked_cholesky_factor_reference(a: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: the lower factor by ``torch.linalg``, all NaN
+    when the factorization fails."""
+    l, info = torch.linalg.cholesky_ex(a)
+    return torch.where(info != 0, torch.full_like(l, float("nan")), l)
+
+
+def blocked_chol_solve(fac: BlockedCholFactor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``A x = b`` through a :class:`BlockedCholFactor` of A: forward
+    then back block substitution, one matrix-vector product with a panel
+    inverse per block."""
+    l, p, n = fac.l, fac.panel, fac.n
+    y = torch.empty_like(b)
+    for i, vkk in enumerate(fac.dinv):
+        off, end = i * p, min(i * p + p, n)
+        rhs = b[off:end] if off == 0 else b[off:end] - l[off:end, :off] @ y[:off]
+        y[off:end] = vkk @ rhs
+    x = torch.empty_like(b)
+    for i in reversed(range(len(fac.dinv))):
+        off, end = i * p, min(i * p + p, n)
+        rhs = y[off:end] if end == n else y[off:end] - l[end:, off:end].T @ x[end:]
+        x[off:end] = fac.dinv[i].T @ rhs
+    return x

@@ -1,7 +1,8 @@
-"""K1 (ops/cholesky.py): its plain version against the JAX package's
-Pallas kernel (interpret mode, as tests/test_kernels.py runs it) and
-numpy, and the wrapper's contract. The kernel itself against the plain
-version needs a card: tests/test_torch_gpu.py."""
+"""K1 and K2 (ops/cholesky.py): K1's plain version, and K2's panel loop over
+it, against the JAX package's Pallas kernel and blocked factor (interpret
+mode, as tests/test_kernels.py runs them) and numpy, and the wrappers'
+contracts. The kernels themselves against their plain versions need a
+card: tests/test_torch_gpu.py."""
 
 import shutil
 
@@ -10,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from skeres_tpu.ops.pallas.cholesky import blocked_chol_solve as jax_blocked_solve
+from skeres_tpu.ops.pallas.cholesky import blocked_cholesky_factor as jax_blocked_factor
 from skeres_tpu.ops.pallas.cholesky import cholesky_inverse_factor as pallas_linv
 from skeres_tpu.ops.small_inverse import batched_spd_inverse as jax_spd_inverse
 from skeres_tpu_torch.ops import cholesky as k1
@@ -94,3 +97,76 @@ def test_batched_spd_inverse_matches_jax(e):
         a[0] = -np.eye(e)
         assert torch.isnan(batched_spd_inverse(torch.from_numpy(a))[0]).all()
 
+
+
+# -- K2: the blocked factor over K1 panels ------------------------------------
+
+
+@pytest.mark.parametrize("n,panel", [(300, 128), (515, 128), (384, 384)])
+def test_k2_matches_pallas_blocked_f32(n, panel):
+    """The port's K2 (panels through K1's plain version) against
+    the JAX package's blocked factor (Pallas panels in interpret mode) at
+    the same panel width, float32: L and the solve to the atol of
+    tests/test_kernels.py (3e-3 and 5e-4)."""
+    a = _spd(n)
+    jfac = jax_blocked_factor(jnp.asarray(a, jnp.float32), panel=panel)
+    fac = k1.blocked_cholesky_factor(torch.tensor(a, dtype=torch.float32), panel=panel)
+    np.testing.assert_allclose(fac.l.numpy(), np.asarray(jfac.l)[:n, :n], rtol=0, atol=3e-3)
+    b = np.random.default_rng(n).standard_normal(n)
+    want = np.asarray(jax_blocked_solve(jfac, jnp.asarray(b, jnp.float32)))
+    got = k1.blocked_chol_solve(fac, torch.tensor(b, dtype=torch.float32)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-4)
+    np.testing.assert_allclose(got, np.linalg.solve(a, b), rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("n,panel", [(1, 4), (7, 4), (300, 128), (1030, 256), (515, 1024)])
+def test_k2_matches_numpy_f64(n, panel):
+    """float64, a short last panel wherever panel does not divide n."""
+    a = _spd(n)
+    before = k1.cholesky_both.launches
+    fac = k1.blocked_cholesky_factor(torch.tensor(a), panel=panel)
+    assert k1.cholesky_both.launches == before  # no kernel on the CPU
+    assert len(fac.dinv) == -(-n // panel) and fac.n == n
+    np.testing.assert_allclose(fac.l.numpy(), np.linalg.cholesky(a), rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(
+        k1.blocked_cholesky_factor_reference(torch.tensor(a)).numpy(), np.linalg.cholesky(a),
+        rtol=1e-10, atol=1e-10,
+    )
+    b = np.random.default_rng(n + 1).standard_normal(n)
+    x = k1.blocked_chol_solve(fac, torch.from_numpy(b))
+    np.testing.assert_allclose(x.numpy(), np.linalg.solve(a, b), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_failed_panel_poisons_every_later_output(dtype):
+    """A pivot that fails in panel 2 of 4: that panel and every later one
+    (their inverses and their columns of L) are non-finite, and so is
+    every entry of a solve; the panels before stay finite. The plain
+    version is all NaN."""
+    n, panel = 200, 50
+    a = torch.tensor(_spd(n), dtype=dtype)
+    a[120, 120] = -1.0
+    fac = k1.blocked_cholesky_factor(a, panel=panel)
+    for i, vkk in enumerate(fac.dinv):
+        assert bool(torch.isfinite(vkk).all()) == (i < 2)
+    tril = torch.tril(torch.ones(n, n, dtype=torch.bool))
+    assert not torch.isfinite(fac.l[100:, 100:][tril[100:, 100:]]).any()
+    assert torch.isfinite(fac.l[:, :100]).all()
+    x = k1.blocked_chol_solve(fac, torch.ones(n, dtype=dtype))
+    assert not torch.isfinite(x).any()
+    assert torch.isnan(k1.blocked_cholesky_factor_reference(a)).all()
+
+
+@pytest.mark.parametrize(
+    "bad,panel,exc",
+    [
+        (torch.zeros(3, 4), 4, ValueError),
+        (torch.eye(4, dtype=torch.float16), 4, TypeError),
+        (torch.eye(8, dtype=torch.float64).T[:, :4][:4], 4, ValueError),  # strided
+        (torch.eye(8), 0, ValueError),
+        (torch.eye(8), 1025, ValueError),
+    ],
+)
+def test_k2_rejects_what_it_does_not_take(bad, panel, exc):
+    with pytest.raises(exc):
+        k1.blocked_cholesky_factor(bad, panel=panel)

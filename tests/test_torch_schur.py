@@ -1,6 +1,7 @@
 """The port's DENSE_SCHUR solver against the JAX package's
 ``SchurSolver(ev, iterative=False)`` on the same scene, state, scale and
-mu: S, the reduced rhs, and dx of ``solve_damped``; and a forced factor
+mu: S (dense-W and explicit), the reduced rhs, and dx of ``solve_damped``
+(with K1, and with K2's panel loop on the explicit path); and a forced factor
 failure, patched into both packages alike, walking the same jitter rungs.
 float64 on the CPU, where both factor with a library Cholesky; rtol 1e-8
 (S and dx pass through a factorization of a matrix with condition number
@@ -16,6 +17,7 @@ from skeres_tpu.core.evaluator import Evaluator as JEvaluator
 from skeres_tpu.core.linear_solvers import lm_diagonal as jlm_diagonal
 from skeres_tpu.core.schur import SchurSolver as JSchur
 from skeres_tpu.io import bal as jbal
+from skeres_tpu_torch.core import schur as schur_mod
 from skeres_tpu_torch.core.evaluator import Evaluator
 from skeres_tpu_torch.core.linear_solvers import lm_diagonal
 from skeres_tpu_torch.core.schur import SchurSolver
@@ -137,3 +139,84 @@ def test_forced_factor_failure_walks_the_same_ladder(threshold, jitter0, want_it
         )
     else:
         np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), **TOL)
+
+
+# -- the explicit pair-product S (core/explicit_schur.py, K3) and K2 ------------
+
+
+def _explicit_twin(tschur, tdata, monkeypatch):
+    """A second port solver on the same evaluator with the dense-W gate at
+    0, so that it takes the explicit S, and its ``prepare()`` of the same
+    solver data."""
+    monkeypatch.setattr(schur_mod, "DENSE_W_LIMIT_BYTES", 0)
+    xschur = SchurSolver(tschur.ev)
+    raw = [(r, jac) for r, jac, _ in tdata["per_batch"]] if isinstance(tdata, dict) else tdata
+    return xschur, xschur.prepare(raw)
+
+
+@pytest.mark.parametrize(
+    "prior,scaled", [(False, False), (False, True), (True, False), (True, True)]
+)
+def test_explicit_s_matches_jax_and_dense_w(prior, scaled, monkeypatch):
+    """The port's explicit S against the JAX package's ``_dense_s_explicit``
+    and against the port's own dense-W S, from the same solver data."""
+    (jschur, jdata, jg, jdiag), (tschur, tdata, tg, tdiag) = _setup(prior, scaled)
+    assert tschur.schur_path == "dense-W" and tschur.explicit_plan is None
+    xschur, xdata = _explicit_twin(tschur, tdata, monkeypatch)
+    assert xschur.schur_path == "explicit"
+    d = lm_diagonal(tdiag, MU, 1e-6, 1e32)
+    jasm = jschur._assemble(jdata, jg, jlm_diagonal(jdiag, MU, 1e-6, 1e32))
+    s_exp = xschur._dense_s_explicit(xschur._assemble(xdata, tg, d)).numpy()
+    np.testing.assert_allclose(s_exp, np.asarray(jax.jit(jschur._dense_s_explicit)(jasm)), **TOL)
+    s_dw = tschur._dense_s_dense_w(tschur._assemble(tdata, tg, d)).numpy()
+    np.testing.assert_allclose(s_exp, s_dw, **TOL)
+    np.testing.assert_array_equal(s_exp, s_exp.T)  # symmetric by construction
+
+
+def _big_setup(monkeypatch):
+    """synthetic_bal(120, 2000, 4): S has 1080 rows, past K1's 1024, so the
+    port factors with K2's panel loop. The port's dense-W gate is set to 0,
+    so it takes the explicit S; the JAX package takes dense W and its
+    library Cholesky."""
+    monkeypatch.setattr(schur_mod, "DENSE_W_LIMIT_BYTES", 0)
+    bal = jbal.synthetic_bal(120, 2000, 4)
+    jprogram = jbal.build_bal_problem(bal)[0].compile()
+    jev = JEvaluator(jprogram)
+    _, jblocks = jax.jit(jev.blocks)(jprogram.initial_state(jev.dtype))
+    jg, jdiag = jax.jit(jev.gradient_and_diag)(jblocks)
+    jschur = JSchur(jev, iterative=False)
+    jscale = 1.0 / (1.0 + jnp.sqrt(jdiag))
+    jdata = jschur.prepare(jschur.scale_data(jschur.solver_data(jblocks), jscale))
+
+    tev = Evaluator(tbal.build_bal_problem(bal)[0].compile())
+    _, tblocks = tev.blocks(tev.program.initial_state("cpu", torch.float64))
+    tg, tdiag = tev.gradient_and_diag(tblocks)
+    tschur = SchurSolver(tev)
+    tscale = 1.0 / (1.0 + torch.sqrt(tdiag))
+    tdata = tschur.prepare(tschur.scale_data(tschur.solver_data(tblocks), tscale))
+    return (
+        (jschur, jdata, jg * jscale, jdiag * jscale * jscale),
+        (tschur, tdata, tg * tscale, tdiag * tscale * tscale),
+    )
+
+
+def test_explicit_path_with_k2_dx_matches_jax(monkeypatch):
+    (jschur, jdata, jg, jdiag), (tschur, tdata, tg, tdiag) = _big_setup(monkeypatch)
+    assert jschur.schur_path == "dense-W"
+    assert tschur.schur_path == "explicit" and tschur.num_f == 1080
+    assert tschur.explicit_plan.grid_is_reshape and "explicit_grid" in tdata
+    jdx, jit_, jj = jax.jit(lambda: jschur.solve_damped(jdata, jg, jdiag, MU, 1e-6, 1e32))()
+    tdx, tit, tj = tschur.solve_damped(tdata, tg, tdiag, MU, 1e-6, 1e32)
+    assert (tit, tj) == (int(jit_), float(jj)) == (1, 0.0)
+    np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), **TOL)
+
+
+def test_hoisted_grid_equals_flat_build(monkeypatch):
+    """prepare()'s grid, written directly in the grid layout, equals
+    ``build_grid(_explicit_a_flat(...))``."""
+    _, (tschur, tdata, _, _) = _big_setup(monkeypatch)
+    plan = tschur.explicit_plan
+    flat = plan.build_grid(tschur._explicit_a_flat(tdata["per_batch"]))["grid"]
+    direct = tschur._explicit_a_grid(tdata["per_batch"], plan.kp, plan.np_ * plan.kp)
+    torch.testing.assert_close(tdata["explicit_grid"]["grid"], flat, rtol=0, atol=0)
+    torch.testing.assert_close(direct, flat, rtol=0, atol=0)

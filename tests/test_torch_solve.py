@@ -16,6 +16,7 @@ import skeres_tpu_torch as stt
 from skeres_tpu.core.options import SolverOptions as JOptions
 from skeres_tpu.core.types import LinearSolverType as JLinearSolverType
 from skeres_tpu.io import bal as jbal
+from skeres_tpu_torch.core import schur as schur_mod
 from skeres_tpu_torch.core.linear_solvers import lm_diagonal
 from skeres_tpu_torch.core.options import SolverOptions
 from skeres_tpu_torch.core.types import (
@@ -200,3 +201,58 @@ def test_package_imports_neither_jax_nor_skeres_tpu():
         cwd=str(pathlib.Path(__file__).resolve().parents[1]),
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# -- the explicit-S path (K3) with K2's blocked factor ---------------------------
+
+
+def test_explicit_path_solve_matches_jax(monkeypatch):
+    """synthetic_bal(120, 2000, 4), 5 steps at initial radius 1: the port,
+    with its dense-W gate at 0, takes the explicit S and factors its 1080
+    rows with K2's panel loop; the JAX package takes dense W and its library
+    Cholesky. Same accept/reject decisions, costs and radii to rtol 1e-8."""
+    monkeypatch.setattr(schur_mod, "DENSE_W_LIMIT_BYTES", 0)
+    (js, jc, jp), (ts, tc, tp) = _solve_both(
+        jbal.synthetic_bal(120, 2000, 4), max_num_iterations=5,
+        run_full_iteration_budget=True, initial_trust_region_radius=1.0,
+    )
+    assert ts.schur_complement_path == "explicit"
+    assert js.schur_complement_path == "dense-W"
+    assert len(ts.iterations) == len(js.iterations) == 6
+    assert ts.num_successful_steps > 0
+    for a, b in zip(ts.iterations, js.iterations):
+        assert (a.step_is_valid, a.step_is_successful) == (b.step_is_valid, b.step_is_successful)
+        assert a.linear_solver_iterations == b.linear_solver_iterations
+        np.testing.assert_allclose(a.cost, b.cost, rtol=1e-8)
+        np.testing.assert_allclose(a.trust_region_radius, b.trust_region_radius, rtol=1e-8)
+    np.testing.assert_allclose(tc, jc, rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(tp, jp, rtol=1e-6, atol=1e-9)
+    assert "explicit" in ts.full_report()
+
+
+def test_schur_path_is_dense_w_at_bal49_size():
+    problem, _, _ = tbal.build_bal_problem(tbal.synthetic_bal(49, 7776, 4))
+    s = stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
+                                max_num_iterations=1), problem)
+    assert s.schur_complement_path == "dense-W"
+
+
+@pytest.mark.parametrize(
+    "limit,reason", [(0, "S too large"), (2 << 30, "point-degree skew too high")]
+)
+def test_rejected_explicit_plan_raises_naming_the_reason(monkeypatch, limit, reason):
+    """With dense W past its gate and the explicit plan rejected, the
+    port raises where the JAX package would take the column probe."""
+    monkeypatch.setattr(schur_mod, "DENSE_W_LIMIT_BYTES", 0)
+    bal = tbal.synthetic_bal(4, 24, 3)
+    if "skew" in reason:  # one point seen 12 times, the others once
+        keep = np.concatenate([np.arange(12), np.arange(12, 72, 3)])
+        bal.camera_index = np.concatenate([np.arange(12) % 4, bal.camera_index[keep[12:]]])
+        bal.point_index = np.concatenate([np.zeros(12, np.int32), bal.point_index[keep[12:]]])
+        bal.observations = bal.observations[keep]
+    problem, _, _ = tbal.build_bal_problem(bal)
+    options = SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
+                            explicit_schur_limit_bytes=limit)
+    with pytest.raises(NotImplementedError, match="column-probe") as err:
+        stt.solve(options, problem)
+    assert reason in str(err.value)
