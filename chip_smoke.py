@@ -8,18 +8,20 @@ non-zero and prints no result line):
 
   1. device  — a CUDA card is present; print its name and power limit;
                TF32 off for matmuls and cuDNN.
-  2. build   — compile K1 (csrc/cholesky.cu) and K3 (csrc/pair_product.cu),
-               one nvcc each, started together; print the seconds and the
-               compiler's resource report.
+  2. build   — compile K1 and K2's trailing update (csrc/cholesky.cu), K3
+               (csrc/pair_product.cu) and K1 with its clock64 phase counters
+               (-DSKERES_K1_CLOCKS), one nvcc each, started together; print
+               the seconds and the compiler's resource report.
   3. K1      — the kernel against its plain PyTorch version on the card,
                n in {1, 5, 37, 128, 300, 441, 1024}, float32 and float64,
                plus the equilibrated S of the BAL-49 problem; a matrix that
                is not positive definite must give all-NaN outputs; n = 1025
                must raise.
-  4. K2      — the blocked factor (K1 panels) against cuSOLVER's, n in
-               {1025, 2048, 3000}, float32 and float64, panels 1024 and 256:
-               L and a solve within a bound of max|reference|, and the
-               backward errors; a non-PD input gives non-finite outputs.
+  4. K2      — the blocked factor (K1 panels, the trailing-update kernel)
+               against cuSOLVER's, n in {1025, 2048, 3000}, float32 and
+               float64, panels 1024, 256 and ``PANEL``: L and a solve within a bound of
+               max|reference|, and the backward errors; a non-PD input gives
+               non-finite outputs.
   5. K3      — the pair-product kernel against its plain version on a random
                non-uniform problem (f = 5, e = 3, 1-6 observations per
                point), float32 and float64, judged on the reduced unique-pair
@@ -36,20 +38,28 @@ non-zero and prints no result line):
                the explicit S (K3) equals the dense-W S to rtol 1e-10.
   9. card vs CPU, explicit — the same scene, 10 steps in float64 with the
                dense-W gate at 0: S (1080 rows) is explicit and factored by
-               K2; the same accept/reject sequence and costs to rtol 1e-8.
+               K2 (K1 panels and updates on every damped solve); the same
+               accept/reject sequence and costs to rtol 1e-8.
  10. venice  — synthetic_bal(1778, 1_000_000, 5) (venice-1778 shape), float32,
                evaluation chunks of 262,144 rows: the plan's unique pairs and
                levels; K3 at full shape against its plain version; K2 on the
                equilibrated S of the first damped solve, held to backward
-               errors; a torch.profiler breakdown of one damped solve; K3
-               and K2 (n = 16,002) timed against their plain versions.
+               errors; a torch.profiler breakdown of one damped solve (and
+               its K1 and update launches); K3 timed against its plain
+               version; the trailing update alone at the first panel's shape
+               (m = 15,746, w = 256, and at ``PANEL``) against ``addmm_``,
+               with its TFLOP/s; K2
+               (n = 16,002) at panels 128, 256 and 512 against cuSOLVER; and
+               ``blocked_chol_solve`` at n = 16,002 apart from the factor.
  11. venice solve — the second main path: the same scene through
                ``stt.solve``, 5 LM steps (explicit S, K3, K2); every cost
                finite, a step accepted, the final cost below the initial,
-               K3 and K2 launched on every damped solve; peak device memory.
- 12. timing  — K1 and its plain version at n = 441, float32, median of 20
-               runs (10 back-to-back calls each) timed with CUDA events
-               after warm-up.
+               K3, K1 and the update launched on every damped solve (the
+               update once a panel but the last); peak device memory.
+ 12. timing  — K1 and its plain version at n in {256, 441, 1024}, float32,
+               median of 20 runs (10 back-to-back calls each) timed with
+               CUDA events after warm-up; and K1's clock64 breakdown by
+               phase at those n (thread 0's cycles over 20 launches).
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -86,6 +96,9 @@ K3_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 VENICE = dict(num_cameras=1778, num_points=1_000_000, observations_per_point=5)
 VENICE_CHUNK = 262_144  # evaluation_chunk_size, as tools/bench_venice.py
 VENICE_STEPS = 5
+K1_TIMED_NS = (256, 441, 1024)
+K2_TIMED_PANELS = (128, 256, 512)
+K1_CLOCK_PHASES = ("set-up", "diagonal", "multiply", "exchange", "update", "barrier", "NaN fill")
 
 
 def check(ok: bool, what: str) -> None:
@@ -122,12 +135,18 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from skeres_tpu_torch.ops import cholesky, pair_product
-    from skeres_tpu_torch.ops.build import build_all
+    from skeres_tpu_torch.ops.build import build_all, load_library
 
     t0 = time.time()
-    logs = build_all()
-    print(f"[build] {', '.join(logs)} built in parallel in {time.time() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as pool:
+        clocks = pool.submit(load_library, "cholesky", ("SKERES_K1_CLOCKS",))
+        logs = build_all()
+        clocks.result()
+    print(f"[build] {', '.join(logs)} and cholesky -DSKERES_K1_CLOCKS built in parallel "
+          f"in {time.time() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "bytes stack" in line or "Compiling" in line:
@@ -267,15 +286,18 @@ def solve_bal(bal, device, dtype, iters, **kw):
 
 def phase_solve(device) -> int:
     from skeres_tpu_torch.io.bal import synthetic_bal
-    from skeres_tpu_torch.ops.cholesky import cholesky_both
+    from skeres_tpu_torch.ops.cholesky import cholesky_both, trailing_update_
+    from skeres_tpu_torch.ops.pair_product import pair_products
 
     bal = synthetic_bal(49, 7776, 4)
     print(f"[solve] synthetic BAL-49: {bal.num_cameras} cameras, "
           f"{bal.num_points} points, {bal.num_observations} observations")
     solve_bal(bal, device, torch.float32, 2)  # warm-up: first-call set-up
-    cholesky_both.launches = 0
+    cholesky_both.launches = trailing_update_.launches = pair_products.launches = 0
     s = solve_bal(bal, device, torch.float32, 30)
     launches = cholesky_both.launches
+    check(trailing_update_.launches == pair_products.launches == 0,
+          "BAL-49: S has 441 rows and dense W, yet K2's update or K3 launched")
     steps = s.num_successful_steps + s.num_unsuccessful_steps
     costs = [it.cost for it in s.iterations]
     print(f"[solve] costs: {json.dumps(costs)}")
@@ -375,7 +397,7 @@ def phase_k2(device) -> float:
     err = None
     for dtype in (torch.float32, torch.float64):
         for n in K2_NS:
-            for panel in K2_PANELS:
+            for panel in dict.fromkeys(K2_PANELS + (PANEL,)):  # and the default
                 e = k2_case(spd(n, dtype, device), panel, f"n={n} {dtype}")
                 if n == K2_NS[-1] and dtype == torch.float32 and panel == PANEL:
                     err = e
@@ -475,23 +497,25 @@ def phase_explicit_vs_dense_w(device):
 def phase_card_vs_cpu_explicit(device):
     from skeres_tpu_torch.core import schur as schur_mod
     from skeres_tpu_torch.io.bal import synthetic_bal
-    from skeres_tpu_torch.ops.cholesky import PANEL, cholesky_both
+    from skeres_tpu_torch.ops.cholesky import PANEL, cholesky_both, trailing_update_
     from skeres_tpu_torch.ops.pair_product import pair_products
 
     saved = schur_mod.DENSE_W_LIMIT_BYTES
     schur_mod.DENSE_W_LIMIT_BYTES = 0
     try:
         # S has 1080 rows: every K1 launch of this run is one of K2's panels
-        cholesky_both.launches = pair_products.launches = 0
+        cholesky_both.launches = pair_products.launches = trailing_update_.launches = 0
         card = card_vs_cpu(device, synthetic_bal(120, 2000, 4), "card-vs-cpu explicit")
-        k2, k3 = cholesky_both.launches, pair_products.launches
+        k2, k3, up = cholesky_both.launches, pair_products.launches, trailing_update_.launches
     finally:
         schur_mod.DENSE_W_LIMIT_BYTES = saved
+    panels = math.ceil(1080 / PANEL)
     print(f"[card-vs-cpu explicit] K3 launches {k3}, K1 panel launches inside K2 {k2}, "
-          f"{card.num_linear_solves} damped solves")
+          f"trailing-update launches {up}, {card.num_linear_solves} damped solves")
     check(card.schur_complement_path == "explicit", "card-vs-cpu explicit: not the explicit path")
     check(k3 >= card.num_linear_solves > 0
-          and k2 >= math.ceil(1080 / PANEL) * card.num_linear_solves,
+          and k2 >= panels * card.num_linear_solves
+          and up >= (panels - 1) * card.num_linear_solves,
           "card-vs-cpu explicit: K2 or K3 did not launch on every damped solve")
 
 
@@ -514,17 +538,48 @@ def cuda_ms(fn, reps: int = 20, calls: int = 10) -> float:
     return statistics.median(times)
 
 
+def k1_clock_breakdown(a: torch.Tensor, runs: int = 20) -> None:
+    """K1 built with -DSKERES_K1_CLOCKS on ``a`` (float32): thread 0's
+    clock64() cycles by phase, summed over ``runs`` launches."""
+    import ctypes
+
+    from skeres_tpu_torch.ops.build import load_library
+
+    lib, _ = load_library("cholesky", ("SKERES_K1_CLOCKS",))
+    fn, read = lib.skeres_chol_inv_f32, lib.skeres_k1_clocks
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    read.argtypes = [ctypes.c_void_p]
+    fn.restype = read.restype = ctypes.c_int
+    sums = (ctypes.c_ulonglong * len(K1_CLOCK_PHASES))()
+    l, x = torch.empty_like(a), torch.empty_like(a)
+    stream = torch.cuda.current_stream().cuda_stream
+    torch.cuda.synchronize()
+    check(read(sums) == 0, "K1 clocks: read failed")  # clears the counters
+    for _ in range(runs):
+        check(fn(a.data_ptr(), l.data_ptr(), x.data_ptr(), a.shape[0], stream) == 0,
+              "K1 clocks: launch failed")
+    torch.cuda.synchronize()
+    check(read(sums) == 0, "K1 clocks: read failed")
+    total = sum(sums)
+    print(f"[timing] K1 clock64 breakdown n={a.shape[0]} float32 ({total / runs:.0f} cycles a "
+          "launch): " + ", ".join(f"{name} {100 * v / total:.1f} %"
+                                  for name, v in zip(K1_CLOCK_PHASES, sums)))
+
+
 def phase_timing(device):
     from skeres_tpu_torch.ops.cholesky import cholesky_both, cholesky_both_reference
 
-    a = spd(441, torch.float32, device)
-    # plain, kernel, kernel, plain: the card's clocks drift less than the gap
-    t = [cuda_ms(lambda: cholesky_both_reference(a)), cuda_ms(lambda: cholesky_both(a)),
-         cuda_ms(lambda: cholesky_both(a)), cuda_ms(lambda: cholesky_both_reference(a))]
-    ms, plain_ms = min(t[1], t[2]), min(t[0], t[3])
-    print(f"[timing] n=441 float32: K1 {t[1]:.4f}/{t[2]:.4f} ms, plain (cuSOLVER "
-          f"potrf + trsm) {t[0]:.4f}/{t[3]:.4f} ms (median of 20 runs of 10 calls each)")
-    return ms, plain_ms
+    times = {}
+    for n in K1_TIMED_NS:
+        a = spd(n, torch.float32, device)
+        # plain, kernel, kernel, plain: the card's clocks drift less than the gap
+        t = [cuda_ms(lambda: cholesky_both_reference(a)), cuda_ms(lambda: cholesky_both(a)),
+             cuda_ms(lambda: cholesky_both(a)), cuda_ms(lambda: cholesky_both_reference(a))]
+        times[n] = min(t[1], t[2]), min(t[0], t[3])
+        print(f"[timing] K1 n={n} float32: kernel {t[1]:.4f}/{t[2]:.4f} ms, plain (cuSOLVER "
+              f"potrf + trsm) {t[0]:.4f}/{t[3]:.4f} ms (median of 20 runs of 10 calls each)")
+        k1_clock_breakdown(a)
+    return times[441]
 
 
 # -- venice-1778 shape ----------------------------------------------------------
@@ -552,12 +607,19 @@ def profile_damped_solve(schur, data, g, diag):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from skeres_tpu_torch.ops.cholesky import PANEL, cholesky_both, trailing_update_
+
     torch.cuda.synchronize()
+    k1_before, up_before = cholesky_both.launches, trailing_update_.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         schur.solve_damped(data, g, diag, 1e-4, 1e-6, 1e32)
         torch.cuda.synchronize()
         wall = time.time() - t0
+    k1, up = cholesky_both.launches - k1_before, trailing_update_.launches - up_before
+    print(f"[venice] profiled damped solve: K1 panel launches {k1}, trailing-update launches {up}")
+    check(up >= 1 and up == k1 - k1 // math.ceil(schur.num_f / PANEL),
+          "venice profile: not one trailing update a panel but the last")
     # the device-side events (kernels, copies, sets): one stream, so their
     # sum is the device's busy time
     busy = sum(ev.device_time_total for ev in prof.events()
@@ -576,6 +638,7 @@ def phase_venice(device, program):
     from skeres_tpu_torch.core.schur import _jittered
     from skeres_tpu_torch.ops.cholesky import (
         PANEL,
+        blocked_chol_solve,
         blocked_cholesky_factor,
         blocked_cholesky_factor_reference,
     )
@@ -633,17 +696,20 @@ def phase_venice(device, program):
     del schur, data, g, diag, grid, cinv_flat
     torch.cuda.empty_cache()
 
-    # K2 at n = 16,002 on a random SPD matrix, both panels: plain, K2, K2, plain
     n = 9 * VENICE["num_cameras"]
     gen = torch.Generator(device=device).manual_seed(n)
+    for w in sorted({256, PANEL}):  # the first panel's shape at panel 256 and at PANEL
+        time_trailing_update(n - w, w, gen, device)
+
+    # K2 at n = 16,002 on a random SPD matrix, each panel: plain, K2, K2, plain
     m = torch.randn(n, n, generator=gen, device=device, dtype=torch.float32)
     a = m @ m.T
     a.diagonal().add_(float(n))
     del m
     times = {"plain": [cuda_ms(lambda: blocked_cholesky_factor_reference(a), calls=1)]}
-    for panel in K2_PANELS:
+    for panel in K2_TIMED_PANELS:
         times[panel] = [cuda_ms(lambda: blocked_cholesky_factor(a, panel=panel), calls=1)]
-    for panel in reversed(K2_PANELS):
+    for panel in reversed(K2_TIMED_PANELS):
         times[panel].append(cuda_ms(lambda: blocked_cholesky_factor(a, panel=panel), calls=1))
     times["plain"].append(cuda_ms(lambda: blocked_cholesky_factor_reference(a), calls=1))
     print(f"[timing] K2 n={n} float32: " + ", ".join(
@@ -651,15 +717,57 @@ def phase_venice(device, program):
         + f"; plain (cuSOLVER potrf) {times['plain'][0]:.3f}/{times['plain'][1]:.3f} ms "
         "(median of 20 runs)")
     k2_case(a, PANEL, f"n={n} random SPD float32", rtol=None, backward=K2_VENICE_BACKWARD)
-    del a
+    fac = blocked_cholesky_factor(a)
+    b = torch.randn(n, generator=gen, device=device, dtype=torch.float32)
+    solve_ms = cuda_ms(lambda: blocked_chol_solve(fac, b), calls=1)
+    print(f"[timing] blocked_chol_solve n={n} float32 panel {PANEL}: {solve_ms:.4f} ms "
+          "(median of 20 runs; the factor apart)")
+    del a, fac
     torch.cuda.empty_cache()
     return dict(k3=(k3_err, k3_ms, k3_plain), k2=(min(times[PANEL]), min(times["plain"])))
+
+
+def time_trailing_update(m: int, w: int, gen, device) -> None:
+    """K2's trailing update alone at the first panel's shape, float32, in
+    place on a strided view of an (m + w)-row factor: the kernel (lower
+    triangle, 3xTF32) against ``addmm_`` on the full square (full float32,
+    the update K2 had before its kernel), in turns; effective TFLOP/s count
+    the lower triangle's m (m + 1) w multiply-adds twice."""
+    from skeres_tpu_torch.ops.cholesky import trailing_update_, trailing_update_reference_
+
+    big = torch.randn(m + w, m + w, generator=gen, device=device, dtype=torch.float32)
+    c = big[w:, w:]
+    p = torch.randn(m, w, generator=gen, device=device, dtype=torch.float32)
+    want = c.clone()
+    trailing_update_reference_(want, p)
+    got = c.clone()
+    trailing_update_(got, p)
+    torch.cuda.synchronize()
+    lower = torch.ones(m, m, dtype=torch.bool, device=device).tril_()
+    err, rel = rel_err(got[lower], want[lower])
+    upper_same = bool(torch.equal(got[~lower], c[~lower]))
+    del want, got, lower
+    run_k = lambda: trailing_update_(c, p)
+    run_p = lambda: c.addmm_(p, p.T, alpha=-1.0)
+    t = [cuda_ms(run_p, calls=3), cuda_ms(run_k, calls=3), cuda_ms(run_k, calls=3),
+         cuda_ms(run_p, calls=3)]
+    ms = min(t[1], t[2])
+    flop = m * (m + 1) * w
+    print(f"[timing] trailing update m={m} w={w} float32: kernel {t[1]:.4f}/{t[2]:.4f} ms "
+          f"({flop / ms / 1e9:.1f} TFLOP/s effective, {3 * flop / ms / 1e9:.1f} TF32 TFLOP/s), "
+          f"addmm_ on the full square {t[0]:.4f}/{t[3]:.4f} ms (median of 20 runs); lower "
+          f"triangle against the plain version max|err| {err:.3e} (rel {rel:.3e}), upper "
+          f"triangle untouched: {upper_same}")
+    check(rel <= K2_RTOL[torch.float32], f"trailing update: rel error {rel:.3e}")
+    check(upper_same, "trailing update: the upper triangle changed")
+    del big, p
+    torch.cuda.empty_cache()
 
 
 def phase_venice_solve(device, problem, program) -> tuple[int, int]:
     import skeres_tpu_torch as stt
     from skeres_tpu_torch.core.types import LinearSolverType
-    from skeres_tpu_torch.ops.cholesky import PANEL, cholesky_both
+    from skeres_tpu_torch.ops.cholesky import PANEL, cholesky_both, trailing_update_
     from skeres_tpu_torch.ops.pair_product import pair_products
 
     options = stt.SolverOptions(
@@ -672,9 +780,9 @@ def phase_venice_solve(device, problem, program) -> tuple[int, int]:
     )
     torch.cuda.reset_peak_memory_stats()
     # S has 16,002 rows: every K1 launch of this run is one of K2's panels
-    cholesky_both.launches = pair_products.launches = 0
+    cholesky_both.launches = pair_products.launches = trailing_update_.launches = 0
     s = stt.solve(options, problem, program)
-    k2, k3 = cholesky_both.launches, pair_products.launches
+    k2, k3, up = cholesky_both.launches, pair_products.launches, trailing_update_.launches
     steps = s.num_successful_steps + s.num_unsuccessful_steps
     costs = [it.cost for it in s.iterations]
     panels = math.ceil(9 * VENICE["num_cameras"] / PANEL)
@@ -691,15 +799,17 @@ def phase_venice_solve(device, problem, program) -> tuple[int, int]:
     print(f"[venice-solve] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"[venice-solve] {s.num_linear_solves} damped solves: K3 launches {k3} "
           f"({k3 / max(s.num_linear_solves, 1):.2f} a solve), K1 panel launches inside K2 {k2} "
-          f"({k2 / max(s.num_linear_solves, 1):.2f} a solve, {panels} panels a factor)")
+          f"({k2 / max(s.num_linear_solves, 1):.2f} a solve, {panels} panels a factor), "
+          f"trailing-update launches {up} ({up / max(s.num_linear_solves, 1):.2f} a solve)")
     check(s.schur_complement_path == "explicit", "venice solve: not the explicit path")
     check(all(math.isfinite(c) for c in costs), "venice solve: non-finite cost")
     check(s.num_successful_steps >= 1, "venice solve: no step accepted")
     check(s.final_cost < s.initial_cost,
           f"venice solve: final cost {s.final_cost} not below initial {s.initial_cost}")
-    check(k3 >= s.num_linear_solves > 0 and k2 >= panels * s.num_linear_solves,
+    check(k3 >= s.num_linear_solves > 0 and k2 >= panels * s.num_linear_solves
+          and up >= (panels - 1) * s.num_linear_solves and up == k2 - k2 // panels,
           "venice solve: K3 or K2 did not launch on every damped solve")
-    return k2, k3
+    return up, k3
 
 
 def main() -> int:
@@ -715,7 +825,7 @@ def main() -> int:
     phase_card_vs_cpu_explicit(device)
     problem, program = venice_scene()
     venice = phase_venice(device, program)
-    k2_launches, k3_launches = phase_venice_solve(device, problem, program)
+    up_launches, k3_launches = phase_venice_solve(device, problem, program)
     k1_ms, k1_plain = phase_timing(device)
     k3_err, k3_ms, k3_plain = venice["k3"]
     k2_ms, k2_plain = venice["k2"]
@@ -731,11 +841,11 @@ def main() -> int:
             "plain_ms": k1_plain,
         },
         {
-            "name": "blocked_cholesky_factor (K2; launches: its K1 panel launches)",
+            "name": "blocked_cholesky_factor (K2; launches: its trailing-update kernel's)",
             "route": "cuda",
             "source": "skeres_tpu_torch/csrc/cholesky.cu",
             "replaces": "skeres_tpu/ops/pallas/cholesky.py:249",
-            "launches": k2_launches,
+            "launches": up_launches,
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain,

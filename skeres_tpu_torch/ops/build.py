@@ -43,13 +43,15 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str):
-    """Compile ``csrc/<name>.cu`` (once per source hash) and load it.
+def load_library(name: str, defines: tuple = ()):
+    """Compile ``csrc/<name>.cu`` (once per source hash and ``defines``,
+    preprocessor macros such as ``("SKERES_K1_CLOCKS",)``) and load it.
     Returns ``(library, compiler_log)``; the log is empty when an earlier
     build of the same source was reused."""
     source = _CSRC / f"{name}.cu"
     src = source.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = _NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     lib_path = _BUILD_DIR / f"{name}-{key}.so"
     log = ""
     if not lib_path.exists():
@@ -59,7 +61,7 @@ def load_library(name: str):
         os.close(fd)
         try:
             proc = subprocess.run(
-                [nvcc, *_NVCC_FLAGS, "-o", tmp, str(source)],
+                [nvcc, *flags, "-o", tmp, str(source)],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:

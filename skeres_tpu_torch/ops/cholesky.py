@@ -12,21 +12,22 @@ K2 is the blocked factor past 1024 rows (``blocked_cholesky_factor`` /
 ``blocked_chol_solve``, counterparts of the JAX package's
 ``_blocked_factor_padded`` / ``_blocked_solve_padded``): a right-looking
 factor over ``panel``-wide block columns, each diagonal panel factored
-and inverted by K1, the panel scale and trailing update as
-``torch.matmul`` (full float32 unless the caller turns TF32 on), and a
-block substitution through the panels' inverses.
+and inverted by K1, the panel scale as ``torch.matmul`` (full float32
+unless the caller turns TF32 on), the trailing update by a kernel of its
+own (``trailing_update_``: the lower triangle only, float32 as 3xTF32 on
+the tensor cores), and a block substitution through the panels' inverses.
 
-The kernel is ``csrc/cholesky.cu`` (its header says what bounds it on the
-card and how the design answers that). It is compiled with ``nvcc`` for
-``sm_90a`` at first use, from the sources in this checkout, into
+Both kernels are in ``csrc/cholesky.cu`` (its header says what bounds them
+on the card and how the design answers that). It is compiled with ``nvcc``
+for ``sm_90a`` at first use, from the sources in this checkout, into
 ``build/skeres_tpu_torch/`` keyed by a hash of the source and flags, and
 bound through ``ctypes`` (``ops/build.py``). Nothing is compiled at import.
 
 A CUDA tensor launches the kernel or raises. A CPU tensor takes the plain
-PyTorch version beside it (``cholesky_both_reference``; K2's panel loop runs
-the same on either device, its panels taking K1 or K1's plain version),
-which the tests and ``chip_smoke.py`` also call by name to check the
-kernels. ``blocked_cholesky_factor_reference`` is K2's plain version.
+PyTorch version beside it (``cholesky_both_reference``,
+``trailing_update_reference_``; K2's panel loop runs the same on either
+device), which the tests and ``chip_smoke.py`` also call by name to check
+the kernels. ``blocked_cholesky_factor_reference`` is K2's plain version.
 """
 
 from __future__ import annotations
@@ -52,9 +53,11 @@ __all__ = [
     "cholesky_inverse_factor",
     "cholesky_inverse_factor_reference",
     "chol_solve",
+    "trailing_update_",
+    "trailing_update_reference_",
 ]
 
-MAX_CHOLESKY_N = 1024  # one block of 1024 threads; larger S is K2's
+MAX_CHOLESKY_N = 1024  # K1's shared-memory copy of a block column; larger S is K2's
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,6 +68,11 @@ def build_kernels():
     for name in ("skeres_chol_inv_f32", "skeres_chol_inv_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in ("skeres_syrk_lower_f32", "skeres_syrk_lower_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib, log
 
@@ -137,7 +145,51 @@ def chol_solve(linv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # K2: blocked factor past K1's 1024 rows (venice-1778's S has 16,002).
 # ---------------------------------------------------------------------------
 
-PANEL = 256  # K2's panel width: K1's work grows as n * panel^2 (PERF.md)
+PANEL = 512  # K2's panel width, the fastest of 128, 256 and 512 on the card (PERF.md)
+
+
+def trailing_update_reference_(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`trailing_update_`, in the working dtype."""
+    return c.sub_(torch.tril(p @ p.T))
+
+
+def trailing_update_(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``C -= tril(P P^T)`` in place, for ``c`` (m x m, unit column stride,
+    any row stride: a view into the factor) and ``p`` (m x w): the lower
+    triangle of C is updated, its strict upper triangle is not touched.
+    float32 runs 3xTF32 on the tensor cores (``wgmma``), float64 DMMA.
+    ``trailing_update_.launches`` counts kernel launches."""
+    m = p.shape[0]
+    if c.dtype not in (torch.float32, torch.float64) or p.dtype != c.dtype:
+        raise TypeError(f"the trailing update takes float32 or float64, got {c.dtype}, {p.dtype}")
+    if c.ndim != 2 or p.ndim != 2 or tuple(c.shape) != (m, m) or m < 1 or p.shape[1] < 1:
+        raise ValueError(f"the trailing update takes C m x m and P m x w, got "
+                         f"{tuple(c.shape)} and {tuple(p.shape)}")
+    if c.stride(1) != 1 or c.stride(0) < m:
+        raise ValueError("the trailing update takes C with unit column stride")
+    if c.device != p.device or c.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the trailing update runs on cuda (or its plain version on cpu), "
+                         f"got {c.device} and {p.device}")
+    if c.device.type == "cpu":
+        return trailing_update_reference_(c, p)
+    vec = 16 // p.element_size()  # the kernel copies 16-byte rows of P
+    w = p.shape[1]
+    if not p.is_contiguous() or w % vec or p.data_ptr() % 16:
+        padded = p.new_zeros(m, -(-w // vec) * vec)
+        padded[:, :w] = p
+        p = padded
+    lib, _ = build_kernels()
+    fn = lib.skeres_syrk_lower_f32 if c.dtype == torch.float32 else lib.skeres_syrk_lower_f64
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(p.data_ptr(), p.stride(0), m, p.shape[1], c.data_ptr(), c.stride(0), stream)
+    if err != 0:
+        raise RuntimeError(f"trailing update launch failed: CUDA error {err}")
+    trailing_update_.launches += 1
+    return c
+
+
+trailing_update_.launches = 0
 
 
 class BlockedCholFactor:
@@ -158,8 +210,9 @@ class BlockedCholFactor:
 def blocked_cholesky_factor(a: torch.Tensor, panel: int = PANEL) -> BlockedCholFactor:
     """Factor SPD ``a`` (only its lower triangle is read). A failed panel
     leaves it and every later panel NaN, and so every entry of a solve
-    through the factor. Its kernel launches are K1's, one a panel on the
-    card, counted by ``cholesky_both.launches``."""
+    through the factor. On the card it launches K1 once a panel
+    (``cholesky_both.launches``) and the trailing update once a panel but
+    the last (``trailing_update_.launches``)."""
     _check(a, "K2", max_n=None)
     if panel < 1 or panel > MAX_CHOLESKY_N:
         raise ValueError(f"K2 takes 1 <= panel <= {MAX_CHOLESKY_N}, got {panel}")
@@ -174,7 +227,7 @@ def blocked_cholesky_factor(a: torch.Tensor, panel: int = PANEL) -> BlockedCholF
         if end < n:
             pcol = l[end:, off:end] @ vkk.T
             l[end:, off:end] = pcol
-            l[end:, end:].addmm_(pcol, pcol.T, alpha=-1.0)
+            trailing_update_(l[end:, end:], pcol)
     return BlockedCholFactor(l.tril_(), dinv, panel)
 
 

@@ -170,3 +170,100 @@ def test_k2_failed_panel_poisons_every_later_output(dtype):
 def test_k2_rejects_what_it_does_not_take(bad, panel, exc):
     with pytest.raises(exc):
         k1.blocked_cholesky_factor(bad, panel=panel)
+
+
+# -- K2's trailing update: C -= tril(P P^T) -----------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("w", [1, 32, 256])
+@pytest.mark.parametrize("m", [1, 63, 130, 257])
+def test_trailing_update_plain_version_matches_numpy(m, w, dtype):
+    """The plain version on a strided view (row stride m + 5, as a view into
+    the factor): the lower triangle within the float rounding bound of a
+    w-term sum, (w + 2) eps (|C| + |P| |P|^T) elementwise; the strict upper
+    triangle and everything outside the view bit-for-bit unchanged."""
+    rng = np.random.default_rng(m * 1000 + w)
+    big = torch.tensor(rng.standard_normal((m + 3, m + 5)), dtype=dtype)
+    p = torch.tensor(rng.standard_normal((m, w)), dtype=dtype)
+    before = big.clone()
+    c = big[3:, 5:]
+    assert c.stride() == (m + 5, 1)
+    launches = k1.trailing_update_.launches
+    assert k1.trailing_update_(c, p) is c
+    assert k1.trailing_update_.launches == launches  # the CPU never launches
+    c0, p64 = before[3:, 5:].double().numpy(), p.double().numpy()
+    want = c0 - p64 @ p64.T
+    eps = float(torch.finfo(dtype).eps)
+    bound = (w + 2) * eps * (np.abs(c0) + np.abs(p64) @ np.abs(p64).T)
+    lower = np.tril(np.ones((m, m), dtype=bool))
+    err = np.abs(c.double().numpy() - want)
+    assert (err[lower] <= bound[lower]).all()
+    assert torch.equal(c[~torch.from_numpy(lower)], before[3:, 5:][~torch.from_numpy(lower)])
+    outside = torch.ones_like(big, dtype=torch.bool)
+    outside[3:, 5:] = False
+    assert torch.equal(big[outside], before[outside])
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: add half of the dropped 13 bits on the int32 view, then
+    clear them."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_truncated(x: np.ndarray) -> np.ndarray:
+    """What a tensor core reads of a float32 operand: the low 13 mantissa
+    bits cleared."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_split_three_passes_keep_float32_accuracy():
+    """Why the trailing update takes three TF32 passes in float32, emulating
+    its split: hi = tf32(x) rounded, lo = x - hi passed whole and truncated
+    by the tensor core. On a 512 x 256 P, P P^T from hi alone is off by
+    ~2e-4 (normwise, against float64), beyond K2's 1e-4 bound at venice
+    size; lo.hi + hi.lo + hi.hi, each product exact in float32 and summed
+    in float32 as the tensor cores do, is within 1e-6, as close as a plain
+    float32 product."""
+    p = np.random.default_rng(0).standard_normal((512, 256)).astype(np.float32)
+    hi = _tf32(p)
+    lo = _tf32_truncated(p - hi)
+    assert np.all(np.abs(p - hi) <= 2.0**-11 * np.abs(p))
+    ref = p.astype(np.float64) @ p.astype(np.float64).T
+
+    def rel(x):
+        return np.linalg.norm(x - ref) / np.linalg.norm(ref)
+
+    one = rel(hi @ hi.T)
+    three = rel(lo @ hi.T + hi @ lo.T + hi @ hi.T)
+    plain = rel(p @ p.T)
+    assert one >= 1e-4
+    assert three <= 1e-6
+    assert three <= 2 * plain
+
+
+@pytest.mark.parametrize(
+    "c,p,exc",
+    [
+        (torch.zeros(4, 4), torch.zeros(4, 2, dtype=torch.float64), TypeError),
+        (torch.zeros(4, 4, dtype=torch.float16), torch.zeros(4, 2, dtype=torch.float16), TypeError),
+        (torch.zeros(4, 5), torch.zeros(4, 2), ValueError),
+        (torch.zeros(4, 4), torch.zeros(3, 2), ValueError),
+        (torch.zeros(4, 4), torch.zeros(4, 0), ValueError),
+        (torch.zeros(4, 4).T, torch.zeros(4, 2), ValueError),  # column stride 4
+    ],
+)
+def test_trailing_update_rejects_what_the_kernel_does_not_take(c, p, exc):
+    with pytest.raises(exc):
+        k1.trailing_update_(c, p)
+
+
+def test_k2_on_the_cpu_launches_no_update():
+    """K2's CPU path takes the update's plain version at every panel."""
+    before = k1.trailing_update_.launches
+    fac = k1.blocked_cholesky_factor(torch.tensor(_spd(70)), panel=16)
+    assert k1.trailing_update_.launches == before
+    np.testing.assert_allclose(fac.l.numpy(), np.linalg.cholesky(_spd(70)), rtol=1e-10, atol=1e-10)

@@ -37,19 +37,68 @@ def _spd(n):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
 def test_k1_matches_plain_version_on_card(cuda, dtype, tol):
     """Max-abs error of L and L^-1 within ``tol`` of max|reference|: float32
-    rounding over n-term sums at n <= 1024, and float64's."""
+    rounding over n-term sums at n <= 1024, and float64's. The sizes cover
+    one step, a ragged last step on either side of 32, K2's panel and the
+    largest n."""
+    ns = (1, 31, 32, 33, 256, 441, 1024)
     before = k1.cholesky_both.launches
-    for n in (1, 37, 441, 1024):
+    for n in ns:
         a = torch.tensor(_spd(n), dtype=dtype, device=cuda)
         l, linv = k1.cholesky_both(a)
         l_ref, linv_ref = k1.cholesky_both_reference(a)
         torch.cuda.synchronize()
         for x, ref in ((l, l_ref), (linv, linv_ref)):
             assert float((x - ref).abs().max()) <= tol * float(ref.abs().max())
-    assert k1.cholesky_both.launches == before + 4
+    assert k1.cholesky_both.launches == before + len(ns)
     bad = -torch.eye(8, dtype=dtype, device=cuda)
     l, linv = k1.cholesky_both(bad)
     assert torch.isnan(l).all() and torch.isnan(linv).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("at", [0, 3, 438, 440])
+def test_k1_failed_pivot_gives_all_nan_on_card(cuda, dtype, at):
+    """A pivot that fails in the first or the last diagonal block (n = 441:
+    the last block is ragged) makes every output element NaN."""
+    a = torch.tensor(_spd(441), dtype=dtype, device=cuda)
+    a[at, at] = -1.0
+    l, linv = k1.cholesky_both(a)
+    torch.cuda.synchronize()
+    assert torch.isnan(l).all() and torch.isnan(linv).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 257, 3000])
+def test_trailing_update_matches_plain_version_on_card(cuda, dtype, m):
+    """The update kernel and its plain version on a strided view (row
+    stride m + 5), at a panel width of K2 and ragged ones: each within
+    (w + 8) eps (|C| + |P| |P|^T) of float64 elementwise (a w-term sum, and
+    the 3xTF32 split's dropped lo.lo terms in float32); the strict upper
+    triangle and all outside the view untouched; one launch a call. w = 37
+    takes the wrapper's zero-padded copy of P."""
+    for w in (256, 36, 37):
+        rng = np.random.default_rng(m + w)
+        big = torch.tensor(rng.standard_normal((m + 3, m + 5)), dtype=dtype, device=cuda)
+        p = torch.tensor(rng.standard_normal((m, w)), dtype=dtype, device=cuda)
+        before = big.clone()
+        c0, p64 = before[3:, 5:].double(), p.double()
+        want = c0 - p64 @ p64.T
+        bound = (w + 8) * torch.finfo(dtype).eps * (c0.abs() + p64.abs() @ p64.abs().T)
+        launches = k1.trailing_update_.launches
+        k1.trailing_update_(big[3:, 5:], p)
+        assert k1.trailing_update_.launches == launches + 1
+        plain = before[3:, 5:].clone()
+        k1.trailing_update_reference_(plain, p)
+        torch.cuda.synchronize()
+        lower = torch.tril(torch.ones(m, m, dtype=torch.bool, device=cuda))
+        for got in (big[3:, 5:], plain):
+            assert bool(((got.double() - want).abs() <= bound)[lower].all())
+        assert torch.equal(big[3:, 5:][~lower], before[3:, 5:][~lower])
+        outside = torch.ones_like(big, dtype=torch.bool)
+        outside[3:, 5:] = False
+        assert torch.equal(big[outside], before[outside])
 
 
 @pytest.mark.gpu
@@ -77,14 +126,15 @@ def test_solve_on_card_matches_cpu(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
 def test_k2_matches_plain_version_on_card(cuda, dtype, tol):
-    """K2 (K1 panels + GEMM updates) against cuSOLVER's factor: L and a
-    solve within ``tol`` of max|reference|, a short last panel included;
-    a failed panel makes the solve non-finite."""
+    """K2 (K1 panels + the trailing-update kernel) against cuSOLVER's
+    factor: L and a solve within ``tol`` of max|reference|, a short last
+    panel included; a failed panel makes the solve non-finite."""
     n, panel = 1100, 256
     a = torch.tensor(_spd(n), dtype=dtype, device=cuda)
-    before = k1.cholesky_both.launches
+    before, updates = k1.cholesky_both.launches, k1.trailing_update_.launches
     fac = k1.blocked_cholesky_factor(a, panel=panel)
     assert k1.cholesky_both.launches == before + 5  # one K1 launch a panel
+    assert k1.trailing_update_.launches == updates + 4  # one a panel but the last
     l_ref = k1.blocked_cholesky_factor_reference(a)
     b = torch.ones(n, dtype=dtype, device=cuda)
     x = k1.blocked_chol_solve(fac, b)
