@@ -49,7 +49,8 @@ non-zero and prints no result line):
                version; the trailing update alone at the first panel's shape
                (m = 15,746, w = 256, and at ``PANEL``) against ``addmm_``,
                with its TFLOP/s; K2
-               (n = 16,002) at panels 128, 256 and 512 against cuSOLVER; and
+               (n = 16,002) at panels 256 and 512 against cuSOLVER and
+               ``torch.linalg.cholesky_ex``; and
                ``blocked_chol_solve`` at n = 16,002 apart from the factor.
  11. venice solve — the second main path: the same scene through
                ``stt.solve``, 5 LM steps (explicit S, K3, K2); every cost
@@ -60,15 +61,42 @@ non-zero and prints no result line):
                median of 20 runs (10 back-to-back calls each) timed with
                CUDA events after warm-up; and K1's clock64 breakdown by
                phase at those n (thread 0's cycles over 20 launches).
+ 13. device loop, card vs CPU — synthetic_bal(16, 500, 4), 10 steps in
+               float64 with ``use_device_loop`` in chunks of 4 (on the card
+               each LM step is one replayed CUDA graph with conditional IF
+               nodes): the same accept/reject sequence as on the CPU, costs
+               to rtol 1e-8.
+ 14. device loop, explicit — the same on the scene of phase 9 with the
+               dense-W gate at 0 (K3, and K2 over K1 panels, in the graph).
+ 15. device loop, BAL-49 — ``bench.py``'s options (30 steps, one chunk of
+               30, the full iteration budget), float32, its minimizer traced
+               (``trace_dir``) in a child process (``chip_smoke.py
+               --traced-bal49``; see the note above ``trace_launches``):
+               costs finite and below 1e-2 of the initial cost, K1 in the
+               replays once a damped solve and once a jitter rung; then LM
+               steps/s of the device loop and the host loop, median and spread
+               of 5 runs each, in turns; the capture time.
+ 16. device loop, venice — run right after phase 11, as the first CUDA graph
+               of the process: the same scene through ``stt.solve`` with
+               ``use_device_loop``, 5 steps in one chunk, traced: the checks of
+               phase 11, with K3, K1 panels and updates counted in the replays
+               from the trace; the capture time and the peak device memory;
+               then one untraced run, for LM steps/s beside phase 11's.
 
-The line before the last is a JSON object describing each kernel; the last
-is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+The line before the last is a JSON object describing each kernel (its
+time, its launches on the main path, its bound: the larger of the bytes it
+must move over 3.35 TB/s and its operations over the peak for their type,
+float32 on the tensor cores as 3xTF32 at 495 / 3 = 165 TFLOP/s; and the
+time of one PyTorch call computing the same function, where one exists);
+the last is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}``. The run prints its wall time before them.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -96,9 +124,17 @@ K3_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 VENICE = dict(num_cameras=1778, num_points=1_000_000, observations_per_point=5)
 VENICE_CHUNK = 262_144  # evaluation_chunk_size, as tools/bench_venice.py
 VENICE_STEPS = 5
+ROOT = os.path.dirname(os.path.abspath(__file__))
 K1_TIMED_NS = (256, 441, 1024)
-K2_TIMED_PANELS = (128, 256, 512)
+K2_TIMED_PANELS = (128, 256, 512)  # 512 is PANEL
 K1_CLOCK_PHASES = ("set-up", "diagonal", "multiply", "exchange", "update", "barrier", "NaN fill")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_3XTF32_FLOPS = 495e12 / 3  # float32 as 3xTF32 on the tensor cores
+# kernel names in a profiler trace: K1 (f32 and f64), K2's update (both),
+# K3, and the one-thread kernel that sets an IF node's condition
+TRACE_KERNELS = {"K1": "chol_inv_kernel", "update": "syrk_lower", "K3": "pair_kernel",
+                 "IF": "set_conditional_kernel"}
+TIMED_RUNS = 5  # device loop and host loop, in turns
 
 
 def check(ok: bool, what: str) -> None:
@@ -320,15 +356,15 @@ def phase_solve(device) -> int:
     return launches
 
 
-def card_vs_cpu(device, bal, label: str):
+def card_vs_cpu(device, bal, label: str, **kw):
     """The same float64 solve, 10 steps at initial radius 1, on the card and
-    on the CPU: the same accept/reject sequence, costs to rtol 1e-8.
-    Returns the card's Summary."""
+    on the CPU (``kw``: more solver options for both): the same
+    accept/reject sequence, costs to rtol 1e-8. Returns the card's Summary."""
     # initial radius 1: every accept/reject decision of the 10 steps is made
     # on a cost change far above rounding; at the default radius a scene
     # like synthetic_bal(16, 500, 4) converges by step 6 and later decisions
     # compare rounding noise, which two summation orders need not agree on
-    runs = {dev: solve_bal(bal, dev, torch.float64, 10, initial_trust_region_radius=1.0)
+    runs = {dev: solve_bal(bal, dev, torch.float64, 10, initial_trust_region_radius=1.0, **kw)
             for dev in (device, "cpu")}
     seq = {dev: [it.step_is_successful for it in s.iterations] for dev, s in runs.items()}
     cost = {dev: np.array([it.cost for it in s.iterations]) for dev, s in runs.items()}
@@ -635,7 +671,6 @@ def profile_damped_solve(schur, data, g, diag):
 def phase_venice(device, program):
     """Kernel checks and timings at venice shape, from the first damped
     solve's state. Returns the K3 and K2 numbers for the kernels line."""
-    from skeres_tpu_torch.core.schur import _jittered
     from skeres_tpu_torch.ops.cholesky import (
         PANEL,
         blocked_chol_solve,
@@ -666,7 +701,7 @@ def phase_venice(device, program):
     s_eq = equilibrated(schur._dense_s(asm))
     del asm
     for jitter in (0.0, 1e-3, 0.1):  # the ladder's rungs
-        fac = blocked_cholesky_factor(_jittered(s_eq, jitter))
+        fac = blocked_cholesky_factor(s_eq, jitter=jitter)
         if bool(torch.isfinite(fac.l).all()):
             break
     check(bool(torch.isfinite(fac.l).all()), "K2 venice: every rung of the ladder failed")
@@ -675,7 +710,8 @@ def phase_venice(device, program):
     # no bound against the plain version: S of a gauge-free BA problem is
     # ill-conditioned, so two float32 factorizations differ by about
     # cond(S) * eps; the backward errors are what both guarantee
-    k2_case(_jittered(s_eq, jitter), PANEL, "venice S", rtol=None, backward=K2_VENICE_BACKWARD)
+    s_eq.diagonal().add_(jitter)
+    k2_case(s_eq, PANEL, "venice S", rtol=None, backward=K2_VENICE_BACKWARD)
     del s_eq
     torch.cuda.empty_cache()
 
@@ -690,6 +726,8 @@ def phase_venice(device, program):
          cuda_ms(run_k, calls=5)]
     k3_ms, k3_plain = min(t[0], t[3]), min(t[1], t[2])
     moved = (plan.n_pair_rows * 81 + grid.numel() + cinv_flat.numel()) * 4 + 2 * swap.numel()
+    # Y = A C^-1 for each slot, then Y A^T for each pair: multiply-adds x 2
+    k3_flop = 2 * plan.np_ * (plan.kp * 9 * 3 * 3 + plan.npairs * 9 * 9 * 3)
     print(f"[timing] K3 venice shape ({plan.n_pair_rows} pair rows, {moved / 1e9:.3f} GB "
           f"moved): kernel {t[0]:.4f}/{t[3]:.4f} ms ({moved / 1e6 / k3_ms:.1f} GB/s), plain "
           f"{t[1]:.4f}/{t[2]:.4f} ms (median of 20 runs)")
@@ -712,9 +750,11 @@ def phase_venice(device, program):
     for panel in reversed(K2_TIMED_PANELS):
         times[panel].append(cuda_ms(lambda: blocked_cholesky_factor(a, panel=panel), calls=1))
     times["plain"].append(cuda_ms(lambda: blocked_cholesky_factor_reference(a), calls=1))
+    library = [cuda_ms(lambda: torch.linalg.cholesky_ex(a), calls=1) for _ in range(2)]
     print(f"[timing] K2 n={n} float32: " + ", ".join(
-        f"panel {p} {t[0]:.3f}/{t[1]:.3f} ms" for p, t in times.items() if p != "plain")
-        + f"; plain (cuSOLVER potrf) {times['plain'][0]:.3f}/{times['plain'][1]:.3f} ms "
+        f"panel {p} {t[0]:.3f}/{t[1]:.3f} ms" for p, t in times.items() if p not in ("plain",))
+        + f"; plain (cuSOLVER potrf) {times['plain'][0]:.3f}/{times['plain'][1]:.3f} ms; "
+        f"library torch.linalg.cholesky_ex {library[0]:.3f}/{library[1]:.3f} ms "
         "(median of 20 runs)")
     k2_case(a, PANEL, f"n={n} random SPD float32", rtol=None, backward=K2_VENICE_BACKWARD)
     fac = blocked_cholesky_factor(a)
@@ -724,7 +764,8 @@ def phase_venice(device, program):
           "(median of 20 runs; the factor apart)")
     del a, fac
     torch.cuda.empty_cache()
-    return dict(k3=(k3_err, k3_ms, k3_plain), k2=(min(times[PANEL]), min(times["plain"])))
+    return dict(k3=(k3_err, k3_ms, k3_plain, moved, k3_flop), k2=(min(times[PANEL]),
+                min(times["plain"]), min(library), n))
 
 
 def time_trailing_update(m: int, w: int, gen, device) -> None:
@@ -809,26 +850,272 @@ def phase_venice_solve(device, problem, program) -> tuple[int, int]:
     check(k3 >= s.num_linear_solves > 0 and k2 >= panels * s.num_linear_solves
           and up >= (panels - 1) * s.num_linear_solves and up == k2 - k2 // panels,
           "venice solve: K3 or K2 did not launch on every damped solve")
-    return up, k3
+    return up, k3, steps / s.minimizer_time_in_seconds
+
+
+
+# -- the device loop: one captured CUDA graph per LM step ----------------------
+#
+# Kernels inside the IF bodies of a CUDA graph show in a torch.profiler trace
+# with their right names only in the first graph a process captures (torch
+# 2.11, CUDA 12.8: in later ones they come with correlation id 0 and, after a
+# few graphs, the names of other kernels). So the traced venice solve is the
+# first graph of this process, and the traced BAL-49 solve runs in a child
+# process of this script (``--traced-bal49``), which prints its numbers and
+# the launches counted in its trace as one JSON line. Each traced solve
+# checks first that no graph was captured before it in its process
+# (``first_graph``), so a phase moved ahead of it fails instead of reading
+# the wrong names. The cause is open (PERF.md, open questions).
+
+
+def first_graph(label: str) -> None:
+    from skeres_tpu_torch.core.graph import CapturedStep
+
+    check(CapturedStep.captured == 0,
+          f"{label}: {CapturedStep.captured} CUDA graphs captured before this traced solve; "
+          "the trace names kernels inside IF bodies right only in a process's first graph")
+
+
+def trace_launches(trace_dir: str) -> dict:
+    """Kernel launches by name (``TRACE_KERNELS``) in the minimizer's
+    profiler trace. With the device loop, minimize() runs these kernels
+    only by replaying the captured step: the warm-up and the capture ran
+    before it, in the preprocessor."""
+    from skeres_tpu_torch.core.solver import TRACE_FILE
+
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    counts = dict.fromkeys(TRACE_KERNELS, 0)
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            for key, pattern in TRACE_KERNELS.items():
+                counts[key] += pattern in ev.get("name", "")
+    return counts
+
+
+def trace_dir_for(label: str) -> str:
+    return os.path.join(ROOT, "build", "chip_smoke_traces", label)
+
+
+def venice_options(device, **kw):
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.types import LinearSolverType
+
+    return stt.SolverOptions(
+        linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=VENICE_STEPS,
+        run_full_iteration_budget=True, dtype=torch.float32, device=device,
+        evaluation_chunk_size=VENICE_CHUNK, **kw)
+
+
+def phase_venice_device_loop(device, problem, program, initial, host_rate: float) -> float:
+    """The first CUDA graph of this process: the venice solve of phase 11
+    with the device loop (one chunk of 5 steps), traced; then one untraced
+    run, beside phase 11's host loop. Returns the traced run's LM steps/s."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.ops.cholesky import PANEL
+
+    def solve(**kw):
+        for g, v in zip(program.groups, initial):  # each solve writes its solution back
+            g.values = v.copy()
+        return stt.solve(venice_options(device, **kw), problem, program)
+
+    loop = dict(use_device_loop=True, device_loop_chunk_iterations=VENICE_STEPS)
+    trace = trace_dir_for("venice")
+    first_graph("device-loop venice")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s = solve(trace_dir=trace, **loop)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = trace_launches(trace)
+    steps = s.num_successful_steps + s.num_unsuccessful_steps
+    costs = [it.cost for it in s.iterations]
+    panels, solves = math.ceil(9 * VENICE["num_cameras"] / PANEL), s.num_linear_solves
+    rate = steps / s.minimizer_time_in_seconds
+    print(f"[device-loop venice] path {s.schur_complement_path}; costs: {json.dumps(costs)}")
+    print(f"[device-loop venice] linear solver iterations: "
+          f"{[it.linear_solver_iterations for it in s.iterations[1:]]}")
+    print(f"[device-loop venice] {steps} LM steps ({s.num_successful_steps} accepted) in "
+          f"{s.minimizer_time_in_seconds:.4f} s of minimizer time (traced): {rate:.4f} LM steps/s; "
+          f"preprocessor {s.preprocessor_time_in_seconds:.4f} s, of which warm-up and capture "
+          f"{s.device_loop_capture_time_in_seconds:.4f} s")
+    print(f"[device-loop venice] peak device memory {peak:.3f} GiB (host loop, phase 11: "
+          f"11.4 GiB)")
+    print(f"[device-loop venice] launches inside the replays {n} for {solves} damped solves "
+          f"({panels} panels a factor)")
+    check(s.schur_complement_path == "explicit", "device-loop venice: not the explicit path")
+    check(all(math.isfinite(c) for c in costs), "device-loop venice: non-finite cost")
+    check(s.num_successful_steps >= 1, "device-loop venice: no step accepted")
+    check(s.final_cost < s.initial_cost,
+          f"device-loop venice: final cost {s.final_cost} not below initial {s.initial_cost}")
+    check(n["IF"] >= solves > 0 and n["K3"] >= solves and n["K1"] >= panels * solves
+          and n["update"] >= (panels - 1) * solves and n["update"] == n["K1"] - n["K1"] // panels,
+          "device-loop venice: K3 or K2 not in the replays on every damped solve")
+    r = solve(**loop)
+    untraced = (r.num_successful_steps + r.num_unsuccessful_steps) / r.minimizer_time_in_seconds
+    print(f"[device-loop venice] LM steps/s: host loop {host_rate:.4f} (phase 11), device loop "
+          f"{untraced:.4f} untraced ({rate:.4f} traced)")
+    return rate
+
+
+def device_loop_card_vs_cpu(bal, label: str, device):
+    """Phase 7's comparison with the device loop in chunks of 4."""
+    return card_vs_cpu(device, bal, label, use_device_loop=True, device_loop_chunk_iterations=4)
+
+
+def phase_device_loop_card_vs_cpu(device):
+    from skeres_tpu_torch.io.bal import synthetic_bal
+
+    card = device_loop_card_vs_cpu(synthetic_bal(16, 500, 4), "device-loop card-vs-cpu", device)
+    check(card.schur_complement_path == "dense-W", "device-loop card-vs-cpu: not the dense-W path")
+
+
+def phase_device_loop_explicit(device):
+    from skeres_tpu_torch.core import schur as schur_mod
+    from skeres_tpu_torch.io.bal import synthetic_bal
+
+    saved = schur_mod.DENSE_W_LIMIT_BYTES
+    schur_mod.DENSE_W_LIMIT_BYTES = 0  # S of 1080 rows: K3, and K2 over K1 panels
+    try:
+        card = device_loop_card_vs_cpu(synthetic_bal(120, 2000, 4), "device-loop explicit", device)
+    finally:
+        schur_mod.DENSE_W_LIMIT_BYTES = saved
+    check(card.schur_complement_path == "explicit", "device-loop explicit: not the explicit path")
+
+
+BAL49_DEVICE_LOOP = dict(use_device_loop=True, device_loop_chunk_iterations=30)
+
+
+def traced_bal49() -> dict:
+    """In a child process: bench.py's device-loop solve of BAL-49 on the
+    card, its minimizer traced; the Summary's numbers and the launches."""
+    from skeres_tpu_torch.io.bal import synthetic_bal
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros(1, device="cuda")  # the context, before the solve's clock
+    trace = trace_dir_for("bal49")
+    first_graph("device-loop BAL-49")
+    s = solve_bal(synthetic_bal(49, 7776, 4), "cuda", torch.float32, 30, trace_dir=trace,
+                  **BAL49_DEVICE_LOOP)
+    return dict(
+        costs=[it.cost for it in s.iterations],
+        linear_solver_iterations=[it.linear_solver_iterations for it in s.iterations[1:]],
+        initial_cost=s.initial_cost, final_cost=s.final_cost, successful=s.num_successful_steps,
+        solves=s.num_linear_solves, steps=s.num_successful_steps + s.num_unsuccessful_steps,
+        minimizer_s=s.minimizer_time_in_seconds, capture_s=s.device_loop_capture_time_in_seconds,
+        launches=trace_launches(trace),
+    )
+
+
+def spread(values) -> str:
+    return (f"median {statistics.median(values):.3f}, min {min(values):.3f}, max {max(values):.3f} "
+            f"({', '.join(f'{v:.3f}' for v in values)})")
+
+
+def phase_device_loop_bal49(device) -> tuple[float, float]:
+    """bench.py's device-loop configuration on the card. Returns the
+    median LM steps/s of the device loop and of the host loop."""
+    from skeres_tpu_torch.core.schur import FALLBACK_CG_ITERATIONS
+    from skeres_tpu_torch.io.bal import synthetic_bal
+
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--traced-bal49"],
+                         capture_output=True, text=True, timeout=600, cwd=ROOT)
+    lines = out.stdout.strip().splitlines()
+    check(out.returncode == 0 and bool(lines),
+          f"traced BAL-49 solve: exit {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    r = json.loads(lines[-1])
+    n, iters = r["launches"], r["linear_solver_iterations"]
+    rungs = sum(2 if i == FALLBACK_CG_ITERATIONS else i - 1 for i in iters)
+    print(f"[device-loop BAL-49] (child process) costs: {json.dumps(r['costs'])}")
+    print(f"[device-loop BAL-49] linear solver iterations: {iters}")
+    print(f"[device-loop BAL-49] {r['steps']} LM steps ({r['successful']} accepted), initial cost "
+          f"{r['initial_cost']!r} final cost {r['final_cost']!r}; {r['steps'] / r['minimizer_s']:.3f} "
+          f"LM steps/s (traced); launches inside the replays {n} for {r['solves']} damped solves "
+          f"and {rungs} jitter rungs; capture {r['capture_s']:.4f} s")
+    check(all(np.isfinite(r["costs"])), "device-loop BAL-49: non-finite cost")
+    check(r["final_cost"] < 1e-2 * r["initial_cost"],
+          f"device-loop BAL-49: final cost {r['final_cost']} not below 1e-2 x {r['initial_cost']}")
+    check(r["steps"] == 30, f"device-loop BAL-49: {r['steps']} LM steps, expected 30")
+    check(n["K1"] == r["solves"] + rungs and n["IF"] >= r["solves"] > 0,
+          f"device-loop BAL-49: K1 ran {n['K1']} times in the replays, not once a damped solve "
+          "and once a jitter rung")
+    bal = synthetic_bal(49, 7776, 4)
+    rates = {"device loop": [], "host loop": []}
+    captures, preprocess = [], {"device loop": [], "host loop": []}
+    for _ in range(TIMED_RUNS):
+        for name, kw in (("device loop", BAL49_DEVICE_LOOP), ("host loop", {})):
+            s = solve_bal(bal, device, torch.float32, 30, **kw)
+            steps = s.num_successful_steps + s.num_unsuccessful_steps
+            check(steps == 30, f"{name} BAL-49: {steps} LM steps")
+            rates[name].append(steps / s.minimizer_time_in_seconds)
+            preprocess[name].append(s.preprocessor_time_in_seconds)
+            if kw:
+                captures.append(s.device_loop_capture_time_in_seconds)
+    for name, v in rates.items():
+        print(f"[device-loop BAL-49] {name}: LM steps/s {spread(v)}; preprocessor s "
+              f"{spread(preprocess[name])}")
+    print(f"[device-loop BAL-49] capture (warm-up of every branch, the capture and the graph's "
+          f"upload) s {spread(captures)}")
+    return statistics.median(rates["device loop"]), statistics.median(rates["host loop"])
+
+
+def bound(nbytes: float, flop: float, flops_per_s: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / flops_per_s
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--traced-bal49"]:
+        print(json.dumps(traced_bal49()))
+        return 0
+    t_start = time.time()
     phase_device()
     device = "cuda"
-    phase_build()
-    k1_err = phase_k1(device)
-    k2_err = phase_k2(device)
-    phase_k3(device)
-    k1_launches = phase_solve(device)
-    phase_card_vs_cpu(device)
-    phase_explicit_vs_dense_w(device)
-    phase_card_vs_cpu_explicit(device)
-    problem, program = venice_scene()
-    venice = phase_venice(device, program)
-    up_launches, k3_launches = phase_venice_solve(device, problem, program)
-    k1_ms, k1_plain = phase_timing(device)
-    k3_err, k3_ms, k3_plain = venice["k3"]
-    k2_ms, k2_plain = venice["k2"]
+    from skeres_tpu_torch.ops.cholesky import PANEL
+
+    times = {}  # wall seconds of each phase
+
+    def timed(label, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        times[label] = round(time.time() - t0, 1)
+        return out
+
+    timed("build", phase_build)
+    k1_err = timed("K1", phase_k1, device)
+    k2_err = timed("K2", phase_k2, device)
+    timed("K3", phase_k3, device)
+    k1_launches = timed("solve", phase_solve, device)
+    timed("card vs CPU", phase_card_vs_cpu, device)
+    timed("explicit vs dense W", phase_explicit_vs_dense_w, device)
+    timed("card vs CPU explicit", phase_card_vs_cpu_explicit, device)
+    problem, program = timed("venice scene", venice_scene)
+    venice = timed("venice", phase_venice, device, program)
+    initial = [g.values.copy() for g in program.groups]
+    up_launches, k3_launches, venice_host_rate = timed(
+        "venice solve", phase_venice_solve, device, problem, program)
+    # phase 16 before any other graph: its traced solve must be this
+    # process's first CUDA graph (see the note above trace_launches)
+    timed("device loop venice", phase_venice_device_loop, device, problem, program, initial,
+          venice_host_rate)
+    del problem, program, initial
+    k1_ms, k1_plain = timed("timing", phase_timing, device)
+    timed("device loop card vs CPU", phase_device_loop_card_vs_cpu, device)
+    timed("device loop explicit", phase_device_loop_explicit, device)
+    timed("device loop BAL-49", phase_device_loop_bal49, device)
+    k3_err, k3_ms, k3_plain, k3_bytes, k3_flop = venice["k3"]
+    k2_ms, k2_plain, k2_library, k2_n = venice["k2"]
+    n1 = 9 * 49  # K1's n on the main path: the BAL-49 S
+    # bytes: K1 and K2 read A's lower triangle, n(n+1)/2 elements; K1
+    # writes L and L^-1 (n x n each), K2 L (n x n) and its panels' inverses
+    k1_bound = bound((n1 * (n1 + 1) // 2 + 2 * n1 * n1) * 4, 2 * n1**3 / 3, F32_3XTF32_FLOPS)
+    k2_panels = [min(PANEL, k2_n - off) for off in range(0, k2_n, PANEL)]
+    k2_bound = bound((k2_n * (k2_n + 1) // 2 + k2_n * k2_n + sum(w * w for w in k2_panels)) * 4,
+                     k2_n**3 / 3, F32_3XTF32_FLOPS)
+    k3_bound = bound(k3_bytes, k3_flop, 67e12)  # float32 outside the tensor cores
+    print(f"[done] wall time {time.time() - t_start:.1f} s; by phase: {json.dumps(times)}")
     print(json.dumps({"kernels": [
         {
             "name": "cholesky_inverse_factor (K1)",
@@ -839,6 +1126,9 @@ def main() -> int:
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": k1_plain,
+            "bound_ms": k1_bound[0],
+            "bound_by": k1_bound[1],
+            "library_ms": None,
         },
         {
             "name": "blocked_cholesky_factor (K2; launches: its trailing-update kernel's)",
@@ -849,6 +1139,9 @@ def main() -> int:
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain,
+            "bound_ms": k2_bound[0],
+            "bound_by": k2_bound[1],
+            "library_ms": k2_library,
         },
         {
             "name": "pair_products (K3)",
@@ -859,6 +1152,9 @@ def main() -> int:
             "max_abs_err": k3_err,
             "ms": k3_ms,
             "plain_ms": k3_plain,
+            "bound_ms": k3_bound[0],
+            "bound_by": k3_bound[1],
+            "library_ms": None,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -48,7 +48,7 @@ class Evaluator:
     def __init__(
         self,
         program: Program,
-        device="cpu",
+        device,
         dtype=torch.float64,
         chunk_size: Optional[int] = None,
         diff_mode: str = "auto",

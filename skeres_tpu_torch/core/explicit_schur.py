@@ -168,7 +168,8 @@ class ExplicitSchurPlan:
         pad_waste: float = 1.5,
         chunk_value_budget: int = 1 << 26,  # bytes of pair values the plain
         # version of K3 materializes at once
-        device="cpu",
+        *,
+        device,
     ):
         B = len(cam_idx)  # the port's batches have no pad rows
         self.nc = num_cameras

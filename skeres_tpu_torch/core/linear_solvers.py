@@ -15,6 +15,8 @@ from typing import Callable
 
 import torch
 
+from skeres_tpu_torch.core.graph import cond
+
 __all__ = ["lm_diagonal", "preconditioned_conjugate_gradients"]
 
 
@@ -34,28 +36,38 @@ def preconditioned_conjugate_gradients(
 ):
     """PCG on a PSD system A x = b (reference:
     ``internal/ceres/conjugate_gradients_solver.cc``) with the residual
-    test ||r|| <= rtol ||b||. A host loop: the stopping test reads one
-    scalar from the device per iteration. Returns (x, iterations)."""
+    test ||r|| <= rtol ||b||, the counterpart of the JAX package's
+    ``lax.while_loop``. Each step runs under :func:`cond` on the test:
+    eagerly one host read a step, and the loop stops where the test
+    fails; under a CUDA graph capture, ``max_iterations`` IF nodes, whose
+    bodies stop running on the device where the test fails, so the graph
+    reads nothing on the host and does the early-stopping form's work.
+    Returns (x, iterations), the count as a device int64 scalar."""
     tol2 = (rtol * rtol) * torch.dot(b, b)
     x = torch.zeros_like(b)
-    r = b
-    z = precond_apply(r)
-    p = z
-    rz = torch.dot(r, z)
-    i = 0
-    while i < max_iterations:
-        rnorm2 = torch.dot(r, r)
-        if not bool(((rnorm2 > tol2) | (i < min_iterations)) & (rnorm2 > 0.0)):
-            break
+    r = b.clone()
+    p = precond_apply(r).clone()  # updated in place: never r itself
+    rz = torch.dot(r, p)
+    active = torch.ones((), dtype=torch.bool, device=b.device)
+    iters = torch.zeros((), dtype=torch.int64, device=b.device)
+
+    def step():
         ap = matvec(p)
         pap = torch.dot(p, ap)
         alpha = torch.where(pap > 0.0, rz / torch.where(pap > 0.0, pap, 1.0), 0.0)
-        x = x + alpha * p
-        r = r - alpha * ap
+        x.add_(alpha * p)
+        r.sub_(alpha * ap)
         z = precond_apply(r)
         rz_new = torch.dot(r, z)
         beta = rz_new / torch.where(rz > 0.0, rz, 1.0)
-        p = z + beta * p
-        rz = rz_new
-        i += 1
-    return x, i
+        p.copy_(z + beta * p)
+        rz.copy_(rz_new)
+        iters.add_(1)
+
+    for i in range(max_iterations):
+        rnorm2 = torch.dot(r, r)
+        # once the test has failed r stays as it is, so it keeps failing
+        active = active & ((rnorm2 > tol2) | (i < min_iterations)) & (rnorm2 > 0.0)
+        if cond(active, step) is False:  # read on the host: stop here
+            break
+    return x, iters

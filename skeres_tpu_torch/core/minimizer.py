@@ -5,18 +5,25 @@ PyTorch counterpart of the host loop of ``skeres_tpu/core/minimizer.py``
 ``levenberg_marquardt_strategy.cc``, ``trust_region_step_evaluator.cc``).
 Each iteration runs ``solve_step`` (damped DENSE_SCHUR solve + candidate)
 and ``try_step`` (residual-only evaluation); ``linearize`` (the full
-Jacobian pass) runs only after accepted steps. The device computes, and
-only scalars cross to the host: one fetch per linearization and per step,
-plus the jitter ladder's finiteness reads.
+Jacobian pass) runs only after accepted steps, and returns what the device
+loop (``core/device_loop.py``) copies into its carry. The device computes,
+and only scalars cross to the host: one fetch per linearization and per
+step, plus the jitter ladder's finiteness read.
 
 The D clamping, the radius update, the non-monotonic step window and the
 convergence tests are the reference's formulas, so iteration counts match
-the JAX package step for step. Dogleg, the device loop, bounds, inner
-iterations, callbacks, checkpoints and dumps are still to port.
+the JAX package step for step. The hooks sit where the JAX minimizer has
+them: the evaluation callback before each evaluation, the iteration
+callbacks and ``update_state_every_iteration`` after iteration 0 and each
+valid step, a checkpoint after each accepted one, and a resumed solve's
+radius and iteration count (``initial_radius_override``,
+``initial_iteration``). Dogleg, bounds, inner iterations and dumps are
+still to port.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 import time
 
@@ -26,7 +33,8 @@ from skeres_tpu_torch.core.evaluator import Evaluator
 from skeres_tpu_torch.core.options import SolverOptions
 from skeres_tpu_torch.core.schur import SchurSolver
 from skeres_tpu_torch.core.summary import IterationSummary, Summary
-from skeres_tpu_torch.core.types import LoggingType, TerminationType
+from skeres_tpu_torch.core.types import CallbackReturnType, LoggingType, TerminationType
+from skeres_tpu_torch.utils.checkpoint import save_checkpoint
 
 __all__ = ["TrustRegionMinimizer", "TrustRegionStepEvaluator", "synchronize"]
 
@@ -98,6 +106,10 @@ class TrustRegionMinimizer:
         self.options = options
         self.summary = summary
         self.schur_solver = schur_solver
+        # set by solve() when resuming from a checkpoint
+        self.initial_radius_override = None
+        self.initial_iteration = 0
+        self._cb_arity_cache = {}  # id(callback) -> takes the state too
 
     # -- the three per-iteration programs ----------------------------------------
 
@@ -118,10 +130,11 @@ class TrustRegionMinimizer:
         data = schur.prepare(schur.scale_data(schur.solver_data(blocks), scale))
         return cost, g, diag, data, scale, torch.max(torch.abs(g)), torch.sqrt(torch.sum(g * g))
 
-    def solve_step(self, state, data, g, diag, scale, radius: float, jitter: float):
+    def solve_step(self, state, data, g, diag, scale, radius, jitter):
         """Damped solve in the scaled space J_s = J S and the candidate.
-        Returns (new_state, model_cost_change, step_norm, linear solver
-        iterations, jitter_used)."""
+        ``radius`` is a float or a device scalar, ``jitter`` a device
+        scalar. Returns (new_state, model_cost_change, step_norm, linear
+        solver iterations, jitter_used), all on the device."""
         o = self.options
         y, lin_iters, jitter_used = self.schur_solver.solve_damped(
             data, g * scale, diag * scale * scale, 1.0 / radius,
@@ -168,12 +181,18 @@ class TrustRegionMinimizer:
         tiny = float(torch.finfo(self.ev.dtype).tiny)
         start = time.time()
 
-        radius = float(o.initial_trust_region_radius)
+        radius = float(
+            self.initial_radius_override
+            if self.initial_radius_override is not None
+            else o.initial_trust_region_radius
+        )
         decrease_factor = 2.0
         num_consecutive_invalid_steps = 0
-        jitter = 0.0  # factor-jitter ratchet of the Schur solver
+        # factor-jitter ratchet of the Schur solver, kept on the device
+        jitter = torch.zeros((), dtype=self.ev.dtype, device=device)
 
         t0 = time.time()
+        self._prepare_for_evaluation(True, True)
         cost_d, g, diag, data, scale, g_max_d, g_norm_d = self.linearize(state)
         cost, g_max_norm, g_norm = torch.stack([cost_d, g_max_d, g_norm_d]).tolist()
         s.jacobian_evaluation_time_in_seconds += time.time() - t0
@@ -209,6 +228,8 @@ class TrustRegionMinimizer:
                 f" <= {o.gradient_tolerance:e}"
             )
             return state
+        if self._run_callbacks(it, state):
+            return state
 
         iteration = 0
         while True:
@@ -234,9 +255,10 @@ class TrustRegionMinimizer:
             s.num_linear_solves += 1
 
             t0 = time.time()
+            self._prepare_for_evaluation(False, True)
             new_cost_d, x_norm_d = self.try_step(new_state)
-            new_cost, model_cost_change, step_norm, x_norm = torch.stack(
-                [new_cost_d, mcc_d, step_norm_d, x_norm_d]
+            new_cost, model_cost_change, step_norm, x_norm, lin_iters = torch.stack(
+                [new_cost_d, mcc_d, step_norm_d, x_norm_d, lin_iters.to(new_cost_d.dtype)]
             ).tolist()
             s.residual_evaluation_time_in_seconds += time.time() - t0
             s.num_residual_evaluations += 1
@@ -305,6 +327,7 @@ class TrustRegionMinimizer:
                 s.num_successful_steps += 1
 
                 t0 = time.time()
+                self._prepare_for_evaluation(True, False)
                 pinned = o.jacobi_scaling and not o.refresh_jacobi_scaling
                 cost_d, g, diag, data, scale, g_max_d, g_norm_d = self.linearize(
                     state, scale if pinned else None
@@ -326,6 +349,10 @@ class TrustRegionMinimizer:
             it.cumulative_time_in_seconds = time.time() - start
             s.iterations.append(it)
             self._log_iteration(it)
+            if step_is_successful:
+                self._maybe_checkpoint(state, radius, self.initial_iteration + iteration, cost)
+            if self._run_callbacks(it, state):
+                return state
 
             # -- convergence tests (reference order and formulas) ------------
             if o.run_full_iteration_budget:
@@ -385,3 +412,63 @@ class TrustRegionMinimizer:
             f" {it.cumulative_time_in_seconds:11.2e}"
         )
 
+    # -- hooks (skeres_tpu/core/minimizer.py:184-198, :1224-1279) ---------------
+
+    def _maybe_checkpoint(self, state, radius: float, iteration: int, cost: float):
+        """Save a checkpoint every ``checkpoint_every_n_iterations``-th
+        iteration (``utils/checkpoint.py``)."""
+        o = self.options
+        if o.checkpoint_path is None:
+            return
+        if iteration % max(o.checkpoint_every_n_iterations, 1) != 0:
+            return
+        save_checkpoint(
+            o.checkpoint_path,
+            [x.detach().to("cpu", torch.float64).numpy() for x in state],
+            radius,
+            iteration,
+            cost,
+        )
+
+    def _prepare_for_evaluation(self, evaluate_jacobians: bool, new_point: bool):
+        """Fire the user's EvaluationCallback before an evaluation
+        (reference: ``include/ceres/evaluation_callback.h``)."""
+        cb = self.options.evaluation_callback
+        if cb is not None:
+            cb.prepare_for_evaluation(evaluate_jacobians, new_point)
+
+    def _callback_wants_state(self, cb) -> bool:
+        """True if the callback takes a second REQUIRED positional parameter
+        (the state); cached per callback."""
+        cache = self._cb_arity_cache
+        key = id(cb)
+        if key not in cache:
+            try:
+                params = inspect.signature(cb).parameters.values()
+            except (TypeError, ValueError):
+                cache[key] = False
+            else:
+                required = [
+                    p for p in params
+                    if p.default is inspect.Parameter.empty
+                    and p.kind in (inspect.Parameter.POSITIONAL_ONLY,
+                                   inspect.Parameter.POSITIONAL_OR_KEYWORD)
+                ]
+                cache[key] = len(required) >= 2
+        return cache[key]
+
+    def _run_callbacks(self, it: IterationSummary, state) -> bool:
+        """Returns True if the solve should stop (sets the termination)."""
+        if self.options.update_state_every_iteration:
+            self.ev.program.write_back(state)
+        for cb in self.options.callbacks:
+            ret = cb(it, state) if self._callback_wants_state(cb) else cb(it)
+            if ret == CallbackReturnType.SOLVER_ABORT:
+                self.summary.termination_type = TerminationType.USER_FAILURE
+                self.summary.message = "User callback returned SOLVER_ABORT."
+                return True
+            if ret == CallbackReturnType.SOLVER_TERMINATE_SUCCESSFULLY:
+                self.summary.termination_type = TerminationType.USER_SUCCESS
+                self.summary.message = "User callback returned SOLVER_TERMINATE_SUCCESSFULLY."
+                return True
+        return False

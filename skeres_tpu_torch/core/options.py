@@ -122,8 +122,8 @@ class SolverOptions:
     device_loop_chunk_iterations: int = 25
     # dtype of the solver state and every device computation
     dtype: torch.dtype = torch.float64
-    # device the solve runs on: "cpu" or "cuda[:k]"
-    device: Any = "cpu"
+    # device the solve runs on: "cuda[:k]" (the card), or "cpu" when asked for
+    device: Any = "cuda"
     mesh: Any = None
     # rows per streamed evaluation chunk; None = one pass per batch
     evaluation_chunk_size: Optional[int] = None

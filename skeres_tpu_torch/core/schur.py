@@ -32,6 +32,7 @@ import torch
 
 from skeres_tpu_torch.core.evaluator import Evaluator
 from skeres_tpu_torch.core.explicit_schur import ExplicitSchurPlan
+from skeres_tpu_torch.core.graph import cond
 from skeres_tpu_torch.core.linear_solvers import (
     lm_diagonal,
     preconditioned_conjugate_gradients,
@@ -50,16 +51,6 @@ __all__ = ["SchurSolver"]
 
 DENSE_W_LIMIT_BYTES = 2 << 30  # the JAX package's gate (as float32 bytes)
 FALLBACK_CG_ITERATIONS = 32
-
-
-def _jittered(s, delta: float):
-    """``S + delta * I`` without an n x n identity: ``s`` itself when
-    delta is 0, else a copy with delta added to its diagonal."""
-    if delta == 0.0:
-        return s
-    out = s.clone()
-    out.diagonal().add_(delta)
-    return out
 
 
 class SchurSolver:
@@ -423,14 +414,16 @@ class SchurSolver:
             return self._dense_s_dense_w(asm)
         return self._dense_s_explicit(asm)
 
-    def _factor_solve(self, s, rhs):
-        """Solve S x = rhs: K1's L^-1 up to 1024 rows, K2's blocked factor
-        above. Returns (x, solve_fn)."""
+    def _factor_solve(self, s, rhs, delta):
+        """Solve (S + delta I) x = rhs, ``delta`` a device scalar read by no
+        host: K1's L^-1 up to 1024 rows (of a copy of S with delta on its
+        diagonal), K2's blocked factor above (delta added to the copy it
+        factors in). S itself is left as it was."""
         if s.shape[0] <= MAX_CHOLESKY_N:
-            linv = cholesky_inverse_factor(s)
-            return chol_solve(linv, rhs), lambda b: chol_solve(linv, b)
-        fac = blocked_cholesky_factor(s)
-        return blocked_chol_solve(fac, rhs), lambda b: blocked_chol_solve(fac, b)
+            jittered = s.clone()
+            jittered.diagonal().add_(delta)
+            return chol_solve(cholesky_inverse_factor(jittered), rhs)
+        return blocked_chol_solve(blocked_cholesky_factor(s, jitter=delta), rhs)
 
     def _block_jacobi(self, s):
         """v -> blockdiag(S)^-1 v, the camera blocks read off dense S."""
@@ -443,11 +436,13 @@ class SchurSolver:
 
     def solve_damped(self, data, g, diag, mu, min_diagonal, max_diagonal, jitter0=0.0):
         """Solve the damped system; returns (dx, linear_solver_iterations,
-        jitter_used).
+        jitter_used), the last two as device scalars (int64, g's dtype).
 
         ``jitter0`` is the caller's ratchet: the jitter that made the last
-        factorization succeed, where this solve's ladder starts."""
-        jitter0 = float(jitter0)
+        factorization succeed, where this solve's ladder starts. ``mu`` and
+        ``jitter0`` may be device scalars: nothing here reads a value on the
+        host except through :func:`cond`, so a CUDA graph can capture it."""
+        jitter0 = torch.as_tensor(jitter0, dtype=g.dtype, device=g.device)
         d = lm_diagonal(diag, mu, min_diagonal, max_diagonal)
         asm = self._assemble(data, g, d)
         rhs = self._schur_rhs(asm)
@@ -459,35 +454,46 @@ class SchurSolver:
         d_eq = torch.sqrt(torch.clamp(torch.diagonal(s), min=torch.finfo(s.dtype).tiny))
         s.div_(d_eq[:, None]).div_(d_eq[None, :])  # S is this solve's own
         rhs_eq = rhs / d_eq
-        dx_f, _ = self._factor_solve(_jittered(s, jitter0), rhs_eq)
+        dx_f = self._factor_solve(s, rhs_eq, jitter0)
 
-        # Jitter ladder (see skeres_tpu/core/schur.py:1488-1547): a failed
+        # Jitter ladder (see skeres_tpu/core/schur.py:1488-1585): a failed
         # factor (NaN, the only signal K1 gives) is retried on S + delta*I
         # in the equilibrated space, delta escalating from two decades above
-        # the ratchet (at least 1e-3) to 0.1, at most two retries. One
-        # isfinite read per rung is the only host sync of the ladder.
-        delta = min(max(jitter0 * 100.0, 1e-3), 0.1)
-        jitter_used = jitter0
-        retries = 0
-        while retries < 2 and not bool(torch.isfinite(dx_f).all()):
-            dx_f, _ = self._factor_solve(_jittered(s, delta), rhs_eq)
-            jitter_used = delta
-            delta = min(delta * 100.0, 0.1)
-            retries += 1
+        # the ratchet (at least 1e-3) to 0.1, at most two rungs; if even
+        # they fail, capped PCG on the equilibrated S with the block-Jacobi
+        # preconditioner read off S. Each rung and the PCG run under
+        # cond() on the factor's failure, nested, so that a factor that
+        # holds costs one host read eagerly and none in a CUDA graph.
+        delta = torch.clamp(torch.clamp(jitter0 * 100.0, min=1e-3), max=0.1)
+        jitter_used = jitter0.clone()
+        iters = torch.ones((), dtype=torch.int64, device=g.device)
 
-        # if even the jittered factors fail, capped PCG on the equilibrated S
-        # with the block-Jacobi preconditioner read off S
-        bad = not bool(torch.isfinite(dx_f).all())
-        if bad:
-            dx_f, _ = preconditioned_conjugate_gradients(
-                lambda v: s @ v,
-                rhs_eq,
-                self._block_jacobi(s),
-                FALLBACK_CG_ITERATIONS,
-                1e-8,
+        def failed():
+            return ~torch.isfinite(dx_f).all()
+
+        def rung():
+            dx_f.copy_(self._factor_solve(s, rhs_eq, delta))
+            jitter_used.copy_(delta)
+            delta.copy_(torch.clamp(delta * 100.0, max=0.1))
+            iters.add_(1)
+
+        def first_rung():
+            rung()
+            cond(failed(), second_rung)
+
+        def second_rung():
+            rung()
+            cond(failed(), fallback)
+
+        def fallback():
+            x, _ = preconditioned_conjugate_gradients(
+                lambda v: s @ v, rhs_eq, self._block_jacobi(s), FALLBACK_CG_ITERATIONS, 1e-8
             )
+            dx_f.copy_(x)
+            iters.fill_(FALLBACK_CG_ITERATIONS)
+
+        cond(failed(), first_rung)
         dx_f = dx_f / d_eq
-        iters = FALLBACK_CG_ITERATIONS if bad else 1 + retries
 
         dx_e = self._back_substitute(asm, dx_f)
         dx = torch.empty_like(g)

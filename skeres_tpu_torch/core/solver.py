@@ -3,8 +3,11 @@
 PyTorch counterpart of ``skeres_tpu/core/solver.py`` (reference lineage:
 ``ceres::Solve``, ``trust_region_preprocessor.cc``): compile the Problem
 into a Program, build the Evaluator and the linear solver on
-``options.device`` in ``options.dtype``, run the minimizer, write the
-solution back.
+``options.device`` (the card unless the caller asks for the CPU) in
+``options.dtype``, run the minimizer (the host loop, or the device loop
+of ``core/device_loop.py`` with ``use_device_loop``), write the solution
+back. A checkpoint (``resume_from``) replaces the initial values, radius
+and iteration count.
 
 The port runs the Levenberg-Marquardt trust region with DENSE_SCHUR (the
 bundle-adjustment path). Every option it does not run yet raises
@@ -14,11 +17,13 @@ something else.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
 import torch
 
+from skeres_tpu_torch.core.device_loop import DeviceLoopMinimizer
 from skeres_tpu_torch.core.evaluator import Evaluator
 from skeres_tpu_torch.core.minimizer import TrustRegionMinimizer, synchronize
 from skeres_tpu_torch.core.options import SolverOptions
@@ -26,8 +31,13 @@ from skeres_tpu_torch.core.problem import Problem, Program
 from skeres_tpu_torch.core.schur import SchurSolver
 from skeres_tpu_torch.core.summary import Summary
 from skeres_tpu_torch.core.types import LinearSolverType, TerminationType
+from skeres_tpu_torch.utils.checkpoint import load_checkpoint
 
-__all__ = ["solve"]
+__all__ = ["TRACE_FILE", "solve"]
+
+# written under SolverOptions.trace_dir: a torch.profiler (Chrome) trace of
+# the minimizer, kernels on the card included
+TRACE_FILE = "minimize_trace.json"
 
 _DEFAULTS = SolverOptions()
 
@@ -36,19 +46,12 @@ _DEFAULTS = SolverOptions()
 _UNPORTED = {
     "minimizer_type": "the line-search minimizer (core/line_search.py)",
     "trust_region_strategy_type": "the dogleg strategy",
-    "use_device_loop": "the device loop (core/device_loop.py)",
     "use_explicit_schur_complement": "the explicit Schur complement (core/explicit_schur.py)",
     "mesh": "multi-device sharding (parallel/mesh.py)",
     "use_mixed_precision_solves": "mixed-precision refinement",
     "use_inner_iterations": "inner iterations (core/inner_iterations.py)",
     "check_gradients": "the gradient checker (core/gradient_checker.py)",
-    "callbacks": "iteration callbacks (core/callbacks.py)",
-    "update_state_every_iteration": "iteration callbacks (core/callbacks.py)",
-    "evaluation_callback": "evaluation callbacks (core/callbacks.py)",
     "trust_region_minimizer_iterations_to_dump": "trust-region problem dumps",
-    "checkpoint_path": "checkpoints (utils/checkpoint.py)",
-    "resume_from": "checkpoints (utils/checkpoint.py)",
-    "trace_dir": "profiler traces",
 }
 
 
@@ -95,6 +98,11 @@ def solve(
         return summary
     _check_ported(options)
     device = torch.device(options.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"SolverOptions.device is {options.device!r} but no CUDA device is "
+            "available; pass device='cpu' to solve on the CPU"
+        )
 
     # -- preprocess -----------------------------------------------------------
     t0 = time.time()
@@ -142,16 +150,59 @@ def solve(
         pair_cap=options.schur_pair_cap,
     )
     summary.schur_complement_path = schur_solver.schur_path
-    minimizer = TrustRegionMinimizer(evaluator, options, summary, schur_solver)
+    if options.use_device_loop:
+        minimizer = DeviceLoopMinimizer(
+            evaluator, options, summary, schur_solver,
+            chunk_iterations=min(options.device_loop_chunk_iterations, options.max_num_iterations),
+        )
+    else:
+        minimizer = TrustRegionMinimizer(evaluator, options, summary, schur_solver)
+
+    if options.resume_from:
+        groups, radius, iteration, _cost = load_checkpoint(options.resume_from)
+        if len(groups) != len(program.groups):
+            summary.termination_type = TerminationType.FAILURE
+            summary.message = (
+                f"checkpoint has {len(groups)} parameter groups, problem has "
+                f"{len(program.groups)}"
+            )
+            return summary
+        for g, v in zip(program.groups, groups):
+            if v.shape != g.values.shape:
+                summary.termination_type = TerminationType.FAILURE
+                summary.message = "checkpoint group shape mismatch"
+                return summary
+            g.values = v
+        minimizer.initial_radius_override = radius
+        minimizer.initial_iteration = iteration
+
     state = program.initial_state(device, options.dtype)
+    # the device loop's first linearization and CUDA-graph capture count as
+    # preprocessing, as the JAX package's compilation does
+    if options.use_device_loop:
+        minimizer.compile_programs(state)
+        summary.device_loop_capture_time_in_seconds = minimizer.capture_seconds
     synchronize(device)
     summary.preprocessor_time_in_seconds = time.time() - t0
 
     # -- minimize ---------------------------------------------------------------
     t0 = time.time()
-    state = minimizer.minimize(state)
-    synchronize(device)
+    if options.trace_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            state = minimizer.minimize(state)
+            synchronize(device)
+    else:
+        state = minimizer.minimize(state)
+        synchronize(device)
     summary.minimizer_time_in_seconds = time.time() - t0
+    if options.trace_dir:
+        os.makedirs(options.trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(options.trace_dir, TRACE_FILE))
 
     # -- postprocess -------------------------------------------------------------
     t0 = time.time()

@@ -62,6 +62,8 @@ class Summary:
     num_line_search_steps: int = 0
 
     preprocessor_time_in_seconds: float = 0.0
+    # of which the device loop's warm-up and CUDA-graph capture
+    device_loop_capture_time_in_seconds: float = 0.0
     minimizer_time_in_seconds: float = 0.0
     postprocessor_time_in_seconds: float = 0.0
     total_time_in_seconds: float = 0.0
@@ -180,6 +182,8 @@ class Summary:
         a("")
         a("Time (in seconds):")
         a(f"Preprocessor    {self.preprocessor_time_in_seconds:24.6f}")
+        if self.device_loop_capture_time_in_seconds:
+            a(f"  Graph capture {self.device_loop_capture_time_in_seconds:26.6f}")
         a("")
         a(
             f"  Residual only evaluation {self.residual_evaluation_time_in_seconds:15.6f}"

@@ -207,10 +207,13 @@ class BlockedCholFactor:
         return self.l.shape[0]
 
 
-def blocked_cholesky_factor(a: torch.Tensor, panel: int = PANEL) -> BlockedCholFactor:
-    """Factor SPD ``a`` (only its lower triangle is read). A failed panel
-    leaves it and every later panel NaN, and so every entry of a solve
-    through the factor. On the card it launches K1 once a panel
+def blocked_cholesky_factor(a: torch.Tensor, panel: int = PANEL, jitter=None) -> BlockedCholFactor:
+    """Factor SPD ``a`` (only its lower triangle is read), or ``a + jitter
+    I`` where ``jitter`` (a float or a 0-d tensor on ``a``'s device) is
+    given: it is added to the diagonal of the copy the factor works in, so
+    ``a`` is neither changed nor copied twice. A failed panel leaves it and
+    every later panel NaN, and so every entry of a solve through the
+    factor. On the card it launches K1 once a panel
     (``cholesky_both.launches``) and the trailing update once a panel but
     the last (``trailing_update_.launches``)."""
     _check(a, "K2", max_n=None)
@@ -218,6 +221,8 @@ def blocked_cholesky_factor(a: torch.Tensor, panel: int = PANEL) -> BlockedCholF
         raise ValueError(f"K2 takes 1 <= panel <= {MAX_CHOLESKY_N}, got {panel}")
     n = a.shape[0]
     l = a.clone()
+    if jitter is not None:
+        l.diagonal().add_(jitter)
     dinv = []
     for off in range(0, n, panel):
         end = min(off + panel, n)

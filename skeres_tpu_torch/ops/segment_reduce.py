@@ -32,7 +32,7 @@ class ReducePlan(NamedTuple):
     k: int = 0  # rows per destination ('contig')
 
 
-def build_reduce_plan(idx_np, n_dest: int, device="cpu") -> ReducePlan:
+def build_reduce_plan(idx_np, n_dest: int, device) -> ReducePlan:
     """Plan the reduction of rows with destination ids ``idx_np`` (B,)."""
     idx_np = np.asarray(idx_np, dtype=np.int64)
     b = len(idx_np)

@@ -48,7 +48,7 @@ def test_graft_entry_scene_matches():
     jev, jstate = __graft_entry__._small_bal_setup()
     bal = jbal.synthetic_bal(num_cameras=4, num_points=24, observations_per_point=3)
     problem, _, _ = tbal.build_bal_problem(bal)
-    _compare(jev, jstate, Evaluator(problem.compile()), None)
+    _compare(jev, jstate, Evaluator(problem.compile(), device="cpu"), None)
 
 
 @pytest.mark.parametrize(
@@ -67,7 +67,7 @@ def test_synthetic_bal_matches(loss, chunk, mode):
     jprogram = jprob.compile()
     jev = JEvaluator(jprogram, chunk_size=chunk, diff_mode=mode)
     jstate = jprogram.initial_state(jev.dtype)
-    tev = Evaluator(tprob.compile(), chunk_size=chunk, diff_mode=mode)
+    tev = Evaluator(tprob.compile(), device="cpu", chunk_size=chunk, diff_mode=mode)
     _compare(jev, jstate, tev, chunk)
 
 
@@ -78,7 +78,7 @@ def test_plus_and_x_norm_match():
     jprogram = jprob.compile()
     jev = JEvaluator(jprogram)
     jstate = jprogram.initial_state(jev.dtype)
-    tev = Evaluator(tprob.compile())
+    tev = Evaluator(tprob.compile(), device="cpu")
     step = np.random.default_rng(3).normal(size=jprogram.num_tangent)
     jnew = jev.plus(jstate, jax.numpy.asarray(step))
     tnew = tev.plus(tev.program.initial_state("cpu", torch.float64), torch.from_numpy(step))
@@ -93,7 +93,7 @@ def test_reduce_plans_match_numpy(kind):
     n_dest, d = 50, 6
     idx = np.repeat(np.arange(n_dest), 3) if kind == "contig" else rng.integers(0, n_dest, 400)
     vals = rng.standard_normal((len(idx), d))
-    plan = build_reduce_plan(idx, n_dest)
+    plan = build_reduce_plan(idx, n_dest, "cpu")
     assert plan.kind == kind
     want = np.zeros((n_dest, d))
     np.add.at(want, idx, vals)

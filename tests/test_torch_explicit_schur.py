@@ -55,7 +55,7 @@ def _plans(case, **kw):
     pt, cam, _, _, nc, npts = case
     args = dict(cam_idx=cam, pt_idx=pt, num_cameras=nc, num_points=npts,
                 f_size=F, e_size=E, pad_waste=100.0, **kw)
-    return JPlan(**args), ExplicitSchurPlan(**args)
+    return JPlan(**args), ExplicitSchurPlan(**args, device="cpu")
 
 
 def _jax_uniq_dense(plan, a_flat, cinv):
@@ -148,7 +148,7 @@ def test_gates_raise_like_jax():
     with pytest.raises(ValueError, match="skew") as jerr:
         JPlan(**kw)
     with pytest.raises(ValueError, match=str(jerr.value)):
-        ExplicitSchurPlan(**kw)
+        ExplicitSchurPlan(**kw, device="cpu")
     levels = [(np.zeros(1 << 21), 1 << 16, 32)]
     with pytest.raises(ValueError, match="fan-in too low"):
         tes._check_level0_waste(levels, 1000)

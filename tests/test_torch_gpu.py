@@ -172,3 +172,99 @@ def test_k3_matches_plain_version_on_card(cuda, dtype, tol, f, e, kp):
     cinv_t = torch.zeros((p, f * f), dtype=dtype, device=cuda)
     with pytest.raises(ValueError, match="instantiated"):
         k3.pair_products(args[0], cinv_t, *args[2:], e, f)
+
+
+# -- the device loop: CUDA graphs with conditional IF nodes ------------------------
+
+
+def _schur_on(device):
+    """A float64 SchurSolver on the card and the minimizer's scaled first
+    linearization of synthetic_bal(6, 60, 4) (S: 54 rows, K1)."""
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.schur import SchurSolver
+
+    ev = Evaluator(build_bal_problem(synthetic_bal(6, 60, 4))[0].compile(), device=device)
+    _, blocks = ev.blocks(ev.program.initial_state(device, torch.float64))
+    g, diag = ev.gradient_and_diag(blocks)
+    schur = SchurSolver(ev)
+    scale = 1.0 / (1.0 + torch.sqrt(diag))
+    data = schur.prepare(schur.scale_data(schur.solver_data(blocks), scale))
+    return schur, data, g * scale, diag * scale * scale
+
+
+def _indefinite_s(n, shift, seed=0):
+    """A symmetric matrix whose equilibrated form has its least eigenvalue
+    at ``shift`` (< 0: the factor fails until the jitter passes -shift)."""
+    rng = np.random.default_rng(seed)
+    m = rng.standard_normal((n, n))
+    s = m @ m.T / n + np.eye(n)
+    d = np.sqrt(np.diag(s))
+    e = s / d[:, None] / d[None, :]  # unit diagonal
+    # e - c I equilibrates to (e - c I) / (1 - c): least eigenvalue shift
+    c = (np.linalg.eigvalsh(e)[0] - shift) / (1.0 - shift)
+    return (e - c * np.eye(n)) * d[:, None] * d[None, :]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift,want_iters,want_jitter", [(-5e-4, 2, 1e-3), (-0.5, 32, 0.1)])
+def test_captured_damped_solve_equals_eager_on_card(cuda, shift, want_iters, want_jitter):
+    """solve_damped captured as a CUDA graph (its ladder and PCG fallback
+    as IF nodes) and replayed, on an S that K1 cannot factor at delta = 0
+    but can at 1e-3 (the first rung, inside the graph), and on one that
+    fails every rung (the PCG inside the graph): the iteration count and
+    the jitter equal the eager solve's, and dx to rtol 1e-9 (the rhs sums
+    camera rows with atomics, in another order on every run; the crafted
+    S has a condition number of ~1e4)."""
+    from skeres_tpu_torch.core.graph import CapturedStep
+
+    schur, data, g, diag = _schur_on(cuda)
+    s_np = _indefinite_s(schur.num_f, shift)
+    s_bad = torch.tensor(s_np, dtype=torch.float64, device=cuda)
+    schur._dense_s = lambda asm: s_bad.clone()
+    mu = torch.tensor(1e-4, dtype=torch.float64, device=cuda)
+    jitter0 = torch.zeros((), dtype=torch.float64, device=cuda)
+    out = (torch.empty_like(g), torch.zeros((), dtype=torch.int64, device=cuda),
+           torch.zeros((), dtype=torch.float64, device=cuda))
+
+    def step():
+        for buf, val in zip(out, schur.solve_damped(data, g, diag, mu, 1e-6, 1e32, jitter0)):
+            buf.copy_(val)
+
+    captured = CapturedStep(step, cuda)
+    captured.capture()
+    assert captured.graph is not None
+    for buf in out:
+        buf.zero_()
+    captured()
+    eager = schur.solve_damped(data, g, diag, mu, 1e-6, 1e32, jitter0)
+    torch.cuda.synchronize()
+    captured.release()
+    assert int(out[1]) == int(eager[1]) == want_iters
+    assert float(out[2]) == float(eager[2]) == pytest.approx(want_jitter, rel=1e-12)
+    assert torch.isfinite(out[0]).all()
+    torch.testing.assert_close(out[0], eager[0], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_device_loop_on_card_matches_cpu(cuda):
+    """synthetic_bal(16, 500, 4), float64, 10 steps in chunks of 4 at
+    initial radius 1: the device loop's replayed CUDA graphs on the card
+    take the CPU's decisions, costs to rtol 1e-8."""
+    runs = []
+    for device in (cuda, "cpu"):
+        problem, cams, _ = build_bal_problem(synthetic_bal(16, 500, 4))
+        s = stt.solve(stt.SolverOptions(
+            linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=10,
+            run_full_iteration_budget=True, initial_trust_region_radius=1.0,
+            use_device_loop=True, device_loop_chunk_iterations=4,
+            dtype=torch.float64, device=device,
+        ), problem)
+        runs.append((s, cams.values.copy()))
+    (card, card_cams), (cpu, cpu_cams) = runs
+    assert card.device_loop_capture_time_in_seconds > 0.0
+    assert len(card.iterations) == len(cpu.iterations) == 11
+    assert [it.step_is_successful for it in card.iterations] == [
+        it.step_is_successful for it in cpu.iterations]
+    np.testing.assert_allclose([it.cost for it in card.iterations],
+                               [it.cost for it in cpu.iterations], rtol=1e-8)
+    np.testing.assert_allclose(card_cams, cpu_cams, rtol=1e-6, atol=1e-9)

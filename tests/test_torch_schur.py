@@ -48,7 +48,7 @@ def _setup(prior=False, scaled=False):
     jschur = JSchur(jev, iterative=False)
     jdata = jschur.solver_data(jblocks)
 
-    tev = Evaluator(tprob.compile())
+    tev = Evaluator(tprob.compile(), device="cpu")
     _, tblocks = tev.blocks(tev.program.initial_state("cpu", torch.float64))
     tg, tdiag = tev.gradient_and_diag(tblocks)
     tschur = SchurSolver(tev)
@@ -99,11 +99,12 @@ def _jax_failing_below(orig, threshold):
 
 
 def _torch_failing_below(orig, threshold):
-    """The same stand-in for the port."""
+    """The same stand-in for the port, whose factor takes S and the jitter
+    apart."""
 
-    def factor(s, rhs):
-        x, solve = orig(s, rhs)
-        return torch.where(torch.min(torch.diagonal(s)) - 1.0 < threshold, torch.nan, x), solve
+    def factor(s, rhs, delta):
+        x = orig(s, rhs, delta)
+        return torch.where(torch.min(torch.diagonal(s) + delta) - 1.0 < threshold, torch.nan, x)
 
     return factor
 
@@ -188,7 +189,7 @@ def _big_setup(monkeypatch):
     jscale = 1.0 / (1.0 + jnp.sqrt(jdiag))
     jdata = jschur.prepare(jschur.scale_data(jschur.solver_data(jblocks), jscale))
 
-    tev = Evaluator(tbal.build_bal_problem(bal)[0].compile())
+    tev = Evaluator(tbal.build_bal_problem(bal)[0].compile(), device="cpu")
     _, tblocks = tev.blocks(tev.program.initial_state("cpu", torch.float64))
     tg, tdiag = tev.gradient_and_diag(tblocks)
     tschur = SchurSolver(tev)

@@ -3,6 +3,7 @@ strategy recurrence, what the port refuses, and that it imports neither
 jax nor skeres_tpu. float64 on the CPU: per-iteration cost and radius to
 rtol 1e-8, final parameters to rtol 1e-6."""
 
+import json
 import pathlib
 import subprocess
 import sys
@@ -19,6 +20,7 @@ from skeres_tpu.io import bal as jbal
 from skeres_tpu_torch.core import schur as schur_mod
 from skeres_tpu_torch.core.linear_solvers import lm_diagonal
 from skeres_tpu_torch.core.options import SolverOptions
+from skeres_tpu_torch.core.solver import TRACE_FILE
 from skeres_tpu_torch.core.types import (
     LinearSolverType,
     MinimizerType,
@@ -31,7 +33,8 @@ def _solve_both(bal, **kw):
     jprob, jcams, jpts = jbal.build_bal_problem(bal)
     js = st.solve(JOptions(linear_solver_type=JLinearSolverType.DENSE_SCHUR, **kw), jprob)
     tprob, tcams, tpts = tbal.build_bal_problem(bal)
-    ts = stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR, **kw), tprob)
+    ts = stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR, device="cpu", **kw),
+                   tprob)
     return (js, jcams.values, jpts.values), (ts, tcams.values, tpts.values)
 
 
@@ -121,7 +124,7 @@ def test_min_lm_diagonal_affects_step():
     def first_step_norm(min_d):
         problem, _, _ = tbal.build_bal_problem(tbal.synthetic_bal(4, 24, 3))
         s = stt.solve(SolverOptions(
-            linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=1,
+            linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=1, device="cpu",
             min_lm_diagonal=min_d, initial_trust_region_radius=1.0,
             run_full_iteration_budget=True,
         ), problem)
@@ -133,29 +136,54 @@ def test_min_lm_diagonal_affects_step():
 @pytest.mark.parametrize(
     "option",
     [
-        dict(use_device_loop=True),
+        dict(use_inner_iterations=True),
         dict(linear_solver_type=LinearSolverType.DENSE_QR),
         dict(linear_solver_type=LinearSolverType.ITERATIVE_SCHUR),
         dict(minimizer_type=MinimizerType.LINE_SEARCH),
         dict(trust_region_strategy_type=TrustRegionStrategyType.DOGLEG),
         dict(use_explicit_schur_complement=True),
         dict(mesh="obs"),
-        dict(callbacks=[lambda it: None]),
+        dict(trust_region_minimizer_iterations_to_dump=[1]),
     ],
 )
 def test_unported_options_raise(option):
     bal = tbal.synthetic_bal(4, 24, 3)
     problem, _, _ = tbal.build_bal_problem(bal)
-    options = SolverOptions(**{"linear_solver_type": LinearSolverType.DENSE_SCHUR, **option})
+    options = SolverOptions(**{"linear_solver_type": LinearSolverType.DENSE_SCHUR, "device": "cpu",
+                               **option})
     with pytest.raises(NotImplementedError):
         stt.solve(options, problem)
+
+
+def test_device_defaults_to_the_card():
+    assert SolverOptions().device == "cuda"
+
+
+def test_default_solve_raises_without_a_card():
+    """Default options ask for the card: with none, solve() raises rather
+    than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default solve runs there")
+    problem, _, _ = tbal.build_bal_problem(tbal.synthetic_bal(4, 24, 3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR), problem)
+
+
+def test_trace_dir_writes_a_minimizer_trace(tmp_path):
+    """trace_dir: a torch.profiler (Chrome) trace of the minimizer."""
+    problem, _, _ = tbal.build_bal_problem(tbal.synthetic_bal(4, 24, 3))
+    stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR, device="cpu",
+                            max_num_iterations=2, trace_dir=str(tmp_path / "trace")), problem)
+    trace = json.loads((tmp_path / "trace" / TRACE_FILE).read_text())
+    assert any(e.get("cat") == "cpu_op" for e in trace["traceEvents"])
 
 
 def test_unported_problem_features_raise():
     bal = tbal.synthetic_bal(4, 24, 3)
     problem, _, _ = tbal.build_bal_problem(bal, use_schur_ordering=False)
     with pytest.raises(NotImplementedError, match="ordering.py"):
-        stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR), problem)
+        stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR, device="cpu"),
+                  problem)
     arr = problem.add_parameter_block_array(np.zeros((2, 3)))
     with pytest.raises(NotImplementedError, match="numeric_diff"):
         problem.add_residual_blocks(lambda p, d: p[0], None, [arr], numeric_diff=True)
@@ -172,7 +200,7 @@ def test_write_back_and_report():
     problem, cams, pts = tbal.build_bal_problem(bal)
     before = pts.values.copy()
     s = stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
-                                max_num_iterations=3), problem)
+                                max_num_iterations=3, device="cpu"), problem)
     assert not np.array_equal(pts.values, before)
     assert s.final_cost < s.initial_cost
     report = s.full_report()
@@ -233,7 +261,7 @@ def test_explicit_path_solve_matches_jax(monkeypatch):
 def test_schur_path_is_dense_w_at_bal49_size():
     problem, _, _ = tbal.build_bal_problem(tbal.synthetic_bal(49, 7776, 4))
     s = stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
-                                max_num_iterations=1), problem)
+                                max_num_iterations=1, device="cpu"), problem)
     assert s.schur_complement_path == "dense-W"
 
 
@@ -252,7 +280,7 @@ def test_rejected_explicit_plan_raises_naming_the_reason(monkeypatch, limit, rea
         bal.observations = bal.observations[keep]
     problem, _, _ = tbal.build_bal_problem(bal)
     options = SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
-                            explicit_schur_limit_bytes=limit)
+                            explicit_schur_limit_bytes=limit, device="cpu")
     with pytest.raises(NotImplementedError, match="column-probe") as err:
         stt.solve(options, problem)
     assert reason in str(err.value)
