@@ -83,6 +83,33 @@ non-zero and prints no result line):
                from the trace; the capture time and the peak device memory;
                then one untraced run, for LM steps/s beside phase 11's.
 
+ 17. solvers, card vs CPU — synthetic_bal(16, 500, 4), float64, 10 steps
+               at initial radius 1 on the card and on the CPU, the host loop:
+               DENSE_NORMAL_CHOLESKY (and with 2 refinements), DENSE_QR, CGNR
+               (JACOBI; SUBSET on an odometry chain), ITERATIVE_SCHUR with
+               JACOBI, SCHUR_JACOBI, POWER_SERIES_EXPANSION, CLUSTER_JACOBI
+               and CLUSTER_TRIDIAGONAL (clusters of 4), ITERATIVE_SCHUR with
+               the explicit S, DENSE_SCHUR with mixed-precision refinement:
+               the same accept/reject sequence, costs to rtol 1e-8 (CGNR 1e-3:
+               its PCG runs on the whole problem's normal equations), K3 once
+               a damped solve with the explicit S or a cluster plan and never
+               otherwise, K1 once a solve under refinement. Then
+               ITERATIVE_SCHUR (SCHUR_JACOBI) and CGNR under the device loop
+               (each PCG a conditional WHILE node of the step's graph).
+ 18. venice, iterative — the venice scene, float32, 5 LM steps each:
+               ITERATIVE_SCHUR implicit with SCHUR_JACOBI, with the explicit
+               S, and with CLUSTER_JACOBI (64 cameras a cluster): LM steps/s,
+               PCG steps a damped solve, the S path, the final cost beside
+               DENSE_SCHUR's, peak memory, K3's launches against the expected
+               count; one implicit S product timed, and the row products as
+               ``einsum`` against multiply-and-sum. (Phase 10 also holds K3
+               against its plain version on the cluster plan's masks.)
+ 19. past the explicit-S gate — synthetic_bal(4000, 1_000_000, 5), float32,
+               ITERATIVE_SCHUR, 3 LM steps each with SCHUR_JACOBI,
+               CLUSTER_JACOBI and CLUSTER_TRIDIAGONAL (64 cameras a cluster):
+               the path must read ``implicit (gate: S too large ...)``;
+               steps/s, the cost after each step, seconds a damped solve.
+
 The line before the last is a JSON object describing each kernel (its
 time, its launches on the main path, its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the peak for their type,
@@ -124,6 +151,9 @@ K3_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 VENICE = dict(num_cameras=1778, num_points=1_000_000, observations_per_point=5)
 VENICE_CHUNK = 262_144  # evaluation_chunk_size, as tools/bench_venice.py
 VENICE_STEPS = 5
+CLUSTER_SIZE = 64  # cameras a cluster at venice shape and beyond (cluster_jacobi_size)
+PAST_CAP = dict(num_cameras=4000, num_points=1_000_000, observations_per_point=5)
+PAST_CAP_STEPS = 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K1_TIMED_NS = (256, 441, 1024)
 K2_TIMED_PANELS = (128, 256, 512)  # 512 is PANEL
@@ -234,14 +264,14 @@ def k1_case(a: torch.Tensor, rtol, label: str) -> float:
     return errs["Linv"][0]
 
 
-def linearize(program, device, dtype, chunk=None):
+def linearize(program, device, dtype, chunk=None, **schur_kw):
     """The minimizer's first linearization, by hand: (schur solver,
     prepared Jacobi-scaled data, scaled g, scaled diag)."""
     from skeres_tpu_torch.core.evaluator import Evaluator
     from skeres_tpu_torch.core.schur import SchurSolver
 
     ev = Evaluator(program, device=device, dtype=dtype, chunk_size=chunk)
-    schur = SchurSolver(ev)
+    schur = SchurSolver(ev, **schur_kw)
     _, blocks = ev.blocks(program.initial_state(device, dtype))
     g, diag = ev.gradient_and_diag(blocks)
     scale = 1.0 / (1.0 + torch.sqrt(diag))
@@ -303,14 +333,15 @@ def phase_k1(device) -> float:
     return err_441
 
 
-def solve_bal(bal, device, dtype, iters, **kw):
+def solve_bal(bal, device, dtype, iters, solver="DENSE_SCHUR", precond="JACOBI", **kw):
     import skeres_tpu_torch as stt
-    from skeres_tpu_torch.core.types import LinearSolverType
+    from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType
     from skeres_tpu_torch.io.bal import build_bal_problem
 
     problem, _, _ = build_bal_problem(bal)
     options = stt.SolverOptions(
-        linear_solver_type=LinearSolverType.DENSE_SCHUR,
+        linear_solver_type=LinearSolverType[solver],
+        preconditioner_type=PreconditionerType[precond],
         max_num_iterations=iters,
         run_full_iteration_budget=True,
         dtype=dtype,
@@ -356,25 +387,28 @@ def phase_solve(device) -> int:
     return launches
 
 
-def card_vs_cpu(device, bal, label: str, **kw):
+def card_vs_cpu(device, bal, label: str, rtol: float = 1e-8, solve=None, **kw):
     """The same float64 solve, 10 steps at initial radius 1, on the card and
-    on the CPU (``kw``: more solver options for both): the same
-    accept/reject sequence, costs to rtol 1e-8. Returns the card's Summary."""
+    on the CPU (``kw``: more solver options for both; ``solve``: another
+    scene's solve function in place of :func:`solve_bal`): the same
+    accept/reject sequence, costs to ``rtol``. Returns the card's Summary."""
     # initial radius 1: every accept/reject decision of the 10 steps is made
     # on a cost change far above rounding; at the default radius a scene
     # like synthetic_bal(16, 500, 4) converges by step 6 and later decisions
     # compare rounding noise, which two summation orders need not agree on
-    runs = {dev: solve_bal(bal, dev, torch.float64, 10, initial_trust_region_radius=1.0, **kw)
+    solve = solve or solve_bal
+    runs = {dev: solve(bal, dev, torch.float64, 10, initial_trust_region_radius=1.0, **kw)
             for dev in (device, "cpu")}
     seq = {dev: [it.step_is_successful for it in s.iterations] for dev, s in runs.items()}
     cost = {dev: np.array([it.cost for it in s.iterations]) for dev, s in runs.items()}
     rel = float(np.max(np.abs(cost[device] - cost["cpu"]) / np.abs(cost["cpu"])))
-    print(f"[{label}] path {runs[device].schur_complement_path}; accept/reject "
-          f"{seq[device]}; max relative cost difference {rel:.3e} over "
-          f"{len(cost['cpu'])} iterations")
+    pcg = [it.linear_solver_iterations for it in runs[device].iterations[1:]]
+    print(f"[{label}] path {runs[device].schur_complement_path or '-'}; accept/reject "
+          f"{seq[device]}; linear solver iterations {pcg}; max relative cost difference "
+          f"{rel:.3e} over {len(cost['cpu'])} iterations")
     check(seq[device] == seq["cpu"], f"{label}: accept/reject sequences differ")
     check(len(cost[device]) == len(cost["cpu"]) == 11, f"{label}: iteration counts differ")
-    check(rel <= 1e-8, f"{label}: card and CPU costs differ by {rel:.3e} > 1e-8")
+    check(rel <= rtol, f"{label}: card and CPU costs differ by {rel:.3e} > {rtol:.0e}")
     return runs[device]
 
 
@@ -731,6 +765,7 @@ def phase_venice(device, program):
     print(f"[timing] K3 venice shape ({plan.n_pair_rows} pair rows, {moved / 1e9:.3f} GB "
           f"moved): kernel {t[0]:.4f}/{t[3]:.4f} ms ({moved / 1e6 / k3_ms:.1f} GB/s), plain "
           f"{t[1]:.4f}/{t[2]:.4f} ms (median of 20 runs)")
+    k3_cluster_ms = k3_on_cluster_plan(schur, plan, grid, cinv_flat, k3_ms, device)
     del schur, data, g, diag, grid, cinv_flat
     torch.cuda.empty_cache()
 
@@ -765,7 +800,43 @@ def phase_venice(device, program):
     del a, fac
     torch.cuda.empty_cache()
     return dict(k3=(k3_err, k3_ms, k3_plain, moved, k3_flop), k2=(min(times[PANEL]),
-                min(times["plain"]), min(library), n))
+                min(times["plain"]), min(library), n), k3_cluster_ms=k3_cluster_ms)
+
+
+def k3_on_cluster_plan(schur, plan, grid, cinv_flat, full_ms: float, device) -> float:
+    """K3 on the CLUSTER_JACOBI plan's masks at venice shape (clusters of
+    ``CLUSTER_SIZE`` cameras: most pairs invalid, another mix than the full
+    plan's): the kernel against its plain version on the reduced
+    unique-pair table, and its time beside the full plan's."""
+    from skeres_tpu_torch.core.explicit_schur import ExplicitSchurPlan
+    from skeres_tpu_torch.ops.pair_product import pair_products
+
+    b = schur.ev.program.batches[schur.e_batch]
+    t0 = time.time()
+    cplan = ExplicitSchurPlan(
+        cam_idx=np.asarray(b.slot_indices[schur.f_slot], dtype=np.int64),
+        pt_idx=np.asarray(b.slot_indices[schur.e_slot], dtype=np.int64),
+        num_cameras=schur.num_cams, num_points=schur.num_points, f_size=9, e_size=3,
+        cluster_of=np.arange(schur.num_cams) // CLUSTER_SIZE, device=device)
+    valid = float(cplan.pair_valid.float().mean())
+    print(f"[K3] cluster plan at venice shape ({CLUSTER_SIZE} cameras a cluster): "
+          f"{cplan.n_clusters} clusters, {cplan.n_uniq} unique pairs (full plan {plan.n_uniq}), "
+          f"{100 * valid:.1f} % of the pair rows valid (full plan "
+          f"{100 * float(plan.pair_valid.float().mean()):.1f} %), levels "
+          f"{[(lv.n_dest, lv.cap) for lv in cplan.levels]}, planned in {time.time() - t0:.2f} s")
+    kern, plain = k3_tables(cplan, grid, cinv_flat)
+    err, rel = rel_err(kern, plain)
+    print(f"[K3] cluster plan, venice shape float32: table max|err| {err:.3e} (rel {rel:.3e})")
+    check(rel <= K3_RTOL[torch.float32], f"K3 cluster plan: rel error {rel:.3e}")
+    check(0.0 < valid < float(plan.pair_valid.float().mean()),
+          "K3 cluster plan: its masks are the full plan's")
+    del kern, plain
+    run = lambda: pair_products(grid, cinv_flat, cplan.swap_mask, cplan.pair_valid,  # noqa: E731
+                                cplan.pair_kl, 9, 3)
+    ms = min(cuda_ms(run, calls=5), cuda_ms(run, calls=5))
+    print(f"[timing] K3 on the cluster plan, venice shape: {ms:.4f} ms (full plan {full_ms:.4f} ms; "
+          "median of 20 runs, twice)")
+    return ms
 
 
 def time_trailing_update(m: int, w: int, gen, device) -> None:
@@ -805,7 +876,7 @@ def time_trailing_update(m: int, w: int, gen, device) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_venice_solve(device, problem, program) -> tuple[int, int]:
+def phase_venice_solve(device, problem, program) -> tuple[int, int, float, float]:
     import skeres_tpu_torch as stt
     from skeres_tpu_torch.core.types import LinearSolverType
     from skeres_tpu_torch.ops.cholesky import PANEL, cholesky_both, trailing_update_
@@ -850,7 +921,7 @@ def phase_venice_solve(device, problem, program) -> tuple[int, int]:
     check(k3 >= s.num_linear_solves > 0 and k2 >= panels * s.num_linear_solves
           and up >= (panels - 1) * s.num_linear_solves and up == k2 - k2 // panels,
           "venice solve: K3 or K2 did not launch on every damped solve")
-    return up, k3, steps / s.minimizer_time_in_seconds
+    return up, k3, steps / s.minimizer_time_in_seconds, s.final_cost
 
 
 
@@ -897,12 +968,13 @@ def trace_dir_for(label: str) -> str:
     return os.path.join(ROOT, "build", "chip_smoke_traces", label)
 
 
-def venice_options(device, **kw):
+def venice_options(device, solver="DENSE_SCHUR", precond="JACOBI", steps=VENICE_STEPS, **kw):
     import skeres_tpu_torch as stt
-    from skeres_tpu_torch.core.types import LinearSolverType
+    from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType
 
     return stt.SolverOptions(
-        linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=VENICE_STEPS,
+        linear_solver_type=LinearSolverType[solver],
+        preconditioner_type=PreconditionerType[precond], max_num_iterations=steps,
         run_full_iteration_budget=True, dtype=torch.float32, device=device,
         evaluation_chunk_size=VENICE_CHUNK, **kw)
 
@@ -1060,6 +1132,251 @@ def phase_device_loop_bal49(device) -> tuple[float, float]:
     return statistics.median(rates["device loop"]), statistics.median(rates["host loop"])
 
 
+# -- the other linear solvers -----------------------------------------------------
+
+
+def reset_launches() -> None:
+    from skeres_tpu_torch.ops.cholesky import cholesky_both, trailing_update_
+    from skeres_tpu_torch.ops.pair_product import pair_products
+
+    cholesky_both.launches = trailing_update_.launches = pair_products.launches = 0
+
+
+def solve_chain(n, device, dtype, iters, **kw):
+    """CGNR on an anchored odometry chain of ``n`` 2-vectors with three
+    long-range closures (the scene of tests/test_subset_preconditioner.py,
+    with noisy closures, so that the least cost is not zero and costs can
+    be compared relatively), the prior and the chain tagged for the SUBSET
+    preconditioner."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType
+
+    rng = np.random.default_rng(0)
+    truth = np.cumsum(rng.normal(size=(n, 2)), axis=0)
+    problem = stt.Problem()
+    blocks = [problem.add_parameter_block(truth[i] + rng.normal(size=2)) for i in range(n)]
+
+    def prior(params, data):
+        return 10.0 * (params[0] - data)
+
+    def odo(params, data):
+        return 5.0 * (params[1] - params[0] - data)
+
+    ids = [problem.add_residual_block(prior, None, [blocks[0]], data=truth[0])]
+    for i in range(n - 1):
+        ids.append(problem.add_residual_block(odo, None, [blocks[i], blocks[i + 1]],
+                                              data=truth[i + 1] - truth[i]))
+    for i, j in [(0, n - 1), (2, n // 2), (1, n - 3)]:
+        problem.add_residual_block(odo, None, [blocks[i], blocks[j]],
+                                   data=truth[j] - truth[i] + rng.normal(size=2))
+    return stt.solve(stt.SolverOptions(
+        linear_solver_type=LinearSolverType.CGNR, preconditioner_type=PreconditionerType.SUBSET,
+        residual_blocks_for_subset_preconditioner=ids, max_num_iterations=iters,
+        run_full_iteration_budget=True, dtype=dtype, device=device, **kw), problem)
+
+
+# (label, solver, preconditioner, options, cost rtol, K3 launches a damped solve)
+SOLVER_CASES = (
+    ("DENSE_NORMAL_CHOLESKY", "DENSE_NORMAL_CHOLESKY", "JACOBI", {}, 1e-8, 0),
+    ("DENSE_NORMAL_CHOLESKY refined", "DENSE_NORMAL_CHOLESKY", "JACOBI",
+     dict(use_mixed_precision_solves=True, max_num_refinement_iterations=2), 1e-8, 0),
+    ("DENSE_QR", "DENSE_QR", "JACOBI", {}, 1e-8, 0),
+    # CGNR's PCG runs on the whole problem's normal equations, whose condition
+    # number amplifies the rounding of two summation orders: a residual test
+    # falls one PCG step apart now and then, and the costs differ by 1e-5 to
+    # 3e-5 from run to run
+    ("CGNR JACOBI", "CGNR", "JACOBI", {}, 1e-3, 0),
+    ("ITERATIVE_SCHUR JACOBI", "ITERATIVE_SCHUR", "JACOBI", {}, 1e-8, 0),
+    ("ITERATIVE_SCHUR SCHUR_JACOBI", "ITERATIVE_SCHUR", "SCHUR_JACOBI", {}, 1e-8, 0),
+    ("ITERATIVE_SCHUR POWER_SERIES_EXPANSION", "ITERATIVE_SCHUR", "POWER_SERIES_EXPANSION", {},
+     1e-8, 0),
+    ("ITERATIVE_SCHUR CLUSTER_JACOBI", "ITERATIVE_SCHUR", "CLUSTER_JACOBI",
+     dict(cluster_jacobi_size=4), 1e-8, 1),
+    ("ITERATIVE_SCHUR CLUSTER_TRIDIAGONAL", "ITERATIVE_SCHUR", "CLUSTER_TRIDIAGONAL",
+     dict(cluster_jacobi_size=4), 1e-8, 1),
+    ("ITERATIVE_SCHUR explicit S", "ITERATIVE_SCHUR", "SCHUR_JACOBI",
+     dict(use_explicit_schur_complement=True), 1e-8, 1),
+    ("DENSE_SCHUR refined", "DENSE_SCHUR", "JACOBI",
+     dict(use_mixed_precision_solves=True, max_num_refinement_iterations=2), 1e-8, 0),
+)
+
+
+def phase_solvers_card_vs_cpu(device) -> dict:
+    """Phase 17. Returns the kernels' launches on these paths."""
+    from skeres_tpu_torch.core.schur import FALLBACK_CG_ITERATIONS
+    from skeres_tpu_torch.io.bal import synthetic_bal
+    from skeres_tpu_torch.ops.cholesky import cholesky_both
+    from skeres_tpu_torch.ops.pair_product import pair_products
+
+    bal = synthetic_bal(16, 500, 4)
+    launches = {}
+    for label, solver, precond, kw, rtol, k3_a_solve in SOLVER_CASES:
+        reset_launches()
+        card = card_vs_cpu(device, bal, f"solvers {label}", rtol, solver=solver, precond=precond,
+                           **kw)
+        k1, k3, solves = cholesky_both.launches, pair_products.launches, card.num_linear_solves
+        check(card.linear_solver_type_used.value == solver
+              and card.preconditioner_type_used.value == precond,
+              f"solvers {label}: ran {card.linear_solver_type_used.value} with "
+              f"{card.preconditioner_type_used.value}")
+        check(k3 == k3_a_solve * solves, f"solvers {label}: K3 launched {k3} times for {solves} "
+              f"damped solves, expected {k3_a_solve} a solve")
+        # the refinement reuses K1's L^-1: one launch a damped solve and a rung
+        # (two rungs on a solve that falls to the PCG)
+        rungs = sum(2 if it.linear_solver_iterations == FALLBACK_CG_ITERATIONS
+                    else it.linear_solver_iterations - 1 for it in card.iterations[1:])
+        check(k1 == (solves + rungs if solver == "DENSE_SCHUR" else 0),
+              f"solvers {label}: K1 launched {k1} times for {solves} damped solves")
+        if solver == "ITERATIVE_SCHUR":
+            want = "explicit" if kw.get("use_explicit_schur_complement") else "implicit"
+            check(card.schur_complement_path == want, f"solvers {label}: path "
+                  f"{card.schur_complement_path}")
+        launches[label] = {"K1": k1, "K3": k3, "damped_solves": solves}
+    card = card_vs_cpu(device, 24, "solvers CGNR SUBSET (chain)", 1e-8, solve=solve_chain)
+    check(card.preconditioner_type_used.value == "SUBSET", "CGNR SUBSET downgraded")
+    for label, solver, precond, rtol in (("ITERATIVE_SCHUR SCHUR_JACOBI", "ITERATIVE_SCHUR",
+                                          "SCHUR_JACOBI", 1e-8), ("CGNR JACOBI", "CGNR", "JACOBI",
+                                                                  1e-3)):
+        card = card_vs_cpu(device, bal, f"solvers, device loop {label}", rtol, solver=solver,
+                           precond=precond, use_device_loop=True, device_loop_chunk_iterations=4)
+        check(card.device_loop_capture_time_in_seconds > 0.0,
+              f"solvers, device loop {label}: no graph was captured")
+        print(f"[solvers, device loop {label}] capture "
+              f"{card.device_loop_capture_time_in_seconds:.4f} s")
+    return launches
+
+
+def time_s_product(device, program) -> None:
+    """One implicit S product at venice shape (SCHUR_JACOBI's linearization
+    by hand), and the row products it is made of, as ``einsum`` against the
+    multiply-and-sum the port uses."""
+    from skeres_tpu_torch.core.types import PreconditionerType
+
+    schur, data, g, diag = linearize(program, device, torch.float32, VENICE_CHUNK, iterative=True,
+                                     preconditioner=PreconditionerType.SCHUR_JACOBI)
+    asm = first_assembly(schur, data, g, diag)
+    v = torch.randn(schur.num_f, device=device, dtype=torch.float32,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    ms = cuda_ms(lambda: schur._s_matvec(asm, v), calls=3)
+    print(f"[timing] one implicit S product at venice shape (5 row products, 2 gathers, 2 segment "
+          f"sums over {asm['per_batch'][schur.e_batch][1].shape[0]} rows): {ms:.4f} ms "
+          "(median of 20 runs)")
+    F, E = schur._f_block(asm), asm["per_batch"][schur.e_batch][2]
+    rows = F.shape[0]
+    vf = torch.randn(rows, 9, device=device)
+    ve = torch.randn(rows, 3, device=device)
+    u = torch.randn(rows, 2, device=device)
+    forms = (
+        ("F v", lambda: torch.einsum("bmt,bt->bm", F, vf), lambda: (F * vf[:, None, :]).sum(-1)),
+        ("F^T u", lambda: torch.einsum("bmt,bm->bt", F, u), lambda: (F * u[:, :, None]).sum(1)),
+        ("E w", lambda: torch.einsum("bmt,bt->bm", E, ve), lambda: (E * ve[:, None, :]).sum(-1)),
+        ("E^T u", lambda: torch.einsum("bmt,bm->bt", E, u), lambda: (E * u[:, :, None]).sum(1)),
+    )
+    for name, ein, elem in forms:
+        err, rel = rel_err(elem(), ein())
+        t = [cuda_ms(ein, reps=10, calls=3), cuda_ms(elem, reps=10, calls=3),
+             cuda_ms(elem, reps=10, calls=3), cuda_ms(ein, reps=10, calls=3)]
+        print(f"[timing] row product {name} over {rows} rows float32: einsum {t[0]:.4f}/{t[3]:.4f} "
+              f"ms, multiply-and-sum {t[1]:.4f}/{t[2]:.4f} ms (median of 10 runs); max|diff| "
+              f"{err:.3e} (rel {rel:.3e})")
+        check(rel <= 1e-5, f"row product {name}: the two forms differ by {rel:.3e}")
+
+
+def iterative_solve(label, device, problem, program, initial, k3_a_solve, reference_cost=None,
+                    **options):
+    """One ITERATIVE_SCHUR solve of a big scene through ``stt.solve``:
+    prints its numbers; every cost finite, a step accepted, the final cost
+    below the initial, K3 launched ``k3_a_solve`` times a damped solve."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.ops.cholesky import cholesky_both, trailing_update_
+    from skeres_tpu_torch.ops.pair_product import pair_products
+
+    for grp, v in zip(program.groups, initial):  # each solve writes its solution back
+        grp.values = v.copy()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    s = stt.solve(venice_options(device, "ITERATIVE_SCHUR", **options), problem, program)
+    k3, solves = pair_products.launches, s.num_linear_solves
+    check(cholesky_both.launches == trailing_update_.launches == 0,
+          f"{label}: the iterative solver launched K1 or K2's update")
+    steps = s.num_successful_steps + s.num_unsuccessful_steps
+    costs = [it.cost for it in s.iterations]
+    pcg = [it.linear_solver_iterations for it in s.iterations[1:]]
+    beside = "" if reference_cost is None else f" (DENSE_SCHUR after the same steps: {reference_cost!r})"
+    print(f"[{label}] path {s.schur_complement_path}; preconditioner "
+          f"{s.preconditioner_type_used.value}; costs: {json.dumps(costs)}; final cost "
+          f"{s.final_cost!r}{beside}")
+    print(f"[{label}] PCG steps a damped solve: {pcg}")
+    print(f"[{label}] {steps} LM steps ({s.num_successful_steps} accepted) in "
+          f"{s.minimizer_time_in_seconds:.4f} s of minimizer time: "
+          f"{steps / s.minimizer_time_in_seconds:.4f} LM steps/s; a damped solve "
+          f"{s.linear_solver_time_in_seconds / max(solves, 1):.4f} s; preprocessor "
+          f"{s.preprocessor_time_in_seconds:.4f} s, jacobian "
+          f"{s.jacobian_evaluation_time_in_seconds:.4f} s, residual "
+          f"{s.residual_evaluation_time_in_seconds:.4f} s")
+    print(f"[{label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; K3 "
+          f"launches {k3} for {solves} damped solves (expected {k3_a_solve} a solve)")
+    check(all(math.isfinite(c) for c in costs), f"{label}: non-finite cost")
+    check(s.num_successful_steps >= 1, f"{label}: no step accepted")
+    check(s.final_cost < s.initial_cost, f"{label}: final cost {s.final_cost} not below initial")
+    check(k3 == k3_a_solve * solves and solves > 0,
+          f"{label}: K3 launched {k3} times for {solves} damped solves")
+    return s, {"K1": cholesky_both.launches, "K2 update": trailing_update_.launches, "K3": k3}
+
+
+VENICE_ITERATIVE = (
+    ("implicit SCHUR_JACOBI", "implicit", 0, dict(precond="SCHUR_JACOBI")),
+    ("explicit S SCHUR_JACOBI", "explicit", 1,
+     dict(precond="SCHUR_JACOBI", use_explicit_schur_complement=True)),
+    ("implicit CLUSTER_JACOBI", "implicit", 1,
+     dict(precond="CLUSTER_JACOBI", cluster_jacobi_size=CLUSTER_SIZE)),
+)
+
+
+def phase_venice_iterative(device, problem, program, initial, reference_cost) -> dict:
+    """Phase 18. Returns the kernels' launches by path."""
+    time_s_product(device, program)
+    launches = {}
+    for name, path, k3_a_solve, options in VENICE_ITERATIVE:
+        label = f"venice ITERATIVE_SCHUR {name}"
+        s, counts = iterative_solve(label, device, problem, program, initial, k3_a_solve,
+                                    reference_cost, **options)
+        check(s.schur_complement_path == path, f"{label}: path {s.schur_complement_path}")
+        check(s.preconditioner_type_used.value == options["precond"],
+              f"{label}: the preconditioner was downgraded")
+        launches[label] = counts
+    return launches
+
+
+def phase_past_cap(device) -> dict:
+    """Phase 19: 4000 cameras, S (36,000 rows, 5.2 GB) past the explicit
+    gate and K2's 32,768 rows; never formed."""
+    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
+
+    t0 = time.time()
+    bal = synthetic_bal(**PAST_CAP)
+    problem, _, _ = build_bal_problem(bal)
+    program = problem.compile()
+    print(f"[past-cap] synthetic_bal{tuple(PAST_CAP.values())}: {bal.num_observations} "
+          f"observations, S would have {9 * bal.num_cameras} rows; scene and compile "
+          f"{time.time() - t0:.2f} s")
+    initial = [g.values.copy() for g in program.groups]
+    launches = {}
+    for precond, k3_a_solve in (("SCHUR_JACOBI", 0), ("CLUSTER_JACOBI", 1),
+                                ("CLUSTER_TRIDIAGONAL", 1)):
+        label = f"past-cap ITERATIVE_SCHUR {precond}"
+        # the explicit S is asked for: the gate refuses it and says why
+        s, counts = iterative_solve(label, device, problem, program, initial, k3_a_solve,
+                                precond=precond, cluster_jacobi_size=CLUSTER_SIZE,
+                                steps=PAST_CAP_STEPS, use_explicit_schur_complement=True)
+        check(s.schur_complement_path.startswith("implicit (gate: S too large"),
+              f"{label}: path {s.schur_complement_path!r} does not name the gate")
+        check(s.preconditioner_type_used.value == precond, f"{label}: downgraded")
+        launches[label] = counts
+    return launches
+
+
 def bound(nbytes: float, flop: float, flops_per_s: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / flops_per_s
@@ -1094,17 +1411,23 @@ def main() -> int:
     problem, program = timed("venice scene", venice_scene)
     venice = timed("venice", phase_venice, device, program)
     initial = [g.values.copy() for g in program.groups]
-    up_launches, k3_launches, venice_host_rate = timed(
+    up_launches, k3_launches, venice_host_rate, venice_cost = timed(
         "venice solve", phase_venice_solve, device, problem, program)
     # phase 16 before any other graph: its traced solve must be this
     # process's first CUDA graph (see the note above trace_launches)
     timed("device loop venice", phase_venice_device_loop, device, problem, program, initial,
           venice_host_rate)
+    venice_paths = timed("venice iterative", phase_venice_iterative, device, problem, program,
+                            initial, venice_cost)
     del problem, program, initial
+    torch.cuda.empty_cache()
+    big_paths = {**venice_paths, **timed("past cap", phase_past_cap, device)}
+    torch.cuda.empty_cache()
     k1_ms, k1_plain = timed("timing", phase_timing, device)
     timed("device loop card vs CPU", phase_device_loop_card_vs_cpu, device)
     timed("device loop explicit", phase_device_loop_explicit, device)
     timed("device loop BAL-49", phase_device_loop_bal49, device)
+    solver_paths = timed("solvers card vs CPU", phase_solvers_card_vs_cpu, device)
     k3_err, k3_ms, k3_plain, k3_bytes, k3_flop = venice["k3"]
     k2_ms, k2_plain, k2_library, k2_n = venice["k2"]
     n1 = 9 * 49  # K1's n on the main path: the BAL-49 S
@@ -1123,6 +1446,8 @@ def main() -> int:
             "source": "skeres_tpu_torch/csrc/cholesky.cu",
             "replaces": "skeres_tpu/ops/pallas/cholesky.py:98",
             "launches": k1_launches,
+            "launches_by_path": {"BAL-49 DENSE_SCHUR": k1_launches, **{
+                f"synthetic_bal(16, 500, 4) {k}": v["K1"] for k, v in solver_paths.items()}},
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": k1_plain,
@@ -1136,6 +1461,8 @@ def main() -> int:
             "source": "skeres_tpu_torch/csrc/cholesky.cu",
             "replaces": "skeres_tpu/ops/pallas/cholesky.py:249",
             "launches": up_launches,
+            "launches_by_path": {"venice DENSE_SCHUR": up_launches,
+                                 **{k: v["K2 update"] for k, v in big_paths.items()}},
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain,
@@ -1149,8 +1476,12 @@ def main() -> int:
             "source": "skeres_tpu_torch/csrc/pair_product.cu",
             "replaces": "skeres_tpu/ops/pallas/pair_product.py:49",
             "launches": k3_launches,
+            "launches_by_path": {"venice DENSE_SCHUR": k3_launches,
+                                 **{k: v["K3"] for k, v in big_paths.items()}, **{
+                f"synthetic_bal(16, 500, 4) {k}": v["K3"] for k, v in solver_paths.items()}},
             "max_abs_err": k3_err,
             "ms": k3_ms,
+            "cluster_plan_ms": venice["k3_cluster_ms"],
             "plain_ms": k3_plain,
             "bound_ms": k3_bound[0],
             "bound_by": k3_bound[1],

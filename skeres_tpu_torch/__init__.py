@@ -4,13 +4,17 @@ The same solver surface as ``skeres_tpu`` (``Problem`` →
 ``solve(options, problem)`` → ``Summary``), on PyTorch tensors on one
 device chosen by ``SolverOptions.device``. Residuals are written for one
 block and batched with ``torch.func.vmap``; Jacobians come from
-``torch.func.vjp``/``jvp``; the kernel that the JAX package wrote in Pallas
-for the TPU on this path (the dense Cholesky of the reduced camera system)
-is a CUDA kernel written for Hopper (``csrc/cholesky.cu``).
+``torch.func.vjp``/``jvp``; the kernels that the JAX package wrote in Pallas
+for the TPU (the dense Cholesky of the reduced camera system, its blocked
+form, and the pair products of the explicit Schur complement) are CUDA
+kernels written for Hopper (``csrc/cholesky.cu``, ``csrc/pair_product.cu``).
 
 This package imports torch and never jax or skeres_tpu. It runs the
-Levenberg-Marquardt DENSE_SCHUR solve of bundle adjustment; what it does
-not run yet raises ``NotImplementedError``.
+Levenberg-Marquardt trust region with every linear solver of the JAX
+package (DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR, DENSE_SCHUR,
+ITERATIVE_SCHUR and its preconditioners), on the host loop or the device
+loop; what it does not run yet (dogleg, the line search, inner iterations,
+a mesh) raises ``NotImplementedError``.
 """
 
 from skeres_tpu_torch.models.manifolds import EuclideanManifold

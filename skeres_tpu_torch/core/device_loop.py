@@ -12,7 +12,9 @@ compiles a chunk of the LM loop into one XLA program (``lax.while_loop``,
 - the relinearization runs under ``cond`` on an accepted step and writes
   the new ``(state, cost, g, diag, data, scale)`` into the carry's
   buffers in place; the damped solve's jitter ladder and PCG fallback are
-  IF nodes of their own (``SchurSolver.solve_damped``);
+  IF nodes of their own (``SchurSolver.solve_damped``), and every PCG
+  (DENSE_SCHUR's fallback, ITERATIVE_SCHUR, CGNR) and the power series of a
+  preconditioner are WHILE nodes (``core/graph.py:while_loop``);
 - the history (cost, radius, step norm, max|g|, relative decrease,
   accepted, linear solver iterations) is written at the device index
   ``it``, since one graph serves every iteration;
@@ -23,7 +25,10 @@ the CPU tests hold the port's device loop against the JAX package's.
 
 Limits, as in the JAX package: Levenberg-Marquardt only, monotonic steps
 only, no callbacks and no checkpoints inside the loop. Unlike the JAX
-form, the last chunk stops at ``max_num_iterations`` exactly.
+form, the last chunk stops at ``max_num_iterations`` exactly. Every linear
+solver runs under it but DENSE_QR on the card: ``torch.linalg.qr`` cannot
+be captured inside a conditional node (cudaErrorInvalidValue when the
+capture ends; torch 2.11, CUDA 12.8), so that combination raises.
 """
 
 from __future__ import annotations
@@ -39,7 +44,11 @@ from torch.utils import _pytree as pytree
 from skeres_tpu_torch.core.graph import CapturedStep, cond
 from skeres_tpu_torch.core.minimizer import TrustRegionMinimizer
 from skeres_tpu_torch.core.summary import IterationSummary
-from skeres_tpu_torch.core.types import TerminationType, TrustRegionStrategyType
+from skeres_tpu_torch.core.types import (
+    LinearSolverType,
+    TerminationType,
+    TrustRegionStrategyType,
+)
 
 __all__ = ["DeviceLoopMinimizer"]
 
@@ -71,13 +80,14 @@ _HIST_ROWS = 7
 @dataclasses.dataclass
 class _Carry:
     """The loop's state: device tensors the captured step reads and
-    writes in place. ``data`` is the Schur solver's prepared dict."""
+    writes in place. ``data`` is the linear solver's data (the Schur
+    solvers' prepared dict, or the others' tuples)."""
 
     state: tuple
     cost: torch.Tensor
     g: torch.Tensor
     diag: torch.Tensor
-    data: dict
+    data: object
     scale: torch.Tensor
     radius: torch.Tensor
     decrease: torch.Tensor
@@ -115,6 +125,12 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
         super().__init__(*args, **kwargs)
         if self.options.trust_region_strategy_type != TrustRegionStrategyType.LEVENBERG_MARQUARDT:
             raise NotImplementedError("device loop supports LEVENBERG_MARQUARDT only")
+        if self.solver_type == LinearSolverType.DENSE_QR and self.ev.device.type == "cuda":
+            raise NotImplementedError(
+                "use_device_loop with DENSE_QR on a CUDA device: torch.linalg.qr cannot be "
+                "captured inside a conditional node of a CUDA graph (the LM step's IF node); "
+                "use the host loop, or DENSE_NORMAL_CHOLESKY, which captures"
+            )
         self.chunk_iterations = int(chunk_iterations)
         o, dtype = self.options, self.ev.dtype
         min_radius = o.min_trust_region_radius

@@ -42,6 +42,11 @@ def _to_device(a, device, dtype):
     return t.to(device=device, dtype=dtype if t.is_floating_point() else None)
 
 
+def _row_data(batch: CompiledBatch, data_row):
+    """One block's constants as its residual function takes them."""
+    return None if batch.data is None else data_row
+
+
 class Evaluator:
     """Evaluation functions over a compiled Program, on one device."""
 
@@ -67,7 +72,10 @@ class Evaluator:
         self._slot_plans = []
         self._slot_cols = []
         for b in program.batches:
-            data = pytree.tree_map(lambda a: _to_device(a, self.device, dtype), b.data)
+            # a batch without constants carries an empty tuple, which vmap
+            # maps over as no input and the residual function receives as None
+            data = () if b.data is None else pytree.tree_map(
+                lambda a: _to_device(a, self.device, dtype), b.data)
             idx = tuple(torch.as_tensor(ix).to(self.device) for ix in b.slot_indices)
             tidx = torch.as_tensor(b.tangent_index).to(self.device)
             self._batch_const.append((data, idx, tidx))
@@ -116,7 +124,7 @@ class Evaluator:
     def _rows_residuals(self, batch, data, idx, state):
         """Residual-only evaluation over the given rows: cost per block (B,)."""
         xs = self._gather_slots(batch, idx, state)
-        r = torch.func.vmap(lambda d, *x: batch.fn(tuple(x), d))(data, *xs)
+        r = torch.func.vmap(lambda d, *x: batch.fn(tuple(x), _row_data(batch, d)))(data, *xs)
         s = torch.sum(r * r, dim=-1)
         if batch.loss is None:
             return 0.5 * s
@@ -138,7 +146,7 @@ class Evaluator:
             def f(delta):
                 ds = torch.split(delta, batch.tangent_sizes)
                 xp = tuple(mf.plus(x, d) for mf, x, d in zip(manifolds, x_row, ds))
-                return batch.fn(xp, data_row)
+                return batch.fn(xp, _row_data(batch, data_row))
 
             if reverse:
                 r, vjp_fn = torch.func.vjp(f, zero)
@@ -198,6 +206,60 @@ class Evaluator:
         g = self.assemble_tangent([a[:, : a.shape[1] // 2] for a in accs])
         diag = self.assemble_tangent([a[:, a.shape[1] // 2 :] for a in accs])
         return g, diag
+
+    def jtj_dense(self, blocks: Sequence[BatchBlocks]):
+        """Dense (N, N) J^T J from the batched block outer products
+        (DENSE_NORMAL_CHOLESKY, and CGNR's SUBSET preconditioner; small
+        problems only). The blocks are added by ``index_put_`` with
+        ``accumulate=True``, whose sum order is not fixed on the card: two
+        runs may differ in the last bits."""
+        n = self.num_tangent
+        h = torch.zeros((n, n), dtype=self.dtype, device=self.device)
+        for b in blocks:
+            hb = torch.einsum("bmi,bmj->bij", b.jac, b.jac)
+            h.index_put_(
+                (b.idx[:, :, None].expand_as(hb), b.idx[:, None, :].expand_as(hb)),
+                hb, accumulate=True,
+            )
+        return h
+
+    def jacobian_dense(self, blocks: Sequence[BatchBlocks]):
+        """The dense Jacobian (M, N) and the residual vector (M,), rows in
+        batch order (DENSE_QR; small problems only). Built by
+        ``index_put_`` with ``accumulate=True`` (a block that takes one
+        parameter block in two slots adds both), whose sum order is not
+        fixed on the card."""
+        n = self.num_tangent
+        m_total = sum(b.r.numel() for b in blocks)
+        jd = torch.zeros((m_total, n), dtype=self.dtype, device=self.device)
+        rd = torch.cat([b.r.reshape(-1) for b in blocks])
+        row0 = 0
+        for b in blocks:
+            bsz, m = b.r.shape
+            rows = row0 + torch.arange(bsz * m, device=self.device).reshape(bsz, m)
+            jd.index_put_(
+                (rows[:, :, None].expand_as(b.jac), b.idx[:, None, :].expand_as(b.jac)),
+                b.jac, accumulate=True,
+            )
+            row0 += bsz * m
+        return jd, rd
+
+    def jtj_matvec(self, blocks: Sequence[BatchBlocks], v):
+        """v -> J^T (J v) without forming J^T J (CGNR's product): per-slot
+        row gathers on the way in, planned segment reductions on the way
+        out."""
+        accs = [
+            torch.zeros((g.num_blocks, g.tangent_size), dtype=v.dtype, device=v.device)
+            for g in self.program.groups
+        ]
+        for bi, b in enumerate(blocks):
+            batch = self.program.batches[bi]
+            jv = torch.einsum("bmi,bi->bm", b.jac, self.v_rows(bi, v))
+            jtv = torch.einsum("bmi,bm->bi", b.jac, jv)  # (B, T)
+            for s, gi in enumerate(batch.slot_groups):
+                c, t = self._slot_cols[bi][s]
+                accs[gi] = accs[gi] + self.slot_reduce(bi, s, jtv[:, c : c + t])
+        return self.assemble_tangent(accs)
 
     def v_rows(self, bi: int, v):
         """Per-row tangent vectors (B, T) for batch ``bi``: per-slot row

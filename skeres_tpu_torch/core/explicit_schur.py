@@ -19,16 +19,21 @@ of the dense-W path passes its gate (venice-1778: 192 GB):
 - dense S is then gather-built: every (ci, cj) block position reads its
   unique-pair row, its transpose, a per-camera diagonal row, or zero.
 
+With ``cluster_of`` (a cluster id per camera) the plan is the CLUSTER_JACOBI
+and CLUSTER_TRIDIAGONAL preconditioners': pairs across clusters are dropped
+(with ``cluster_band``, pairs of adjacent clusters are kept), so the
+unique-pair table stays small however many cameras, and
+:meth:`cluster_offdiag` and :meth:`cluster_band_offdiag` gather it into
+batched per-cluster matrices. K3 computes the pair products of either
+plan; on a cluster plan most pairs are invalid and come out as zero rows.
+
 All index arrays are problem structure, built once on the host. Still to
-port: the mesh (SPMD) plan and the cluster maps of the CLUSTER_*
-preconditioners (ROADMAP items 10 and 8); no caller of the port needs
-them yet, since ``solve()`` refuses a mesh and every linear solver but
-DENSE_SCHUR.
+port: the mesh (SPMD) plan (ROADMAP item 10); ``solve()`` refuses a mesh.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -131,14 +136,21 @@ def _check_level0_waste(levels, n_rows: int, factor: float = 3.0):
             )
 
 
-def _pair_metadata(grid_cam: np.ndarray, num_cameras: int, iu, ju):
+def _pair_metadata(grid_cam: np.ndarray, num_cameras: int, iu, ju, cluster_of=None,
+                   cluster_band=False):
     """Per-point-row pair bookkeeping from a (Pn, kp) camera grid:
     (swap (Pn, npair) bool, valid (Pn, npair) bool, pair_id (Pn*npair,)
-    with -1 for invalid)."""
+    with -1 for invalid). With ``cluster_of`` (a cluster id per camera),
+    pairs whose cameras lie in different clusters are dropped, the
+    CLUSTER_JACOBI restriction; ``cluster_band`` keeps the pairs of
+    adjacent clusters too (the CLUSTER_TRIDIAGONAL band)."""
     npair = len(iu)
     ca = grid_cam[:, iu].reshape(-1)
     cb = grid_cam[:, ju].reshape(-1)
     pair_valid = (ca >= 0) & (cb >= 0)
+    if cluster_of is not None:
+        dcl = np.abs(cluster_of[np.clip(ca, 0, None)] - cluster_of[np.clip(cb, 0, None)])
+        pair_valid &= dcl <= (1 if cluster_band else 0)
     swap = ca > cb
     lo = np.where(swap, cb, ca)
     hi = np.where(swap, ca, cb)
@@ -168,6 +180,10 @@ class ExplicitSchurPlan:
         pad_waste: float = 1.5,
         chunk_value_budget: int = 1 << 26,  # bytes of pair values the plain
         # version of K3 materializes at once
+        cluster_of: Optional[np.ndarray] = None,  # (nc,) cluster id per camera:
+        # keep only the pairs inside a cluster (the CLUSTER_JACOBI plan)
+        cluster_band: bool = False,  # keep the pairs of adjacent clusters too and
+        # build the (c, c+1) band maps (CLUSTER_TRIDIAGONAL)
         *,
         device,
     ):
@@ -176,6 +192,8 @@ class ExplicitSchurPlan:
         self.np_ = num_points
         self.f = f_size
         self.e = e_size
+        self.cluster_of = None if cluster_of is None else np.asarray(cluster_of, dtype=np.int64)
+        self.cluster_band = bool(cluster_band)
 
         # -- point grid stats + skew gate ----------------------------------
         counts = np.bincount(pt_idx, minlength=num_points)
@@ -200,7 +218,8 @@ class ExplicitSchurPlan:
         gvalid = grid_src < B
         grid_cam[gvalid] = cam_idx[grid_src[gvalid]]
         grid_cam = grid_cam.reshape(num_points, kp)
-        swap_g, valid_g, pair_id_g = _pair_metadata(grid_cam, num_cameras, iu, ju)
+        swap_g, valid_g, pair_id_g = _pair_metadata(
+            grid_cam, num_cameras, iu, ju, self.cluster_of, self.cluster_band)
         uniq = np.unique(pair_id_g[pair_id_g >= 0])
         self.n_uniq = n_uniq = len(uniq)
 
@@ -241,6 +260,37 @@ class ExplicitSchurPlan:
         comb[has_low] = n_uniq + pos2u_t[has_low]
         comb[dd * num_cameras + dd] = 2 * n_uniq + dd
         self.pos2u_combined = torch.as_tensor(comb).to(device)
+
+        # -- cluster block maps: slot (c, i, j) -> unique-pair row ----------
+        if self.cluster_of is not None:
+            ncl = int(self.cluster_of.max()) + 1 if num_cameras else 0
+            members = [np.nonzero(self.cluster_of == c)[0] for c in range(ncl)]
+            cs = max((len(m) for m in members), default=1)
+            cam_of = np.full((ncl, cs), -1, dtype=np.int64)
+            for c, m in enumerate(members):
+                cam_of[c, : len(m)] = m
+            self.n_clusters = ncl
+            self.cluster_slot_size = cs
+            self.cluster_cam_of = cam_of  # (ncl, cs) on the host, -1 = pad
+
+            def block_maps(rows_cam, cols_cam):
+                """Per (cluster, i, j) the unique-pair row of the pair
+                (rows_cam[c, i], cols_cam[c, j]) in either orientation;
+                ``n_uniq`` (a zero row) where unobserved or padded."""
+                a = np.broadcast_to(rows_cam[:, :, None], (len(rows_cam), cs, cs))
+                b = np.broadcast_to(cols_cam[:, None, :], (len(rows_cam), cs, cs))
+                ok = ((a >= 0) & (b >= 0)).reshape(-1)
+                flat = np.where(ok, (np.clip(a, 0, None) * num_cameras
+                                     + np.clip(b, 0, None)).reshape(-1), 0)
+                return (torch.as_tensor(np.where(ok, pos2u[flat], n_uniq)).to(device),
+                        torch.as_tensor(np.where(ok, pos2u_t[flat], n_uniq)).to(device))
+
+            self.cluster_map_u, self.cluster_map_l = block_maps(cam_of, cam_of)
+            # cluster c (rows) against cluster c + 1 (columns); both
+            # orientations, so the build holds for any cluster_of
+            self.band_map_u = self.band_map_l = None
+            if self.cluster_band and ncl > 1:
+                self.band_map_u, self.band_map_l = block_maps(cam_of[:-1], cam_of[1:])
 
     # -- runtime -----------------------------------------------------------
 
@@ -296,6 +346,36 @@ class ExplicitSchurPlan:
         blocks, by the same gather-build as :meth:`dense_s_full` with no
         diagonal blocks beyond the same-camera pair fold."""
         return self.dense_s_full(uniq_flat, uniq_flat.new_zeros((self.nc, self.f * self.f)))
+
+    def _cluster_blocks(self, uniq_flat, map_u, map_l, n: int):
+        """(n, cs*f, cs*f) matrices from the unique-pair table: block
+        (i, j) of matrix c reads its pair's row as stored (``map_u``, the
+        lower-numbered camera's rows) or transposed (``map_l``). K3 writes
+        f-major rows, so the transpose of a block is the transpose of its
+        (f, f) view."""
+        cs, f = self.cluster_slot_size, self.f
+        padded = torch.cat([uniq_flat, uniq_flat.new_zeros((1, f * f))])
+        blocks = padded[map_u] + _transpose_blocks(padded[map_l], f)
+        return blocks.view(n, cs, cs, f, f).permute(0, 1, 3, 2, 4).reshape(n, cs * f, cs * f)
+
+    def cluster_offdiag(self, uniq_flat):
+        """Batched (n_clusters, cs*f, cs*f) off-diagonal correction blocks
+        from the cluster-restricted unique-pair table, the CLUSTER_JACOBI
+        preconditioner's matrices; rows and columns of padded cluster slots
+        are zero."""
+        return self._cluster_blocks(uniq_flat, self.cluster_map_u, self.cluster_map_l,
+                                    self.n_clusters)
+
+    def cluster_band_offdiag(self, uniq_flat):
+        """Batched (n_clusters - 1, cs*f, cs*f) correction blocks coupling
+        cluster c (rows) to cluster c + 1 (columns), the
+        CLUSTER_TRIDIAGONAL band; needs a plan built with
+        ``cluster_band=True``."""
+        if self.band_map_u is None:
+            raise ValueError("cluster_band_offdiag needs a plan built with cluster_band=True "
+                             "and more than one cluster")
+        return self._cluster_blocks(uniq_flat, self.band_map_u, self.band_map_l,
+                                    self.n_clusters - 1)
 
     def _rearrange_dense(self, table):
         """Combined-table rows -> the dense (nc*f, nc*f) matrix, written in

@@ -1,11 +1,14 @@
-"""Device-side branching for CUDA graphs: ``cond`` and ``CapturedStep``.
+"""Device-side branching for CUDA graphs: ``cond``, ``while_loop`` and
+``CapturedStep``.
 
 The JAX package's device loop is one XLA program: ``lax.while_loop`` over
 the LM step, with ``lax.cond`` for the relinearization after an accepted
 step, and the jitter ladder and PCG fallback of the damped solve
 (``skeres_tpu/core/device_loop.py``, ``core/schur.py``). The port captures
 one LM step as a CUDA graph (:class:`CapturedStep`) whose branches are
-conditional IF nodes (:func:`cond`); ``core/device_loop.py`` replays it.
+conditional IF nodes (:func:`cond`) and whose inner loops (the PCG of the
+iterative solvers, the power series of a preconditioner) are conditional
+WHILE nodes (:func:`while_loop`); ``core/device_loop.py`` replays it.
 
 ``cond(pred, true_fn, false_fn)`` runs ``true_fn`` where the device bool
 ``pred`` holds, else ``false_fn`` (if given):
@@ -17,16 +20,27 @@ conditional IF nodes (:func:`cond`); ``core/device_loop.py`` replays it.
   ``~pred``, so every replay decides on the device and the host reads
   nothing.
 
+``while_loop(cond_fn, body_fn)`` runs ``body_fn()`` for as long as the
+0-d device bool that ``cond_fn()`` returns holds, the counterpart of
+``lax.while_loop`` with its carry in tensors that both functions read and
+``body_fn`` updates in place:
+
+- eagerly: a Python ``while`` on ``bool(cond_fn())``, one host read a turn;
+- under capture: one WHILE node. ``cond_fn()`` is captured before the node
+  and sets its handle; the body holds ``body_fn()``, then ``cond_fn()``
+  again and the one-thread kernel that sets the handle from it, so every
+  replay runs as many turns as its data ask for and the host reads nothing.
+
 The functions return nothing: they write their results in place into
 tensors made before the branch, since a body that does not run leaves no
 outputs. Nor may they change Python state that later code reads: under
 capture each runs once, whatever ``pred`` holds.
 
-Each nesting depth of IF bodies is captured on a stream of its own, and
-what a body allocates comes from a private memory pool of that depth, held
-for the life of the graph, so that no block the graph uses is handed to
-other work. There is no path without the IF nodes: a capture that fails
-raises.
+Each nesting depth of conditional bodies is captured on a stream of its
+own, and what a body allocates comes from a private memory pool of that
+depth, held for the life of the graph, so that no block the graph uses is
+handed to other work. There is no path without the conditional nodes: a
+capture that fails raises.
 """
 
 from __future__ import annotations
@@ -41,10 +55,11 @@ import torch
 
 from skeres_tpu_torch.ops.build import load_library
 
-__all__ = ["CapturedStep", "build_library", "cond"]
+__all__ = ["CapturedStep", "build_library", "cond", "while_loop"]
 
-# nesting depth of IF bodies: the device loop's step, two rungs, the PCG
-# fallback and each of its steps
+# nesting depth of conditional bodies: the device loop's step, two rungs,
+# the PCG fallback and its WHILE body (DENSE_SCHUR); the step, the PCG's
+# WHILE body and the power series' inside the preconditioner (ITERATIVE_SCHUR)
 _MAX_DEPTH = 5
 
 _capturing: Optional["CapturedStep"] = None  # the capture under way
@@ -58,9 +73,14 @@ def build_library():
     lib, log = load_library("graph_cond")
     lib.skeres_if_node_begin.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                          ctypes.POINTER(ctypes.c_void_p)]
+    lib.skeres_while_node_begin.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                            ctypes.POINTER(ctypes.c_void_p),
+                                            ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.skeres_set_conditional.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p]
     lib.skeres_capture_to_graph.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.skeres_capture_end.argtypes = [ctypes.c_void_p]
-    for fn in (lib.skeres_if_node_begin, lib.skeres_capture_to_graph, lib.skeres_capture_end):
+    for fn in (lib.skeres_if_node_begin, lib.skeres_while_node_begin, lib.skeres_set_conditional,
+               lib.skeres_capture_to_graph, lib.skeres_capture_end):
         fn.restype = ctypes.c_int
     return lib, log
 
@@ -87,9 +107,9 @@ def cond(pred: torch.Tensor, true_fn: Callable[[], None],
             raise RuntimeError("cond() under a CUDA graph capture that CapturedStep did not start")
         pred = pred.reshape(()).to(torch.bool)
         not_pred = None if false_fn is None else ~pred
-        _capturing._if_node(pred, true_fn)
+        _capturing._cond_node(pred, true_fn)
         if false_fn is not None:
-            _capturing._if_node(not_pred, false_fn)
+            _capturing._cond_node(not_pred, false_fn)
         return None
     if bool(pred):
         true_fn()
@@ -97,6 +117,27 @@ def cond(pred: torch.Tensor, true_fn: Callable[[], None],
     if false_fn is not None:
         false_fn()
     return False
+
+
+def while_loop(cond_fn: Callable[[], torch.Tensor], body_fn: Callable[[], None]) -> None:
+    """Run ``body_fn()`` while the 0-d device bool ``cond_fn()`` holds:
+    eagerly a Python loop with one host read a turn, or one WHILE node of
+    the CUDA graph being captured (see the module docstring). In the
+    warm-up both functions run once."""
+    if _warm_all:
+        cond_fn()
+        body_fn()
+        return
+    pred = cond_fn()
+    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+        if _capturing is None:
+            raise RuntimeError(
+                "while_loop() under a CUDA graph capture that CapturedStep did not start")
+        _capturing._cond_node(pred.reshape(()).to(torch.bool), body_fn, loop_cond=cond_fn)
+        return
+    while bool(pred):
+        body_fn()
+        pred = cond_fn()
 
 
 @contextlib.contextmanager
@@ -175,19 +216,30 @@ class CapturedStep:
         torch.cuda.synchronize(dev)
         self.capture_seconds = time.time() - t0
 
-    def _if_node(self, pred: torch.Tensor, fn: Callable[[], None]) -> None:
-        """Capture ``fn`` as the body of an IF node on ``pred``, after the
-        work captured so far on the current stream."""
+    def _cond_node(self, pred: torch.Tensor, fn: Callable[[], None],
+                   loop_cond: Optional[Callable[[], torch.Tensor]] = None) -> None:
+        """Capture ``fn`` as the body of a conditional node on ``pred``,
+        after the work captured so far on the current stream: an IF node,
+        or with ``loop_cond`` a WHILE node whose body ends by setting the
+        node's handle from ``loop_cond()``."""
         lib, _ = build_library()
         d = self._depth
         if d >= _MAX_DEPTH:
-            raise RuntimeError(f"cond() nested deeper than {_MAX_DEPTH} under capture")
+            raise RuntimeError(
+                f"cond() and while_loop() nested deeper than {_MAX_DEPTH} under capture")
         parent = torch.cuda.current_stream(self.device)
         body = ctypes.c_void_p()
-        _check(lib.skeres_if_node_begin(parent.cuda_stream, pred.data_ptr(), ctypes.byref(body)),
-               "adding an IF node")
+        handle = ctypes.c_ulonglong()
+        if loop_cond is None:
+            _check(lib.skeres_if_node_begin(parent.cuda_stream, pred.data_ptr(),
+                                            ctypes.byref(body)), "adding an IF node")
+        else:
+            _check(lib.skeres_while_node_begin(parent.cuda_stream, pred.data_ptr(),
+                                               ctypes.byref(body), ctypes.byref(handle)),
+                   "adding a WHILE node")
         child = self._streams[d]
-        _check(lib.skeres_capture_to_graph(child.cuda_stream, body), "capturing an IF body")
+        _check(lib.skeres_capture_to_graph(child.cuda_stream, body),
+               "capturing a conditional body")
         self._depth += 1
         try:
             with torch.cuda.stream(child):
@@ -195,11 +247,16 @@ class CapturedStep:
                 self._pool_uses[d] += 1
                 try:
                     fn()
+                    if loop_cond is not None:
+                        again = loop_cond().reshape(()).to(torch.bool)
+                        _check(lib.skeres_set_conditional(child.cuda_stream, handle.value,
+                                                          again.data_ptr()),
+                               "setting a WHILE node's handle")
                 finally:
                     torch._C._cuda_endAllocateToPool(self.device.index, self._pools[d])
         finally:
             self._depth -= 1
-            _check(lib.skeres_capture_end(child.cuda_stream), "ending an IF body")
+            _check(lib.skeres_capture_end(child.cuda_stream), "ending a conditional body")
 
     def __call__(self) -> None:
         if self.graph is None:

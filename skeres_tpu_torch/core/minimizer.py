@@ -3,8 +3,8 @@
 PyTorch counterpart of the host loop of ``skeres_tpu/core/minimizer.py``
 (reference lineage: ``internal/ceres/trust_region_minimizer.cc``,
 ``levenberg_marquardt_strategy.cc``, ``trust_region_step_evaluator.cc``).
-Each iteration runs ``solve_step`` (damped DENSE_SCHUR solve + candidate)
-and ``try_step`` (residual-only evaluation); ``linearize`` (the full
+Each iteration runs ``solve_step`` (the damped solve of the chosen linear
+solver + candidate) and ``try_step`` (residual-only evaluation); ``linearize`` (the full
 Jacobian pass) runs only after accepted steps, and returns what the device
 loop (``core/device_loop.py``) copies into its carry. The device computes,
 and only scalars cross to the host: one fetch per linearization and per
@@ -17,23 +17,41 @@ them: the evaluation callback before each evaluation, the iteration
 callbacks and ``update_state_every_iteration`` after iteration 0 and each
 valid step, a checkpoint after each accepted one, and a resumed solve's
 radius and iteration count (``initial_radius_override``,
-``initial_iteration``). Dogleg, bounds, inner iterations and dumps are
+``initial_iteration``). The linear solvers branch as in the JAX minimizer
+(``_solver_data``, ``_solve_damped``, ``_scale_data``, ``_jtj_dx``): the
+Schur solvers scale and prepare their data once per linearization, the
+others scale at solve time. Dogleg, bounds, inner iterations and dumps are
 still to port.
 """
 
 from __future__ import annotations
 
 import inspect
+import logging
 import math
 import time
+from typing import Optional
 
 import torch
 
-from skeres_tpu_torch.core.evaluator import Evaluator
+from skeres_tpu_torch.core.evaluator import BatchBlocks, Evaluator
+from skeres_tpu_torch.core.linear_solvers import (
+    cho_solve,
+    cholesky_nan,
+    solve_cgnr,
+    solve_dense_normal_cholesky,
+    solve_dense_qr,
+)
 from skeres_tpu_torch.core.options import SolverOptions
 from skeres_tpu_torch.core.schur import SchurSolver
 from skeres_tpu_torch.core.summary import IterationSummary, Summary
-from skeres_tpu_torch.core.types import CallbackReturnType, LoggingType, TerminationType
+from skeres_tpu_torch.core.types import (
+    CallbackReturnType,
+    LinearSolverType,
+    LoggingType,
+    PreconditionerType,
+    TerminationType,
+)
 from skeres_tpu_torch.utils.checkpoint import save_checkpoint
 
 __all__ = ["TrustRegionMinimizer", "TrustRegionStepEvaluator", "synchronize"]
@@ -92,24 +110,191 @@ class TrustRegionStepEvaluator:
             )
 
 
+_SCHUR_TYPES = (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR)
+
+
 class TrustRegionMinimizer:
-    """LM host loop over the evaluator and the DENSE_SCHUR solver."""
+    """LM host loop over the evaluator and the linear solver ``solver_type``
+    (with ``schur_solver`` for the two Schur types)."""
 
     def __init__(
         self,
         evaluator: Evaluator,
         options: SolverOptions,
         summary: Summary,
-        schur_solver: SchurSolver,
+        solver_type: LinearSolverType,
+        schur_solver: Optional[SchurSolver] = None,
     ):
         self.ev = evaluator
         self.options = options
         self.summary = summary
+        self.solver_type = solver_type
         self.schur_solver = schur_solver
+        if (solver_type in _SCHUR_TYPES) != (schur_solver is not None):
+            raise ValueError(f"{solver_type.value} with schur_solver={schur_solver!r}")
         # set by solve() when resuming from a checkpoint
         self.initial_radius_override = None
         self.initial_iteration = 0
         self._cb_arity_cache = {}  # id(callback) -> takes the state too
+        self._subset_masks = self._build_subset_masks()
+
+    def _build_subset_masks(self):
+        """Per-batch row masks of the SUBSET preconditioner (reference:
+        ``subset_preconditioner.cc`` over
+        ``residual_blocks_for_subset_preconditioner``), planned on the
+        host. None when the preconditioner is not chosen or has to
+        downgrade (too many parameters for the dense factor, or no tagged
+        row resolves): CGNR then takes JACOBI, which is logged and written
+        to ``Summary.preconditioner_type_used``."""
+        o = self.options
+        if (
+            o.preconditioner_type != PreconditionerType.SUBSET
+            or self.solver_type != LinearSolverType.CGNR
+            or not o.residual_blocks_for_subset_preconditioner
+        ):
+            return None
+        log = logging.getLogger("skeres_tpu_torch")
+        if self.ev.num_tangent > o.subset_preconditioner_max_parameters:
+            log.warning(
+                "SUBSET preconditioner downgraded to JACOBI: %d effective parameters "
+                "exceed subset_preconditioner_max_parameters=%d (the dense subset "
+                "factor would not fit)",
+                self.ev.num_tangent, o.subset_preconditioner_max_parameters,
+            )
+            self.summary.preconditioner_type_used = PreconditionerType.JACOBI
+            return None
+        wanted = {getattr(rb, "_rid", rb) for rb in o.residual_blocks_for_subset_preconditioner}
+        masks, any_hit = [], False
+        for batch in self.ev.program.batches:
+            m = torch.zeros(batch.num_blocks, dtype=self.ev.dtype)
+            if batch.row_ids is not None:
+                m = torch.tensor([1.0 if rid in wanted else 0.0 for rid in batch.row_ids],
+                                 dtype=self.ev.dtype)
+                any_hit = any_hit or bool(m.any())
+            masks.append(m.to(self.ev.device))
+        if not any_hit:
+            log.warning("SUBSET preconditioner downgraded to JACOBI: none of the tagged "
+                        "residual blocks resolve to solver rows")
+            self.summary.preconditioner_type_used = PreconditionerType.JACOBI
+            return None
+        return masks
+
+    # -- the linear solvers (skeres_tpu/core/minimizer.py:254-412, :861-877) -----
+
+    def _solver_data(self, blocks):
+        """What the damped solve needs, once per linearization."""
+        st = self.solver_type
+        if st == LinearSolverType.DENSE_NORMAL_CHOLESKY:
+            return (self.ev.jtj_dense(blocks),)
+        if st == LinearSolverType.DENSE_QR:
+            return self.ev.jacobian_dense(blocks)
+        if st == LinearSolverType.CGNR:
+            # the corrected blocks stay resident; the product reads them
+            return tuple((b.r, b.jac, b.idx) for b in blocks)
+        if st in _SCHUR_TYPES:
+            return self.schur_solver.solver_data(blocks)
+        raise NotImplementedError(st)
+
+    def _scale_data(self, data, scale):
+        """Column scaling of the solver data, J -> J S."""
+        st = self.solver_type
+        if st == LinearSolverType.DENSE_NORMAL_CHOLESKY:
+            (jtj,) = data
+            return (jtj * scale[None, :] * scale[:, None],)
+        if st == LinearSolverType.DENSE_QR:
+            j_dense, r_dense = data
+            return (j_dense * scale[None, :], r_dense)
+        if st == LinearSolverType.CGNR:
+            return tuple(
+                (r, jac * self.ev.v_rows(bi, scale)[:, None, :], idx)
+                for bi, (r, jac, idx) in enumerate(data)
+            )
+        if st in _SCHUR_TYPES:
+            return self.schur_solver.scale_data(data, scale)
+        raise NotImplementedError(st)
+
+    def _prep_data(self, blocks, scale):
+        """The Schur solvers scale and prepare once per linearization, and
+        every re-solve after a rejected step reuses it; the others keep
+        their data unscaled and scale at solve time (cheap for them)."""
+        data = self._solver_data(blocks)
+        if self.schur_solver is not None:
+            return self.schur_solver.prepare(self._scale_data(data, scale))
+        return data
+
+    def _solve_damped(self, data, g, diag, radius, jitter):
+        """Solve (J^T J + clamp(diag) / radius) y = -g in the scaled space
+        (``data`` scaled already). Returns (y, iterations, jitter_used);
+        ``jitter`` is the Schur factor's ratchet, which the other solvers
+        pass through."""
+        o = self.options
+        st = self.solver_type
+        mu = 1.0 / radius
+        if st in _SCHUR_TYPES:
+            return self.schur_solver.solve_damped(
+                data, g, diag, mu, o.min_lm_diagonal, o.max_lm_diagonal, jitter)
+        if st == LinearSolverType.DENSE_NORMAL_CHOLESKY:
+            (jtj,) = data
+            y, it = solve_dense_normal_cholesky(
+                jtj, g, diag, mu, o.min_lm_diagonal, o.max_lm_diagonal,
+                refinement_iterations=(o.max_num_refinement_iterations
+                                       if o.use_mixed_precision_solves else 0),
+            )
+            return y, it, jitter
+        if st == LinearSolverType.DENSE_QR:
+            j_dense, r_dense = data
+            y, it = solve_dense_qr(j_dense, r_dense, diag, mu, o.min_lm_diagonal,
+                                   o.max_lm_diagonal)
+            return y, it, jitter
+        if st == LinearSolverType.CGNR:
+            blocks = [BatchBlocks(*b) for b in data]
+            make_precond = None
+            if self._subset_masks is not None:
+                # SUBSET (reference: subset_preconditioner.cc):
+                # M = J_sub^T J_sub + D over the tagged rows, factored densely
+                # once a damped solve; each PCG step is two triangular solves
+                def make_precond(d):
+                    masked = [BatchBlocks(r * m[:, None], jac * m[:, None, None], idx)
+                              for (r, jac, idx), m in zip(data, self._subset_masks)]
+                    l_sub = cholesky_nan(self.ev.jtj_dense(masked) + torch.diag(d))
+                    return lambda v: cho_solve(l_sub, v)
+
+            y, it = solve_cgnr(
+                lambda v: self.ev.jtj_matvec(blocks, v), g, diag, mu, o.min_lm_diagonal,
+                o.max_lm_diagonal, o.max_linear_solver_iterations, o.eta,
+                o.min_linear_solver_iterations, make_precond,
+            )
+            return y, it, jitter
+        raise NotImplementedError(st)
+
+    def _jtj_dx(self, data, dx):
+        """(J^T J) dx from unscaled solver data."""
+        st = self.solver_type
+        if st == LinearSolverType.DENSE_NORMAL_CHOLESKY:
+            (jtj,) = data
+            return jtj @ dx
+        if st == LinearSolverType.DENSE_QR:
+            j_dense, _ = data
+            return j_dense.T @ (j_dense @ dx)
+        if st == LinearSolverType.CGNR:
+            return self.ev.jtj_matvec([BatchBlocks(*b) for b in data], dx)
+        if st in _SCHUR_TYPES:
+            return self.schur_solver.jtj_matvec(data, dx)
+        raise NotImplementedError(st)
+
+    def _model_quadratic(self, data, dx, scale):
+        """dx^T (J^T J) dx, all of J^T J that the model cost needs. The
+        Schur solvers' prepared data is scaled: ||J_s (dx / scale)||^2 in one
+        pass over the rows."""
+        if self.schur_solver is not None:
+            return self.schur_solver.jtj_quadratic(data, dx / scale)
+        return torch.dot(dx, self._jtj_dx(data, dx))
+
+    def _jtj_scaled(self, data, u, scale):
+        """(J S)^T (J S) u in the scaled space."""
+        if self.schur_solver is not None:
+            return self.schur_solver.jtj_matvec(data, u)
+        return scale * self._jtj_dx(data, scale * u)
 
     # -- the three per-iteration programs ----------------------------------------
 
@@ -118,7 +303,7 @@ class TrustRegionMinimizer:
         data, scale, max|g|, ||g||). The Jacobi column scaling
         ``1 / (1 + sqrt(diag))`` is computed fresh unless ``scale_prev``
         pins it (refresh_jacobi_scaling=False)."""
-        ev, schur = self.ev, self.schur_solver
+        ev = self.ev
         cost, blocks = ev.blocks(state)
         g, diag = ev.gradient_and_diag(blocks)
         if not self.options.jacobi_scaling:
@@ -127,7 +312,7 @@ class TrustRegionMinimizer:
             scale = 1.0 / (1.0 + torch.sqrt(torch.clamp(diag, min=0.0)))
         else:
             scale = scale_prev
-        data = schur.prepare(schur.scale_data(schur.solver_data(blocks), scale))
+        data = self._prep_data(blocks, scale)
         return cost, g, diag, data, scale, torch.max(torch.abs(g)), torch.sqrt(torch.sum(g * g))
 
     def solve_step(self, state, data, g, diag, scale, radius, jitter):
@@ -135,14 +320,12 @@ class TrustRegionMinimizer:
         ``radius`` is a float or a device scalar, ``jitter`` a device
         scalar. Returns (new_state, model_cost_change, step_norm, linear
         solver iterations, jitter_used), all on the device."""
-        o = self.options
-        y, lin_iters, jitter_used = self.schur_solver.solve_damped(
-            data, g * scale, diag * scale * scale, 1.0 / radius,
-            o.min_lm_diagonal, o.max_lm_diagonal, jitter,
-        )
+        scaled = data if self.schur_solver is not None else self._scale_data(data, scale)
+        y, lin_iters, jitter_used = self._solve_damped(
+            scaled, g * scale, diag * scale * scale, radius, jitter)
         dx = y * scale
         new_state = self.ev.plus(state, dx)
-        dx_jtj_dx = self.schur_solver.jtj_quadratic(data, dx / scale)
+        dx_jtj_dx = self._model_quadratic(data, dx, scale)
         model_cost_change = -(torch.dot(g, dx) + 0.5 * dx_jtj_dx)
         step_norm = torch.sqrt(torch.sum(y * y))  # scaled-space norm
         return new_state, model_cost_change, step_norm, lin_iters, jitter_used

@@ -15,9 +15,11 @@ block's constants (a tensor, a tuple of tensors, or None). The evaluator
 maps it over a batch with ``torch.func.vmap`` and differentiates it in the
 tangent space with ``torch.func.vjp``/``jvp``.
 
-The port builds problems with the bulk ``add_residual_blocks`` path the
-bundle-adjustment slice uses; per-block residuals, constant blocks,
-bounds and numeric differentiation are still to port.
+Problems are built in bulk (``add_parameter_block_array``,
+``add_residual_blocks``: the bundle-adjustment path) or block by block
+(``add_parameter_block``, ``add_residual_block``, whose ids tag rows, e.g.
+for ``residual_blocks_for_subset_preconditioner``). Removing blocks,
+constant blocks, bounds and numeric differentiation are still to port.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ from skeres_tpu_torch.ops.loss import LossFunction
 
 __all__ = [
     "Problem",
+    "ParameterBlock",
     "ParameterBlockArray",
+    "ResidualBlockId",
     "Program",
     "CompiledBatch",
     "state_from_numpy",
@@ -84,6 +88,36 @@ class ParameterBlockArray:
         return self._group.num_blocks
 
 
+class ParameterBlock:
+    """Handle to one parameter block: a row of a group's value array."""
+
+    def __init__(self, problem: "Problem", group_index: int, row: int):
+        self._problem = problem
+        self.group_index = group_index
+        self.row = row
+
+    @property
+    def value(self) -> np.ndarray:
+        return self._problem._groups[self.group_index].values[self.row]
+
+    @property
+    def size(self) -> int:
+        return self._problem._groups[self.group_index].size
+
+
+class ResidualBlockId:
+    """Opaque handle returned by ``add_residual_block`` (reference:
+    ``Problem::ResidualBlockId``)."""
+
+    __slots__ = ("_rid",)
+
+    def __init__(self, rid: int):
+        self._rid = rid
+
+    def __repr__(self):
+        return f"ResidualBlockId({self._rid})"
+
+
 @dataclasses.dataclass
 class CompiledBatch:
     """One homogeneous residual batch, frozen for the evaluator."""
@@ -99,6 +133,9 @@ class CompiledBatch:
     block_tangent_size: int  # sum of tangent sizes
     tangent_index: np.ndarray  # (B, T) global tangent index per local coord
     name: str = ""
+    # per row the id handed out by add_residual_block (None for a bulk batch):
+    # maps user-tagged residual blocks to rows
+    row_ids: Optional[Tuple[int, ...]] = None
 
 
 @dataclasses.dataclass
@@ -149,8 +186,10 @@ class Problem:
 
     def __init__(self):
         self._groups: List[_Group] = []
-        self._batches: List[dict] = []
+        self._batches: List[dict] = []  # bulk batches and per-block ones, in order
+        self._block_batches: dict = {}  # (fn, loss, slot groups, name) -> per-block batch
         self._num_residual_blocks = 0
+        self._next_residual_id = 0
 
     def add_parameter_block_array(
         self, values, manifold=None, name: Optional[str] = None
@@ -174,10 +213,53 @@ class Problem:
         )
         return ParameterBlockArray(self, len(self._groups) - 1)
 
+    def add_parameter_block(self, values) -> ParameterBlock:
+        """Register a single parameter block. Blocks of one size coalesce
+        into one group, so that they batch together."""
+        values = np.asarray(values, dtype=np.float64).reshape(-1)
+        size = values.shape[0]
+        for gi, g in enumerate(self._groups):
+            if g.size == size and g.name.startswith("_scalar"):
+                g.values = np.concatenate([g.values, values[None]], axis=0)
+                return ParameterBlock(self, gi, g.num_blocks - 1)
+        self._groups.append(
+            _Group(name=f"_scalar{len(self._groups)}_s{size}", size=size,
+                   manifold=EuclideanManifold(size), values=values[None].copy())
+        )
+        return ParameterBlock(self, len(self._groups) - 1, 0)
+
     def set_schur_elimination_group(self, arr: ParameterBlockArray, group: int):
         """Declare Schur structure: 0 = eliminated (points), 1 = retained
         (cameras). Counterpart of ParameterBlockOrdering groups 0/1."""
         arr._group.schur_group = int(group)
+
+    def add_residual_block(
+        self,
+        fn: Callable,
+        loss: Optional[LossFunction],
+        params: Sequence[ParameterBlock],
+        data: Any = None,
+        name: str = "",
+    ) -> ResidualBlockId:
+        """Add one residual block. Blocks with the same (fn, loss, group
+        signature) batch together at compile time."""
+        slot_groups = tuple(p.group_index for p in params)
+        key = (id(fn), id(loss), slot_groups, name)
+        spec = self._block_batches.get(key)
+        if spec is None:
+            spec = dict(fn=fn, loss=loss, slot_groups=slot_groups,
+                        slot_indices=[[] for _ in params], data_rows=[], num_blocks=0,
+                        name=name or getattr(fn, "__name__", "residual"), row_ids=[])
+            self._block_batches[key] = spec
+            self._batches.append(spec)
+        for slot, p in enumerate(params):
+            spec["slot_indices"][slot].append(p.row)
+        spec["data_rows"].append(data)
+        spec["num_blocks"] += 1
+        spec["row_ids"].append(self._next_residual_id)
+        self._num_residual_blocks += 1
+        self._next_residual_id += 1
+        return ResidualBlockId(spec["row_ids"][-1])
 
     def add_residual_blocks(
         self,
@@ -203,7 +285,7 @@ class Problem:
         norm = [(p, None) if isinstance(p, ParameterBlockArray) else (p[0], p[1])
                 for p in params]
         sizes = {len(np.asarray(idx)) for _, idx in norm if idx is not None}
-        leaves = pytree.tree_leaves(data)
+        leaves = [] if data is None else pytree.tree_leaves(data)
         if leaves:
             sizes.add(int(np.asarray(leaves[0]).shape[0]))
         if num_blocks is not None:
@@ -223,7 +305,7 @@ class Problem:
                     else np.asarray(idx, dtype=np.int64)
                     for _, idx in norm
                 ],
-                data=pytree.tree_map(np.asarray, data),
+                data=None if data is None else pytree.tree_map(np.asarray, data),
                 num_blocks=B,
                 name=name or getattr(fn, "__name__", "residual"),
             )
@@ -234,7 +316,8 @@ class Problem:
         xs = tuple(
             torch.as_tensor(self._groups[gi].values[0]) for gi in spec["slot_groups"]
         )
-        example = pytree.tree_map(lambda a: torch.as_tensor(a[0]), spec["data"])
+        example = None if spec["data"] is None else pytree.tree_map(
+            lambda a: torch.as_tensor(a[0]), spec["data"])
         shape = tuple(spec["fn"](xs, example).shape)
         if len(shape) != 1:
             raise ValueError(
@@ -253,6 +336,14 @@ class Problem:
 
         batches: List[CompiledBatch] = []
         for spec in self._batches:
+            if "data_rows" in spec:  # added block by block: stack the rows
+                rows = spec["data_rows"]
+                spec = dict(
+                    spec,
+                    slot_indices=[np.asarray(ix, dtype=np.int64) for ix in spec["slot_indices"]],
+                    data=None if rows[0] is None else pytree.tree_map(
+                        lambda *r: np.stack([np.asarray(v) for v in r]), *rows),
+                )
             B = spec["num_blocks"]
             tangent_sizes = tuple(groups[gi].tangent_size for gi in spec["slot_groups"])
             t_block = sum(tangent_sizes)
@@ -276,6 +367,7 @@ class Problem:
                     block_tangent_size=t_block,
                     tangent_index=tangent_index,
                     name=spec["name"],
+                    row_ids=tuple(spec["row_ids"]) if "row_ids" in spec else None,
                 )
             )
 

@@ -1,28 +1,49 @@
-"""Schur-complement elimination for bundle-adjustment structure: DENSE_SCHUR.
+"""Schur-complement elimination for bundle-adjustment structure:
+DENSE_SCHUR and ITERATIVE_SCHUR.
 
-PyTorch counterpart of the DENSE_SCHUR paths of ``skeres_tpu/core/schur.py``
-(reference lineage: ``internal/ceres/schur_eliminator_impl.h``,
-``schur_complement_solver.cc``):
+PyTorch counterpart of ``skeres_tpu/core/schur.py`` (reference lineage:
+``internal/ceres/schur_eliminator_impl.h``, ``schur_complement_solver.cc``,
+``implicit_schur_complement.cc``, ``iterative_schur_complement_solver.cc``,
+``schur_jacobi_preconditioner.cc``, ``visibility_based_preconditioner.cc``,
+``power_series_expansion_preconditioner.cc``):
 
   - per-point ``C = E^T E + D_e`` by a segment reduction of the batched
     ``e x e`` outer products, inverted in closed form (3x3 cofactors);
-  - S over the retained (camera) coordinates,
+  - DENSE_SCHUR: S over the retained (camera) coordinates,
     ``S = blockdiag(F^T F) - sum_p W_p C_p^-1 W_p^T + D_f``, by one of two
     paths, in the JAX package's priority: from a dense per-point W while
     it stays under its 2 GiB gate (one ``torch.einsum``, a matrix
     product), else by the explicit pair-product plan
     (``core/explicit_schur.py``, K3) while S stays under
-    ``explicit_schur_limit_bytes``;
-  - S is equilibrated and factored by K1 up to 1024 rows and by K2, the
-    blocked factor over K1 panels, above (``ops/cholesky.py``), with the
-    jitter ladder and the capped PCG fallback of the JAX package;
+    ``explicit_schur_limit_bytes``. S is equilibrated and factored by K1
+    up to 1024 rows and by K2, the blocked factor over K1 panels, above
+    (``ops/cholesky.py``), with the jitter ladder and the capped PCG
+    fallback of the JAX package, and, with ``refinement_iterations``,
+    mixed-precision refinement that reuses the factor;
+  - ITERATIVE_SCHUR: PCG on S with the reference's Q-test, S applied
+    implicitly (``_s_matvec``: five row-level products and two reductions
+    over the observations) or, with ``use_explicit``, as the explicit
+    matrix; preconditioned by JACOBI / IDENTITY (diagonal scaling),
+    SCHUR_JACOBI (the camera blocks of S), POWER_SERIES_EXPANSION,
+    CLUSTER_JACOBI or CLUSTER_TRIDIAGONAL (the cluster-restricted
+    pair-product plan, K3 again). It is the only Schur path where S itself
+    passes ``explicit_schur_limit_bytes``;
   - back-substitution ``dx_e = C^-1 (b_e - W^T dx_f)`` batched per point.
 
-Structure is declared: the parameter group tagged with
-``set_schur_elimination_group(arr, 0)`` is eliminated, everything else is
-retained. Still to port: ITERATIVE_SCHUR and its preconditioners, the
-column-probe S (taken by the JAX package when neither path above is
-viable; the port raises there), and the camera-padded layout.
+Structure is declared (or found by ``core/ordering.py``): the parameter
+group with ``schur_group == 0`` is eliminated, everything else is
+retained. The port takes one retained group and one observation batch of
+one point and one camera a row, besides batches on the cameras alone
+(priors). Still to port: the column-probe S (taken by the JAX package when
+neither DENSE_SCHUR path is viable; the port raises there) and the
+camera-padded layout of the observation rows.
+
+``prepare()`` keeps the per-row ``A = F^T E`` blocks (540 MB at
+venice-1778 shape in float32) and the per-camera ``F^T F`` sums for every
+solver that reads the camera blocks of S (DENSE_SCHUR's explicit path,
+SCHUR_JACOBI, the cluster preconditioners): they do not depend on mu, so a
+rejected step's re-solve pays only the ``C^-1``-dependent half, and with a
+plan the rows are the point grid K3 reads anyway.
 """
 
 from __future__ import annotations
@@ -30,13 +51,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from skeres_tpu_torch.core.evaluator import Evaluator
+from skeres_tpu_torch.core.evaluator import BatchBlocks, Evaluator
 from skeres_tpu_torch.core.explicit_schur import ExplicitSchurPlan
-from skeres_tpu_torch.core.graph import cond
+from skeres_tpu_torch.core.graph import cond, while_loop
 from skeres_tpu_torch.core.linear_solvers import (
+    cholesky_nan,
     lm_diagonal,
     preconditioned_conjugate_gradients,
 )
+from skeres_tpu_torch.core.types import PreconditionerType
 from skeres_tpu_torch.ops.cholesky import (
     MAX_CHOLESKY_N,
     blocked_chol_solve,
@@ -53,17 +76,54 @@ DENSE_W_LIMIT_BYTES = 2 << 30  # the JAX package's gate (as float32 bytes)
 FALLBACK_CG_ITERATIONS = 32
 
 
+def _rows_apply(mat, v):
+    """Per-row product ``mat (B, m, t) @ v (B, t) -> (B, m)`` of the
+    observation rows (m = 2), as a multiply and a sum: ``torch.einsum``
+    lowers it to a batched product of 2 x t matrices, 5-18x slower on an
+    NVIDIA H100 80GB HBM3 (700 W) at 5M rows (``chip_smoke.py`` phase 18
+    times both)."""
+    return (mat * v[:, None, :]).sum(-1)
+
+
+def _rows_apply_t(mat, u):
+    """Per-row transposed product ``mat (B, m, t)^T @ u (B, m) -> (B, t)``."""
+    return (mat * u[:, :, None]).sum(1)
+
+
 class SchurSolver:
-    """Damped normal-equation solver eliminating the group-0 parameters."""
+    """Damped normal-equation solver eliminating the group-0 parameters:
+    DENSE_SCHUR, or with ``iterative`` ITERATIVE_SCHUR with
+    ``preconditioner``."""
 
     def __init__(
         self,
         evaluator: Evaluator,
+        iterative: bool = False,
+        preconditioner: PreconditionerType = PreconditionerType.SCHUR_JACOBI,
+        max_cg_iterations: int = 500,
+        eta: float = 1e-1,
+        refinement_iterations: int = 0,
+        max_power_series_terms: int = 5,
+        spse_tolerance: float = 0.1,
         pad_waste: float = 1.5,
+        use_explicit: bool = False,
         explicit_s_limit_bytes: int = 2 << 30,
         pair_cap: int = 32,
+        cluster_size: int = 64,
+        cluster_boost: float = 1e-3,
     ):
         self.ev = evaluator
+        self.iterative = iterative
+        self.preconditioner = preconditioner
+        self.max_cg_iterations = max_cg_iterations
+        self.eta = eta
+        self.refinement_iterations = refinement_iterations
+        self.max_power_series_terms = max_power_series_terms
+        self.spse_tolerance = spse_tolerance
+        # the cluster factors' regularization, relative to each cluster's
+        # largest diagonal entry: larger is more robust and a weaker
+        # preconditioner
+        self.cluster_boost = cluster_boost
         program = evaluator.program
         device = evaluator.device
 
@@ -91,9 +151,10 @@ class SchurSolver:
         ]
         if len(ret) != 1 or len(e_batches) != 1:
             raise NotImplementedError(
-                "DENSE_SCHUR is ported for one eliminated x retained batch "
-                "and one retained group (dense-W and explicit S); the "
-                "column-probe S (core/schur.py:_dense_s) is not ported yet"
+                "the Schur solvers are ported for one eliminated x retained "
+                "batch and one retained group; the column-probe S "
+                "(core/schur.py:_dense_s) and the products over several such "
+                "batches are not ported yet"
             )
         self.ret_group = ret[0]
         gf = program.groups[self.ret_group]
@@ -127,8 +188,8 @@ class SchurSolver:
         b = program.batches[bi]
         if len(b.slot_groups) != 2:
             raise NotImplementedError(
-                "DENSE_SCHUR is ported for two slots per observation row, "
-                "one point and one camera; the column-probe S "
+                "the Schur solvers are ported for two slots per observation "
+                "row, one point and one camera; the column-probe S "
                 "(core/schur.py:_dense_s) is not ported yet"
             )
         self.e_slot = b.slot_groups.index(self.elim_group)
@@ -137,44 +198,42 @@ class SchurSolver:
         cam_idx = np.asarray(b.slot_indices[self.f_slot], dtype=np.int64)
         pt_idx = np.asarray(b.slot_indices[self.e_slot], dtype=np.int64)
 
-        # dense-W path (first priority): viable while the dense per-point
-        # W = (n_pts, n_cams, f, e) stays under the JAX package's gate
+        # dense-W path (DENSE_SCHUR's first priority): viable while the dense
+        # per-point W = (n_pts, n_cams, f, e) stays under the JAX package's gate
         self.w_plan = None
         w_bytes = self.num_points * self.num_cams * self.f_size * self.e_size * 4
-        if w_bytes <= DENSE_W_LIMIT_BYTES:
+        if not iterative and w_bytes <= DENSE_W_LIMIT_BYTES:
             # each (point, camera) cell receives at most a few observations
             self.w_plan = build_reduce_plan(
                 pt_idx * self.num_cams + cam_idx, self.num_points * self.num_cams, device
             )
 
-        self.explicit_plan = None
-        self.explicit_reject_reason = None
-        if self.w_plan is not None:
-            return
-        # explicit-S plan (core/explicit_schur.py): where dense W does not
-        # fit, while S fits its own gate
-        s_bytes = self.num_f ** 2 * 4
-        if s_bytes > explicit_s_limit_bytes:
-            self.explicit_reject_reason = (
-                f"S too large: {s_bytes >> 20} MiB > explicit_schur_limit_bytes "
-                f"({explicit_s_limit_bytes >> 20} MiB)"
+        def make_plan(**kw):
+            return ExplicitSchurPlan(
+                cam_idx=cam_idx, pt_idx=pt_idx, num_cameras=self.num_cams,
+                num_points=self.num_points, f_size=self.f_size, e_size=self.e_size,
+                pad_waste=pad_waste, pair_cap=pair_cap, device=device, **kw,
             )
-        else:
-            try:
-                self.explicit_plan = ExplicitSchurPlan(
-                    cam_idx=cam_idx,
-                    pt_idx=pt_idx,
-                    num_cameras=self.num_cams,
-                    num_points=self.num_points,
-                    f_size=self.f_size,
-                    e_size=self.e_size,
-                    pad_waste=pad_waste,
-                    pair_cap=pair_cap,
-                    device=device,
+
+        # explicit-S plan (core/explicit_schur.py): for DENSE_SCHUR where dense
+        # W does not fit, for ITERATIVE_SCHUR where the caller asks for it;
+        # while S fits its own gate
+        self.explicit_plan = None
+        self.explicit_reject_reason = None  # why a wanted plan was rejected
+        if (not iterative and self.w_plan is None) or (iterative and use_explicit):
+            s_bytes = self.num_f ** 2 * 4
+            if s_bytes > explicit_s_limit_bytes:
+                self.explicit_reject_reason = (
+                    f"S too large: {s_bytes >> 20} MiB > explicit_schur_limit_bytes "
+                    f"({explicit_s_limit_bytes >> 20} MiB)"
                 )
-            except ValueError as exc:  # point-degree skew, pair fan-in
-                self.explicit_reject_reason = str(exc)
-        if self.explicit_plan is None:
+            else:
+                try:
+                    self.explicit_plan = make_plan()
+                except ValueError as exc:  # point-degree skew, pair fan-in
+                    self.explicit_reject_reason = str(exc)
+        self.use_explicit = use_explicit and self.explicit_plan is not None
+        if not iterative and self.w_plan is None and self.explicit_plan is None:
             raise NotImplementedError(
                 f"dense W would take {w_bytes >> 20} MiB (gate "
                 f"{DENSE_W_LIMIT_BYTES >> 20} MiB) and the explicit-S plan was "
@@ -182,10 +241,61 @@ class SchurSolver:
                 "(core/schur.py:_dense_s) that takes over there is not ported yet"
             )
 
+        # CLUSTER_JACOBI / CLUSTER_TRIDIAGONAL plan (reference:
+        # visibility_based_preconditioner.cc; the clusters here are
+        # contiguous ranges of camera indices, since capture order implies
+        # view locality in BAL data). It has no size cap: the cluster-
+        # restricted unique-pair table stays small however many cameras,
+        # which is the regime past the explicit-S gate.
+        self.cluster_plan = None
+        cluster_kinds = (PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL)
+        if iterative and preconditioner in cluster_kinds:
+            try:
+                self.cluster_plan = make_plan(
+                    cluster_of=np.arange(self.num_cams) // max(cluster_size, 1),
+                    cluster_band=preconditioner == PreconditionerType.CLUSTER_TRIDIAGONAL,
+                )
+            except ValueError:
+                self.cluster_plan = None
+            if self.cluster_plan is not None:
+                # camera -> its cluster slot, and slot -> camera (``nc`` for a
+                # padded slot, which reads an identity block or a zero row)
+                flat = self.cluster_plan.cluster_cam_of.reshape(-1)
+                pos_of_cam = np.zeros(self.num_cams, dtype=np.int64)
+                pos_of_cam[flat[flat >= 0]] = np.nonzero(flat >= 0)[0]
+                self._cluster_pos_of_cam = torch.as_tensor(pos_of_cam).to(device)
+                self._cluster_slot_cam = torch.as_tensor(
+                    np.where(flat >= 0, flat, self.num_cams)).to(device)
+
+        # the preconditioner the damped solves apply: a cluster
+        # preconditioner whose plan was rejected, and CLUSTER_TRIDIAGONAL on
+        # one cluster, downgrade to SCHUR_JACOBI as the reference's
+        # preprocessor does; SUBSET serves CGNR only and scales by the diagonal
+        self.preconditioner_used = preconditioner
+        if preconditioner in cluster_kinds and (
+            self.cluster_plan is None
+            or (preconditioner == PreconditionerType.CLUSTER_TRIDIAGONAL
+                and self.cluster_plan.n_clusters <= 1)
+        ):
+            self.preconditioner_used = PreconditionerType.SCHUR_JACOBI
+        elif preconditioner == PreconditionerType.SUBSET:
+            self.preconditioner_used = PreconditionerType.JACOBI
+        # which solves read the camera blocks of S, and so the A rows
+        self._keeps_a = not iterative or self.use_explicit or self.preconditioner_used in (
+            PreconditionerType.SCHUR_JACOBI, *cluster_kinds)
+        self._keeps_ftf = (self._keeps_a or self.preconditioner_used
+                           == PreconditionerType.POWER_SERIES_EXPANSION)
+
     @property
     def schur_path(self) -> str:
-        """The S-assembly path the damped solves take
-        (``Summary.schur_complement_path``)."""
+        """The S path the damped solves take, with the gate's reason where a
+        wanted explicit plan was rejected (``Summary.schur_complement_path``)."""
+        if self.iterative:
+            if self.use_explicit:
+                return "explicit"
+            if self.explicit_reject_reason is not None:
+                return f"implicit (gate: {self.explicit_reject_reason})"
+            return "implicit"
         return "dense-W" if self.w_plan is not None else "explicit"
 
     # -- solver data / scaling -------------------------------------------------
@@ -219,10 +329,11 @@ class SchurSolver:
 
     def prepare(self, data):
         """Everything that does not depend on mu, once per linearization:
-        the E split, the undamped per-point ``E^T E`` and, on the explicit
-        path, the A = F^T E rows, their point grid and the per-camera sums
-        of ``F^T F``. Rejected steps re-solve with a new mu from the same
-        prepared data."""
+        the E split, the undamped per-point ``E^T E`` and, off the dense-W
+        path, the per-camera sums of ``F^T F``, the A = F^T E rows where a
+        solve reads the camera blocks of S, and their point grid where a
+        plan (explicit or cluster: one layout) has K3 read them. Rejected
+        steps re-solve with a new mu from the same prepared data."""
         e = self.e_size
         ete0 = None
         per_batch = []
@@ -235,9 +346,11 @@ class SchurSolver:
                 ete0 = red if ete0 is None else ete0 + red
             per_batch.append((r, jac, E))
         prep = dict(per_batch=per_batch, ete0=ete0)
-        plan = self.explicit_plan
-        if self.schur_path == "explicit":
-            nc, f = self.num_cams, self.f_size
+        if self.w_plan is not None:
+            return prep
+        nc, f = self.num_cams, self.f_size
+        plan = self.explicit_plan or self.cluster_plan
+        if plan is not None:
             if plan.grid_is_reshape:
                 # uniform point-grouped rows: write the grid rows directly
                 grid = self._explicit_a_grid(per_batch, plan.kp, plan.np_ * plan.kp)
@@ -245,11 +358,15 @@ class SchurSolver:
             else:
                 a_rows = self._explicit_a_flat(per_batch)
                 grid = plan.build_grid(a_rows)["grid"]
-            Fs = per_batch[self.e_batch][1][:, :, self.f_col : self.f_col + f]
-            ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs).reshape(-1, f * f)
             prep["explicit_grid"] = {"grid": grid}
             prep["explicit_a"] = a_rows
-            prep["explicit_ftf"] = self.ev.slot_reduce(self.e_batch, self.f_slot, ftf).reshape(nc, f, f)
+        elif self._keeps_a:
+            prep["explicit_a"] = self._explicit_a_flat(per_batch)
+        if self._keeps_ftf:
+            Fs = per_batch[self.e_batch][1][:, :, self.f_col : self.f_col + f]
+            ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs).reshape(-1, f * f)
+            prep["explicit_ftf"] = self.ev.slot_reduce(
+                self.e_batch, self.f_slot, ftf).reshape(nc, f, f)
         return prep
 
     def _explicit_a_flat(self, per_batch):
@@ -297,8 +414,7 @@ class SchurSolver:
         bi = self.e_batch
         E = asm["per_batch"][bi][2]
         pidx = self.ev._batch_const[bi][1][self.e_slot]
-        Ev = torch.einsum("bme,be->bm", E, v_e[pidx])
-        val = torch.einsum("bmf,bm->bf", self._f_block(asm), Ev)
+        val = _rows_apply_t(self._f_block(asm), _rows_apply(E, v_e[pidx]))
         return self.ev.slot_reduce(bi, self.f_slot, val).reshape(-1)
 
     def _wt_apply(self, asm, v_f):
@@ -307,8 +423,8 @@ class SchurSolver:
         E = asm["per_batch"][bi][2]
         cidx = self.ev._batch_const[bi][1][self.f_slot]
         vs = v_f.reshape(self.num_cams, self.f_size)[cidx]
-        Fv = torch.einsum("bmf,bf->bm", self._f_block(asm), vs)
-        return self.ev.slot_reduce(bi, self.e_slot, torch.einsum("bme,bm->be", E, Fv))
+        Fv = _rows_apply(self._f_block(asm), vs)
+        return self.ev.slot_reduce(bi, self.e_slot, _rows_apply_t(E, Fv))
 
     def _schur_rhs(self, asm):
         """b_f - W C^-1 b_e with b = -g."""
@@ -364,20 +480,78 @@ class SchurSolver:
         self._add_other_batches(asm, s_mat)
         return s_mat
 
-    def _schur_jacobi_blocks(self, asm):
-        """The observation batch's camera blocks of S's block diagonal,
-        (nc, f, f), damping included: the per-camera ``F^T F`` sums of
-        ``prepare()`` minus the per-row ``Y A^T`` (``A = F^T E``,
-        ``Y = A C_p^-1``) summed by camera, the JAX package's generic branch
-        for this batch. Only ``Y A^T`` depends on mu."""
+    def _ret_slots(self, bi):
+        """(slot, first column, width) of batch ``bi``'s retained slots."""
+        batch = self.ev.program.batches[bi]
+        return [(s, *self.ev._slot_cols[bi][s]) for s, gi in enumerate(batch.slot_groups)
+                if gi != self.elim_group]
+
+    def _schur_jacobi_blocks(self, asm, include_e_correction=True, only_batch=None):
+        """The camera blocks of S's block diagonal, (nc, f, f), damping
+        included (the SCHUR_JACOBI preconditioner); with
+        ``include_e_correction=False`` the blocks of ``B = F^T F + D_f``
+        instead (POWER_SERIES_EXPANSION's base matrix). The observation
+        batch gives the per-camera ``F^T F`` sums of ``prepare()`` minus the
+        per-row ``Y A^T`` (``A = F^T E``, ``Y = A C_p^-1``) summed by
+        camera, of which only ``Y A^T`` depends on mu; every other batch on
+        the cameras (priors) adds its ``F^T F`` slot by slot unless
+        ``only_batch`` names the observation batch alone. Contributions
+        across two slots of one row are dropped, as in the reference's
+        preconditioner assembly."""
         nc, f, e = self.num_cams, self.f_size, self.e_size
         bi = self.e_batch
-        a = asm["explicit_a"].view(-1, f, e)
-        pidx = self.ev._batch_const[bi][1][self.e_slot]
-        y = torch.einsum("bfe,beg->bfg", a, asm["cinv"][pidx])
-        yat = torch.einsum("bfe,bge->bfg", y, a).reshape(-1, f * f)
-        corr = self.ev.slot_reduce(bi, self.f_slot, yat).reshape(nc, f, f)
-        return torch.diag_embed(asm["d_f"].reshape(nc, f)) + asm["explicit_ftf"] - corr
+        blocks = torch.diag_embed(asm["d_f"].reshape(nc, f)) + asm["explicit_ftf"]
+        if include_e_correction:
+            a = asm["explicit_a"].view(-1, f, e)
+            pidx = self.ev._batch_const[bi][1][self.e_slot]
+            y = torch.einsum("bfe,beg->bfg", a, asm["cinv"][pidx])
+            yat = torch.einsum("bfe,bge->bfg", y, a).reshape(-1, f * f)
+            blocks = blocks - self.ev.slot_reduce(bi, self.f_slot, yat).reshape(nc, f, f)
+        if only_batch is None:
+            for bj, (rb, jacb, Eb) in enumerate(asm["per_batch"]):
+                if bj == bi:
+                    continue
+                for slot, c, t in self._ret_slots(bj):
+                    Fs = jacb[:, :, c : c + t]
+                    ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs).reshape(-1, t * t)
+                    blocks = blocks + self.ev.slot_reduce(bj, slot, ftf).reshape(nc, f, f)
+        return blocks
+
+    def _ftf_diag(self, asm):
+        """diag(F^T F) over the retained coordinates, every batch."""
+        out = torch.zeros_like(asm["d_f"])
+        for bi, (r, jac, E) in enumerate(asm["per_batch"]):
+            for slot, c, t in self._ret_slots(bi):
+                Fs = jac[:, :, c : c + t]
+                out = out + self.ev.slot_reduce(bi, slot, torch.sum(Fs * Fs, dim=1)).reshape(-1)
+        return out
+
+    def _s_matvec(self, asm, v):
+        """The implicit Schur-complement product
+        ``S v = (F^T F + D_f) v - W C^-1 W^T v`` over every batch: per row
+        ``F^T (F v - E wc)`` with ``wc = C^-1 W^T v`` gathered by point,
+        summed by camera (reference: ``implicit_schur_complement.cc``
+        RightMultiplyAndAccumulate)."""
+        nc, f = self.num_cams, self.f_size
+        wc = torch.einsum("pef,pf->pe", asm["cinv"], self._wt_apply(asm, v))
+        vb = v.reshape(nc, f)
+        out = asm["d_f"] * v
+        for bi, (r, jac, E) in enumerate(asm["per_batch"]):
+            slots = self._ret_slots(bi)
+            if not slots:
+                continue
+            idx = self.ev._batch_const[bi][1]
+            Fv = None
+            for slot, c, t in slots:
+                part = _rows_apply(jac[:, :, c : c + t], vb[idx[slot]])
+                Fv = part if Fv is None else Fv + part
+            if E is not None:
+                s_e = self.ev.program.batches[bi].slot_groups.index(self.elim_group)
+                Fv = Fv - _rows_apply(E, wc[idx[s_e]])
+            for slot, c, t in slots:
+                val = _rows_apply_t(jac[:, :, c : c + t], Fv)
+                out = out + self.ev.slot_reduce(bi, slot, val).reshape(-1)
+        return out
 
     def _dense_s_explicit(self, asm):
         """S by the explicit pair-product plan (core/explicit_schur.py):
@@ -398,7 +572,7 @@ class SchurSolver:
         )
         # symmetrize the diagonal blocks' one-ulp asymmetry here (nc*f*f)
         # so the dense matrix needs no full transpose pass
-        diag_blocks = self._schur_jacobi_blocks(asm)
+        diag_blocks = self._schur_jacobi_blocks(asm, only_batch=self.e_batch)
         diag_blocks = 0.5 * (diag_blocks + diag_blocks.transpose(1, 2))
         nc, f = plan.nc, plan.f
         s_mat = plan.dense_s_full(uniq, -diag_blocks.reshape(nc, f * f)).neg_()
@@ -418,19 +592,30 @@ class SchurSolver:
         """Solve (S + delta I) x = rhs, ``delta`` a device scalar read by no
         host: K1's L^-1 up to 1024 rows (of a copy of S with delta on its
         diagonal), K2's blocked factor above (delta added to the copy it
-        factors in). S itself is left as it was."""
+        factors in). S itself is left as it was. Returns ``(x, solve)``,
+        ``solve`` applying the same factor to another right-hand side, so
+        that the refinement reuses K1's L^-1 or K2's panels."""
         if s.shape[0] <= MAX_CHOLESKY_N:
             jittered = s.clone()
             jittered.diagonal().add_(delta)
-            return chol_solve(cholesky_inverse_factor(jittered), rhs)
-        return blocked_chol_solve(blocked_cholesky_factor(s, jitter=delta), rhs)
+            linv = cholesky_inverse_factor(jittered)
+            solve = lambda b: chol_solve(linv, b)  # noqa: E731
+        else:
+            fac = blocked_cholesky_factor(s, jitter=delta)
+            solve = lambda b: blocked_chol_solve(fac, b)  # noqa: E731
+        return solve(rhs), solve
 
-    def _block_jacobi(self, s):
-        """v -> blockdiag(S)^-1 v, the camera blocks read off dense S."""
+    def _block_inverse_apply(self, blocks):
+        """v -> blockdiag(blocks)^-1 v over the retained coordinates."""
+        nc, f = self.num_cams, self.f_size
+        binv = batched_spd_inverse(blocks)
+        return lambda v: torch.einsum("bef,bf->be", binv, v.reshape(nc, f)).reshape(-1)
+
+    def _diag_blocks_of(self, s):
+        """The (nc, f, f) camera blocks on the diagonal of dense S."""
         nc, f = self.num_cams, self.f_size
         cams = torch.arange(nc, device=s.device)
-        binv = batched_spd_inverse(s.view(nc, f, nc, f)[cams, :, cams, :])
-        return lambda v: torch.einsum("bef,bf->be", binv, v.reshape(nc, f)).reshape(-1)
+        return s.view(nc, f, nc, f)[cams, :, cams, :]
 
     # -- public interface used by the minimizer ------------------------------------
 
@@ -439,14 +624,30 @@ class SchurSolver:
         jitter_used), the last two as device scalars (int64, g's dtype).
 
         ``jitter0`` is the caller's ratchet: the jitter that made the last
-        factorization succeed, where this solve's ladder starts. ``mu`` and
-        ``jitter0`` may be device scalars: nothing here reads a value on the
-        host except through :func:`cond`, so a CUDA graph can capture it."""
+        factorization succeed, where DENSE_SCHUR's ladder starts (the
+        iterative solver passes it through). ``mu`` and ``jitter0`` may be
+        device scalars: nothing here reads a value on the host except
+        through :func:`cond` and :func:`while_loop`, so a CUDA graph can
+        capture it."""
         jitter0 = torch.as_tensor(jitter0, dtype=g.dtype, device=g.device)
         d = lm_diagonal(diag, mu, min_diagonal, max_diagonal)
         asm = self._assemble(data, g, d)
         rhs = self._schur_rhs(asm)
+        if self.iterative:
+            dx_f, iters = self._solve_iterative(asm, rhs)
+            jitter_used = jitter0.clone()
+        else:
+            dx_f, iters, jitter_used = self._solve_dense(asm, rhs, jitter0)
 
+        dx_e = self._back_substitute(asm, dx_f)
+        dx = torch.empty_like(g)
+        dx[self.ret_offset : self.ret_offset + self.num_f] = dx_f
+        dx[self.elim_offset : self.elim_offset + self.elim_span] = dx_e.reshape(-1)
+        return dx, iters, jitter_used
+
+    def _solve_dense(self, asm, rhs, jitter0):
+        """DENSE_SCHUR: factor the equilibrated S; (dx_f, iterations,
+        jitter_used)."""
         s = self._dense_s(asm)
         # symmetric equilibration: factor D^-1/2 S D^-1/2 (pivots ~1); in
         # float32 it moves the point where assembly noise makes S
@@ -454,7 +655,13 @@ class SchurSolver:
         d_eq = torch.sqrt(torch.clamp(torch.diagonal(s), min=torch.finfo(s.dtype).tiny))
         s.div_(d_eq[:, None]).div_(d_eq[None, :])  # S is this solve's own
         rhs_eq = rhs / d_eq
-        dx_f = self._factor_solve(s, rhs_eq, jitter0)
+        dx_f, solve = self._factor_solve(s, rhs_eq, jitter0)
+        # mixed-precision refinement on the reduced camera system
+        # (reference: use_mixed_precision_solves): residuals in float64,
+        # corrections through the factor already made
+        for _ in range(self.refinement_iterations):
+            r64 = rhs_eq.double() - s.double() @ dx_f.double()
+            dx_f = dx_f + solve(r64.to(s.dtype))
 
         # Jitter ladder (see skeres_tpu/core/schur.py:1488-1585): a failed
         # factor (NaN, the only signal K1 gives) is retried on S + delta*I
@@ -466,13 +673,13 @@ class SchurSolver:
         # holds costs one host read eagerly and none in a CUDA graph.
         delta = torch.clamp(torch.clamp(jitter0 * 100.0, min=1e-3), max=0.1)
         jitter_used = jitter0.clone()
-        iters = torch.ones((), dtype=torch.int64, device=g.device)
+        iters = torch.ones((), dtype=torch.int64, device=rhs.device)
 
         def failed():
             return ~torch.isfinite(dx_f).all()
 
         def rung():
-            dx_f.copy_(self._factor_solve(s, rhs_eq, delta))
+            dx_f.copy_(self._factor_solve(s, rhs_eq, delta)[0])
             jitter_used.copy_(delta)
             delta.copy_(torch.clamp(delta * 100.0, max=0.1))
             iters.add_(1)
@@ -487,19 +694,208 @@ class SchurSolver:
 
         def fallback():
             x, _ = preconditioned_conjugate_gradients(
-                lambda v: s @ v, rhs_eq, self._block_jacobi(s), FALLBACK_CG_ITERATIONS, 1e-8
+                lambda v: s @ v, rhs_eq, self._block_inverse_apply(self._diag_blocks_of(s)),
+                FALLBACK_CG_ITERATIONS, 1e-8,
             )
             dx_f.copy_(x)
             iters.fill_(FALLBACK_CG_ITERATIONS)
 
         cond(failed(), first_rung)
-        dx_f = dx_f / d_eq
+        return dx_f / d_eq, iters, jitter_used
 
-        dx_e = self._back_substitute(asm, dx_f)
-        dx = torch.empty_like(g)
-        dx[self.ret_offset : self.ret_offset + self.num_f] = dx_f
-        dx[self.elim_offset : self.elim_offset + self.elim_span] = dx_e.reshape(-1)
-        return dx, iters, jitter_used
+    def _solve_iterative(self, asm, rhs):
+        """ITERATIVE_SCHUR: PCG on S, implicit or explicit, with the chosen
+        preconditioner (``skeres_tpu/core/schur.py:1586-1693``); (dx_f,
+        iterations)."""
+        P = PreconditionerType
+        kind = self.preconditioner_used
+        if self.use_explicit:
+            # reference: use_explicit_schur_complement: S once a solve, and
+            # every PCG step one dense matrix-vector product
+            s_explicit = self._dense_s_explicit(asm)
+            s_matvec = lambda v: s_explicit @ v  # noqa: E731
+        else:
+            s_matvec = lambda v: self._s_matvec(asm, v)  # noqa: E731
+
+        if self.use_explicit and kind == P.SCHUR_JACOBI:
+            # the block diagonal read off the explicit S
+            precond = self._block_inverse_apply(self._diag_blocks_of(s_explicit))
+        elif kind == P.CLUSTER_JACOBI:
+            precond = self._cluster_jacobi_precond(asm)
+        elif kind == P.CLUSTER_TRIDIAGONAL:
+            precond = self._cluster_tridiag_precond(asm)
+        elif kind == P.SCHUR_JACOBI:
+            precond = self._block_inverse_apply(self._schur_jacobi_blocks(asm))
+        elif kind == P.POWER_SERIES_EXPANSION:
+            precond = self._power_series_precond(asm, s_matvec)
+        else:  # JACOBI and IDENTITY: diagonal scaling
+            d_f = torch.clamp(asm["d_f"] + self._ftf_diag(asm), min=torch.finfo(rhs.dtype).tiny)
+            precond = lambda v: v / d_f  # noqa: E731
+
+        # reference parity (iterative_schur_complement_solver.cc): the Q
+        # test with q_tolerance = eta; the residual test is off
+        return preconditioned_conjugate_gradients(
+            s_matvec, rhs, precond, self.max_cg_iterations, 0.0, q_tolerance=self.eta
+        )
+
+    def _power_series_precond(self, asm, s_matvec):
+        """POWER_SERIES_EXPANSION (reference:
+        ``power_series_expansion_preconditioner.cc``): with
+        ``B = blockdiag(F^T F) + D_f``,
+        ``S^-1 ~= sum_k (B^-1 W C^-1 W^T)^k B^-1``, and each term uses
+        ``W C^-1 W^T y = B y - S y``: one S product a term. The series
+        stops once its latest term is small against the sum
+        (``spse_tolerance``), at most ``max_power_series_terms`` terms."""
+        binv_apply = self._block_inverse_apply(
+            self._schur_jacobi_blocks(asm, include_e_correction=False))
+        n_terms = self.max_power_series_terms
+        tol2 = self.spse_tolerance ** 2
+
+        def precond(v):
+            y = binv_apply(v).clone()
+            acc = y.clone()
+            k = torch.zeros((), dtype=torch.int64, device=v.device)
+
+            def more():
+                return (k < n_terms) & (torch.dot(y, y) > tol2 * torch.dot(acc, acc))
+
+            def term():
+                y.sub_(binv_apply(s_matvec(y)))
+                acc.add_(y)
+                k.add_(1)
+
+            while_loop(more, term)
+            return acc
+
+        return precond
+
+    # -- the cluster preconditioners ------------------------------------------------
+
+    def _cluster_mats(self, asm):
+        """The (ncl, cs*f, cs*f) block-diagonal-of-S cluster matrices (the
+        pair correction by K3 over the cluster plan, the per-camera
+        diagonal blocks, the damping), the unique-pair table (the
+        TRIDIAGONAL band reads it too) and each cluster's largest diagonal
+        entry (ncl, 1), the scale of the factor's boost."""
+        plan = self.cluster_plan
+        f = plan.f
+        ncl, cs = plan.n_clusters, plan.cluster_slot_size
+        uniq = plan.correction_offdiag(
+            asm["explicit_grid"], asm["cinv"].reshape(-1, self.e_size ** 2))
+        mats = -plan.cluster_offdiag(uniq)
+        # the per-camera blocks F^T F - sum_r Y_r A_r^T + D_f into the
+        # cluster slots; a padded slot takes the identity, so the factor
+        # stays positive definite
+        db = self._schur_jacobi_blocks(asm)
+        db = torch.cat([db, torch.eye(f, dtype=db.dtype, device=db.device)[None]])
+        slots = torch.arange(cs, device=db.device)
+        m5 = mats.view(ncl, cs, f, cs, f)
+        m5[:, slots, :, slots, :] += db[self._cluster_slot_cam].view(ncl, cs, f, f).transpose(0, 1)
+        dmax = torch.clamp(
+            torch.diagonal(mats, dim1=1, dim2=2).amax(dim=1, keepdim=True),
+            min=torch.finfo(mats.dtype).tiny,
+        )
+        return mats, uniq, dmax
+
+    def _robust_linv(self, mats, dmax):
+        """L^-1 of each matrix of the batch (..., n, n) by the adaptive
+        boost ladder {0, cluster_boost, 1e-1}, each boost relative to
+        ``dmax`` (..., 1), the cluster's largest diagonal entry. Rung 0
+        factors the true matrices; a rung is accepted for a matrix by the
+        factorization residual ``||L L^T - M|| <= 1e-3 ||M||``: a factor in
+        low precision of a nearly singular matrix can come out finite and
+        wrong, which a finiteness test misses and the residual cannot.
+        Where nothing passed, the most regularized factor stays: a
+        preconditioner only has to be roughly right."""
+        boost0 = max(self.cluster_boost, 1e-5)
+        tol = 1e-3
+        eye = torch.eye(mats.shape[-1], dtype=mats.dtype, device=mats.device)
+
+        def factor_ok(chol, m):
+            finite = torch.isfinite(chol).all(dim=(-2, -1))
+            rn = torch.sqrt(torch.sum((chol @ chol.transpose(-1, -2) - m) ** 2, dim=(-2, -1)))
+            mn = torch.sqrt(torch.sum(m * m, dim=(-2, -1)))
+            return finite & (rn <= tol * mn + torch.finfo(m.dtype).tiny)
+
+        chol = cholesky_nan(mats)
+        ok = factor_ok(chol, mats)
+        for eps_rel in (boost0, 1e-1):
+            m_b = mats + (eps_rel * dmax)[..., None] * eye
+            chol_b = cholesky_nan(m_b)
+            ok_b = factor_ok(chol_b, m_b)
+            chol = torch.where((~ok & ok_b)[..., None, None], chol_b, chol)
+            ok = ok | ok_b
+        chol = torch.where(ok[..., None, None], chol, chol_b)
+        chol = torch.where(torch.isfinite(chol), chol, 0.0)
+        return torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
+
+    def _to_cluster_slots(self, v):
+        """Camera blocks of a retained vector -> (ncl, cs*f) cluster rows
+        (zero in padded slots)."""
+        plan = self.cluster_plan
+        vb = torch.cat([v.reshape(-1, plan.f), v.new_zeros((1, plan.f))])
+        return vb[self._cluster_slot_cam].reshape(plan.n_clusters, -1)
+
+    def _from_cluster_slots(self, x):
+        return x.reshape(-1, self.cluster_plan.f)[self._cluster_pos_of_cam].reshape(-1)
+
+    def _cluster_jacobi_precond(self, asm):
+        """CLUSTER_JACOBI: the block diagonal of S by camera cluster,
+        factored once a damped solve (a batched Cholesky and one batched
+        triangular solve against the identity); each PCG step applies
+        ``L^-T L^-1`` as two batched matrix-vector products."""
+        mats, _, dmax = self._cluster_mats(asm)
+        linv = self._robust_linv(mats, dmax)
+
+        def precond(v):
+            y = torch.einsum("bij,bj->bi", linv, self._to_cluster_slots(v))
+            return self._from_cluster_slots(torch.einsum("bji,bj->bi", linv, y))
+
+        return precond
+
+    def _cluster_tridiag_precond(self, asm):
+        """CLUSTER_TRIDIAGONAL (reference:
+        ``visibility_based_preconditioner.cc``): the CLUSTER_JACOBI
+        diagonal plus the band coupling adjacent clusters, factored by
+        block LDL^T along the cluster chain once a damped solve; each PCG
+        step is a forward and a backward sweep of matrix-vector products.
+        The clusters are contiguous ranges of camera indices (the
+        reference couples clusters along a spanning forest of the
+        visibility graph)."""
+        plan = self.cluster_plan
+        ncl = plan.n_clusters
+        mats, uniq, dmax = self._cluster_mats(asm)
+        # band[c] couples cluster c (rows) to c + 1 (columns); the correction
+        # enters S negated, as in the diagonal's matrices
+        band = -plan.cluster_band_offdiag(uniq)
+
+        def safe_inv(m, dmax_c):
+            linv = self._robust_linv(m, dmax_c)
+            return linv.T @ linv
+
+        # dhat_0 = D_0; L_c = B_{c-1}^T dhat_{c-1}^-1; dhat_c = D_c - L_c B_{c-1}
+        dh_inv = safe_inv(mats[0], dmax[0])
+        dhatinv, l_blocks = [dh_inv], []
+        for c in range(1, ncl):
+            l_c = band[c - 1].T @ dh_inv
+            dh = mats[c] - l_c @ band[c - 1]
+            dh_inv = safe_inv(0.5 * (dh + dh.T), dmax[c])
+            dhatinv.append(dh_inv)
+            l_blocks.append(l_c)
+        dhatinv = torch.stack(dhatinv)
+
+        def precond(v):
+            vb = self._to_cluster_slots(v)
+            z = [vb[0]]  # forward: L z = r
+            for c in range(1, ncl):
+                z.append(vb[c] - l_blocks[c - 1] @ z[-1])
+            w = torch.einsum("bij,bj->bi", dhatinv, torch.stack(z))
+            x = [w[-1]]  # backward: L^T x = w
+            for c in range(ncl - 2, -1, -1):
+                x.append(w[c] - l_blocks[c].T @ x[-1])
+            return self._from_cluster_slots(torch.stack(x[::-1]))
+
+        return precond
 
     def jtj_quadratic(self, data, v):
         """v^T (J^T J) v = ||J v||^2 in one forward pass over the rows."""
@@ -513,3 +909,16 @@ class SchurSolver:
             jv = torch.einsum("bmi,bi->bm", jac, self.ev.v_rows(bi, v))
             total = total + torch.sum(jv * jv)
         return total
+
+    def jtj_matvec(self, data, v):
+        """Full-space (J^T J) v from the resident blocks; ``data`` is a
+        ``prepare()`` dict or raw solver data."""
+        pairs = (
+            [(r, jac) for (r, jac, _) in data["per_batch"]]
+            if isinstance(data, dict)
+            else data
+        )
+        return self.ev.jtj_matvec(
+            [BatchBlocks(r, jac, self.ev._batch_const[bi][2]) for bi, (r, jac) in enumerate(pairs)],
+            v,
+        )

@@ -9,14 +9,20 @@ of ``core/device_loop.py`` with ``use_device_loop``), write the solution
 back. A checkpoint (``resume_from``) replaces the initial values, radius
 and iteration count.
 
-The port runs the Levenberg-Marquardt trust region with DENSE_SCHUR (the
-bundle-adjustment path). Every option it does not run yet raises
+The port runs the Levenberg-Marquardt trust region with every linear
+solver of the JAX package: DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR (JACOBI
+or SUBSET), DENSE_SCHUR and ITERATIVE_SCHUR (JACOBI, SCHUR_JACOBI,
+POWER_SERIES_EXPANSION, CLUSTER_JACOBI, CLUSTER_TRIDIAGONAL; the implicit
+or the explicit S), chosen as the reference's preprocessor chooses
+(``_select_linear_solver``); the downgrades it makes are logged and
+written to the Summary. Every option it does not run yet raises
 ``NotImplementedError`` naming what is missing; none falls back to
 something else.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Optional
@@ -27,10 +33,11 @@ from skeres_tpu_torch.core.device_loop import DeviceLoopMinimizer
 from skeres_tpu_torch.core.evaluator import Evaluator
 from skeres_tpu_torch.core.minimizer import TrustRegionMinimizer, synchronize
 from skeres_tpu_torch.core.options import SolverOptions
+from skeres_tpu_torch.core.ordering import apply_schur_ordering
 from skeres_tpu_torch.core.problem import Problem, Program
 from skeres_tpu_torch.core.schur import SchurSolver
 from skeres_tpu_torch.core.summary import Summary
-from skeres_tpu_torch.core.types import LinearSolverType, TerminationType
+from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType, TerminationType
 from skeres_tpu_torch.utils.checkpoint import load_checkpoint
 
 __all__ = ["TRACE_FILE", "solve"]
@@ -46,9 +53,7 @@ _DEFAULTS = SolverOptions()
 _UNPORTED = {
     "minimizer_type": "the line-search minimizer (core/line_search.py)",
     "trust_region_strategy_type": "the dogleg strategy",
-    "use_explicit_schur_complement": "the explicit Schur complement (core/explicit_schur.py)",
     "mesh": "multi-device sharding (parallel/mesh.py)",
-    "use_mixed_precision_solves": "mixed-precision refinement",
     "use_inner_iterations": "inner iterations (core/inner_iterations.py)",
     "check_gradients": "the gradient checker (core/gradient_checker.py)",
     "trust_region_minimizer_iterations_to_dump": "trust-region problem dumps",
@@ -62,22 +67,22 @@ def _check_ported(options: SolverOptions) -> None:
 
 
 def _select_linear_solver(options: SolverOptions, program: Program) -> LinearSolverType:
-    """The reference preprocessor's solver choice, as far as it is ported:
-    SPARSE_SCHUR routes to DENSE_SCHUR (no general sparse factorization),
-    and DENSE_SCHUR needs a declared elimination group."""
+    """The reference preprocessor's solver choice. SPARSE_NORMAL_CHOLESKY
+    and SPARSE_SCHUR have no general sparse factorization here and route to
+    CGNR and DENSE_SCHUR. A Schur solver without a declared elimination
+    group finds one (``core/ordering.py``, the reference's automatic Schur
+    ordering) and, where there is none, becomes DENSE_NORMAL_CHOLESKY;
+    SPARSE_SCHUR too, which the JAX package routes before it looks for a
+    group, and so fails on an undeclared one."""
     given = options.linear_solver_type
+    if given == LinearSolverType.SPARSE_NORMAL_CHOLESKY:
+        return LinearSolverType.CGNR
     if given == LinearSolverType.SPARSE_SCHUR:
         given = LinearSolverType.DENSE_SCHUR
-    if given != LinearSolverType.DENSE_SCHUR:
-        raise NotImplementedError(
-            f"linear solver {given.value}: only DENSE_SCHUR is ported yet"
-        )
-    if not any(g.schur_group == 0 for g in program.groups):
-        raise NotImplementedError(
-            "DENSE_SCHUR without a declared elimination group needs the "
-            "automatic Schur ordering (core/ordering.py), which is not ported "
-            "yet; declare one with set_schur_elimination_group(points, 0)"
-        )
+    if given in (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR):
+        if not any(g.schur_group == 0 for g in program.groups):
+            if apply_schur_ordering(program) is None:
+                return LinearSolverType.DENSE_NORMAL_CHOLESKY
     return given
 
 
@@ -135,7 +140,8 @@ def solve(
         summary.initial_cost = summary.final_cost = cost
         return summary
 
-    summary.linear_solver_type_used = _select_linear_solver(options, program)
+    solver_type = _select_linear_solver(options, program)
+    summary.linear_solver_type_used = solver_type
     evaluator = Evaluator(
         program,
         device=device,
@@ -143,20 +149,48 @@ def solve(
         chunk_size=options.evaluation_chunk_size,
         diff_mode=options.jacobian_diff_mode,
     )
-    schur_solver = SchurSolver(
-        evaluator,
-        pad_waste=options.jacobian_pad_waste,
-        explicit_s_limit_bytes=options.explicit_schur_limit_bytes,
-        pair_cap=options.schur_pair_cap,
-    )
-    summary.schur_complement_path = schur_solver.schur_path
-    if options.use_device_loop:
-        minimizer = DeviceLoopMinimizer(
-            evaluator, options, summary, schur_solver,
-            chunk_iterations=min(options.device_loop_chunk_iterations, options.max_num_iterations),
+    schur_solver = None
+    if solver_type in (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR):
+        log = logging.getLogger("skeres_tpu_torch")
+        schur_solver = SchurSolver(
+            evaluator,
+            iterative=solver_type == LinearSolverType.ITERATIVE_SCHUR,
+            preconditioner=options.preconditioner_type,
+            max_cg_iterations=options.max_linear_solver_iterations,
+            eta=options.eta,
+            refinement_iterations=(options.max_num_refinement_iterations
+                                   if options.use_mixed_precision_solves else 0),
+            max_power_series_terms=options.max_num_spse_iterations,
+            spse_tolerance=options.spse_tolerance,
+            pad_waste=options.jacobian_pad_waste,
+            use_explicit=options.use_explicit_schur_complement,
+            explicit_s_limit_bytes=options.explicit_schur_limit_bytes,
+            pair_cap=options.schur_pair_cap,
+            cluster_size=options.cluster_jacobi_size,
+            cluster_boost=options.cluster_jacobi_boost,
         )
-    else:
-        minimizer = TrustRegionMinimizer(evaluator, options, summary, schur_solver)
+        used = schur_solver.preconditioner_used
+        if options.preconditioner_type == PreconditionerType.SUBSET:
+            # reference semantics: SUBSET serves CGNR only
+            log.warning("SUBSET preconditioner is CGNR-only (reference: "
+                        "subset_preconditioner.cc); downgrading to JACOBI")
+            summary.preconditioner_type_used = PreconditionerType.JACOBI
+        elif schur_solver.iterative and used != options.preconditioner_type:
+            log.warning("%s preconditioner: no cluster plan for this problem; downgrading "
+                        "to %s", options.preconditioner_type.value, used.value)
+            summary.preconditioner_type_used = used
+        summary.schur_complement_path = schur_solver.schur_path
+        if schur_solver.explicit_reject_reason is not None:
+            # a wanted explicit-S plan was rejected: say what runs instead
+            log.warning("explicit Schur complement plan rejected (%s); using %s",
+                        schur_solver.explicit_reject_reason, summary.schur_complement_path)
+    minimizer_cls, kw = TrustRegionMinimizer, {}
+    if options.use_device_loop:
+        minimizer_cls = DeviceLoopMinimizer
+        kw["chunk_iterations"] = min(options.device_loop_chunk_iterations,
+                                     options.max_num_iterations)
+    minimizer = minimizer_cls(evaluator, options, summary, solver_type,
+                              schur_solver=schur_solver, **kw)
 
     if options.resume_from:
         groups, radius, iteration, _cost = load_checkpoint(options.resume_from)

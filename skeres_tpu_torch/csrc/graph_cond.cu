@@ -1,10 +1,11 @@
-// CUDA-graph conditional IF nodes for stream capture, with a plain C interface.
+// CUDA-graph conditional IF and WHILE nodes for stream capture, with a plain C
+// interface.
 //
 // A host-side helper of core/graph.py, not a port of a TPU kernel: the JAX
 // package's device loop branches with lax.cond inside one XLA program
 // (skeres_tpu/core/device_loop.py); the port captures one LM step as a CUDA
 // graph and branches with conditional nodes (CUDA 12.4+). The torch build this
-// runs with has no Python binding for them, so this file adds the three steps:
+// runs with has no Python binding for them, so this file adds the steps:
 //
 //   skeres_if_node_begin    on a capturing stream: create a conditional handle
 //                           in the graph being captured, launch a one-thread
@@ -12,11 +13,20 @@
 //                           node after that kernel, and make the node the
 //                           stream's only dependency; returns the node's body
 //                           graph;
-//   skeres_capture_to_graph begin capturing another stream into that body;
+//   skeres_while_node_begin the same with a WHILE node (lax.while_loop's
+//                           counterpart: the PCG of the iterative solvers);
+//                           also returns the handle, which the body sets again
+//                           as its last work;
+//   skeres_set_conditional  on the stream capturing a WHILE body: launch the
+//                           one-thread kernel that sets the handle from a
+//                           device bool;
+//   skeres_capture_to_graph begin capturing another stream into a body;
 //   skeres_capture_end      end that capture.
 //
-// Work captured into the body runs on a replay only when the bool was true at
-// that point of the replay. Each function returns the cudaError_t it met.
+// Work captured into an IF body runs on a replay only when the bool was true
+// at that point of the replay; a WHILE body runs again and again for as long
+// as the handle, set before the node and at the end of each turn, is not 0.
+// Each function returns the cudaError_t it met.
 
 #include <cuda_runtime.h>
 
@@ -26,9 +36,10 @@ __global__ void set_conditional_kernel(cudaGraphConditionalHandle handle, const 
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
 }
 
-}  // namespace
-
-extern "C" int skeres_if_node_begin(void* stream, const void* pred, void** body_out) {
+// The conditional node of either type, after a kernel that sets its handle
+// from *pred.
+int cond_node_begin(void* stream, const void* pred, cudaGraphConditionalNodeType type,
+                    void** body_out, cudaGraphConditionalHandle* handle_out) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
@@ -49,7 +60,7 @@ extern "C" int skeres_if_node_begin(void* stream, const void* pred, void** body_
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
-  params.conditional.type = cudaGraphCondTypeIf;
+  params.conditional.type = type;
   params.conditional.size = 1;
   cudaGraphNode_t node;
   err = cudaGraphAddNode(&node, graph, deps, ndeps, &params);
@@ -57,7 +68,29 @@ extern "C" int skeres_if_node_begin(void* stream, const void* pred, void** body_
   err = cudaStreamUpdateCaptureDependencies(s, &node, 1, cudaStreamSetCaptureDependencies);
   if (err != cudaSuccess) return static_cast<int>(err);
   *body_out = params.conditional.phGraph_out[0];
+  *handle_out = handle;
   return 0;
+}
+
+}  // namespace
+
+extern "C" int skeres_if_node_begin(void* stream, const void* pred, void** body_out) {
+  cudaGraphConditionalHandle handle = 0;
+  return cond_node_begin(stream, pred, cudaGraphCondTypeIf, body_out, &handle);
+}
+
+extern "C" int skeres_while_node_begin(void* stream, const void* pred, void** body_out,
+                                       unsigned long long* handle_out) {
+  cudaGraphConditionalHandle handle = 0;
+  int err = cond_node_begin(stream, pred, cudaGraphCondTypeWhile, body_out, &handle);
+  *handle_out = static_cast<unsigned long long>(handle);
+  return err;
+}
+
+extern "C" int skeres_set_conditional(void* stream, unsigned long long handle, const void* pred) {
+  set_conditional_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<cudaGraphConditionalHandle>(handle), static_cast<const bool*>(pred));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int skeres_capture_to_graph(void* stream, void* graph) {

@@ -16,27 +16,41 @@ from skeres_tpu.core.linear_solvers import (
 )
 from skeres_tpu.core.options import SolverOptions as JOptions
 from skeres_tpu.core.types import LinearSolverType as JLinearSolverType
+from skeres_tpu.core.types import PreconditionerType as JPreconditionerType
 from skeres_tpu.io import bal as jbal
 from skeres_tpu_torch.core import schur as schur_mod
 from skeres_tpu_torch.core.evaluator import Evaluator
-from skeres_tpu_torch.core.graph import cond
+from skeres_tpu_torch.core.graph import cond, while_loop
 from skeres_tpu_torch.core.linear_solvers import preconditioned_conjugate_gradients
 from skeres_tpu_torch.core.schur import SchurSolver
-from skeres_tpu_torch.core.types import LinearSolverType
+from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType
 from skeres_tpu_torch.io import bal as tbal
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers run side by side on a few cores: one thread each for
+    the small problems here, or the workers' thread pools fight over the
+    cores (a DENSE_QR case took minutes that way)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 RTOL = 1e-10
 
 
-def _solve_jax(bal, **kw):
+def _solve_jax(bal, solver="DENSE_SCHUR", precond="JACOBI", **kw):
     problem, cams, pts = jbal.build_bal_problem(bal)
-    s = st.solve(JOptions(linear_solver_type=JLinearSolverType.DENSE_SCHUR, **kw), problem)
+    s = st.solve(JOptions(linear_solver_type=JLinearSolverType[solver],
+                          preconditioner_type=JPreconditionerType[precond], **kw), problem)
     return s, cams.values.copy(), pts.values.copy()
 
 
-def _solve_port(bal, **kw):
+def _solve_port(bal, solver="DENSE_SCHUR", precond="JACOBI", **kw):
     problem, cams, pts = tbal.build_bal_problem(bal)
-    s = stt.solve(stt.SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
+    s = stt.solve(stt.SolverOptions(linear_solver_type=LinearSolverType[solver],
+                                    preconditioner_type=PreconditionerType[precond],
                                     device="cpu", **kw), problem)
     return s, cams.values.copy(), pts.values.copy()
 
@@ -126,7 +140,56 @@ def test_explicit_path_device_loop_matches_jax(monkeypatch):
     np.testing.assert_allclose(tp, jp, rtol=1e-8, atol=1e-12)
 
 
-# -- the cond form of the damped solve and the sync-free PCG ---------------------
+# -- the other linear solvers under the device loop --------------------------------
+
+
+@pytest.mark.parametrize(
+    "solver,precond,kw,rtol",
+    [
+        ("ITERATIVE_SCHUR", "SCHUR_JACOBI", {}, 1e-8),
+        ("ITERATIVE_SCHUR", "POWER_SERIES_EXPANSION", {}, 1e-8),
+        ("ITERATIVE_SCHUR", "CLUSTER_TRIDIAGONAL", dict(cluster_jacobi_size=4), 1e-8),
+        ("ITERATIVE_SCHUR", "SCHUR_JACOBI", dict(use_explicit_schur_complement=True), 1e-8),
+        # CGNR iterates on the normal equations of the whole problem, whose
+        # condition number amplifies each of its tens of PCG steps' rounding
+        ("CGNR", "JACOBI", {}, 1e-5),
+        ("DENSE_NORMAL_CHOLESKY", "JACOBI", {}, 1e-8),
+        ("DENSE_QR", "JACOBI", {}, 1e-8),
+    ],
+)
+def test_device_loop_of_each_solver_matches_jax_device_loop(solver, precond, kw, rtol):
+    """9 steps in chunks of 3 at initial radius 1 (every accept/reject
+    decision is made on a cost change far above rounding), the full budget:
+    the rows of the port's device loop against the JAX device loop's
+    (tests/test_device_loop.py:42 runs CGNR there), PCG counts included,
+    and against the port's host loop. Costs at ``rtol``, parameters at
+    100 ``rtol``: the iterative solvers' PCG iterates carry each step's
+    rounding."""
+    # the dense solvers factor the whole problem's Jacobian: a smaller scene
+    dense = solver in ("DENSE_QR", "DENSE_NORMAL_CHOLESKY")
+    bal = jbal.synthetic_bal(6, 60, 4) if dense else jbal.synthetic_bal(16, 500, 4)
+    kw = dict(max_num_iterations=9, device_loop_chunk_iterations=3,
+              run_full_iteration_budget=True, initial_trust_region_radius=1.0, **kw)
+    js, jc, jp = _solve_jax(bal, solver, precond, use_device_loop=True, **kw)
+    ts, tc, tp = _solve_port(bal, solver, precond, use_device_loop=True, **kw)
+    hs, hc, hp = _solve_port(bal, solver, precond, **kw)
+    assert ts.linear_solver_type_used.value == js.linear_solver_type_used.value == solver
+    assert ts.schur_complement_path == js.schur_complement_path
+    assert len(ts.iterations) == len(js.iterations) == len(hs.iterations) == 10
+    assert ts.num_successful_steps > 0
+    for a, b, h in zip(ts.iterations, js.iterations, hs.iterations):
+        assert a.step_is_successful == b.step_is_successful == h.step_is_successful
+        assert a.linear_solver_iterations == b.linear_solver_iterations
+        assert a.linear_solver_iterations == h.linear_solver_iterations
+        np.testing.assert_allclose(a.cost, b.cost, rtol=rtol)
+        np.testing.assert_allclose(a.cost, h.cost, rtol=rtol)
+        np.testing.assert_allclose(a.trust_region_radius, b.trust_region_radius, rtol=rtol)
+    np.testing.assert_allclose(tc, jc, rtol=100 * rtol, atol=1e-9)
+    np.testing.assert_allclose(tp, jp, rtol=100 * rtol, atol=1e-9)
+    np.testing.assert_allclose(tc, hc, rtol=100 * rtol, atol=1e-9)
+
+
+# -- while_loop, the cond form of the damped solve and the sync-free PCG ---------------------
 
 
 def _early_stopping_pcg(matvec, b, precond, max_iterations, rtol, min_iterations=0):
@@ -172,6 +235,30 @@ def test_sync_free_pcg_gives_the_early_stopping_iterate(rtol, max_it, min_it):
     np.testing.assert_allclose(x.numpy(), np.asarray(x_jax), rtol=1e-10, atol=1e-12)
 
 
+def test_while_loop_runs_as_the_python_loop_it_replaces():
+    """Eagerly: the body runs for as long as the device bool holds, the
+    carry updated in place; a false start runs nothing."""
+    k = torch.zeros((), dtype=torch.int64)
+    acc = torch.zeros(3, dtype=torch.float64)
+
+    def body():
+        acc.add_(k.to(acc.dtype) + 1.0)
+        k.add_(1)
+
+    assert while_loop(lambda: (k < 5) & (acc.sum() < 100.0), body) is None
+    ref, j = np.zeros(3), 0
+    while j < 5 and ref.sum() < 100.0:
+        ref += j + 1.0
+        j += 1
+    assert int(k) == j == 5
+    np.testing.assert_array_equal(acc.numpy(), ref)
+    while_loop(lambda: acc.sum() < 0.0, lambda: acc.fill_(-1.0))
+    np.testing.assert_array_equal(acc.numpy(), ref)
+    # the data, not a bound, ends it
+    while_loop(lambda: acc.sum() < 100.0, body)
+    assert int(k) == 8
+
+
 def test_cond_runs_the_branch_its_predicate_picks():
     out = torch.zeros(2)
     for flag in (True, False):
@@ -211,8 +298,9 @@ def test_cond_ladder_with_device_scalars_walks_the_host_rungs(threshold, jitter0
     orig = schur._factor_solve
 
     def failing(s, rhs, delta):
-        x = orig(s, rhs, delta)
-        return torch.where(torch.min(torch.diagonal(s) + delta) - 1.0 < threshold, torch.nan, x)
+        x, solve = orig(s, rhs, delta)
+        bad = torch.min(torch.diagonal(s) + delta) - 1.0 < threshold
+        return torch.where(bad, torch.nan, x), solve
 
     schur._factor_solve = failing
     host = schur.solve_damped(data, g, diag, 1e-4, 1e-6, 1e32, jitter0=jitter0)

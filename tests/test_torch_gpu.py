@@ -268,3 +268,113 @@ def test_device_loop_on_card_matches_cpu(cuda):
     np.testing.assert_allclose([it.cost for it in card.iterations],
                                [it.cost for it in cpu.iterations], rtol=1e-8)
     np.testing.assert_allclose(card_cams, cpu_cams, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("turns", [0, 1, 7])
+def test_captured_while_node_equals_eager_loop_on_card(cuda, turns):
+    """``while_loop`` captured as a conditional WHILE node and replayed,
+    against the eager Python loop on the same carry: the number of turns
+    is data (``limit``, set after the capture), the body holds a matrix
+    product and a nested ``cond``, and each replay runs as many turns as
+    its data ask for; a graph that never enters its body leaves the carry
+    as it was."""
+    from skeres_tpu_torch.core.graph import CapturedStep, cond, while_loop
+
+    a = torch.tensor(np.random.default_rng(0).standard_normal((8, 8)) / 4.0, device=cuda)
+    x = torch.ones(8, dtype=torch.float64, device=cuda)
+    k = torch.zeros((), dtype=torch.int64, device=cuda)
+    odd = torch.zeros((), dtype=torch.int64, device=cuda)
+    limit = torch.full((), 3, dtype=torch.int64, device=cuda)
+
+    def body():
+        x.copy_(a @ x + 1.0)
+        k.add_(1)
+        cond(k % 2 == 1, lambda: odd.add_(1))
+
+    def step():
+        while_loop(lambda: k < limit, body)
+
+    captured = CapturedStep(step, cuda)
+    captured.capture()
+    assert captured.graph is not None
+    results = []
+    for run in (captured, step):  # the replayed graph, then the eager loop
+        x.fill_(1.0)
+        k.zero_()
+        odd.zero_()
+        limit.fill_(turns)
+        run()
+        torch.cuda.synchronize()
+        results.append((x.clone(), int(k), int(odd)))
+    captured.release()
+    (gx, gk, godd), (ex, ek, eodd) = results
+    assert gk == ek == turns and godd == eodd == (turns + 1) // 2
+    torch.testing.assert_close(gx, ex, rtol=1e-12, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "solver,precond,kw,rtol",
+    [
+        ("ITERATIVE_SCHUR", "SCHUR_JACOBI", {}, 1e-8),
+        ("ITERATIVE_SCHUR", "POWER_SERIES_EXPANSION", {}, 1e-8),
+        ("ITERATIVE_SCHUR", "CLUSTER_JACOBI", dict(cluster_jacobi_size=4), 1e-8),
+        ("ITERATIVE_SCHUR", "SCHUR_JACOBI", dict(use_explicit_schur_complement=True), 1e-8),
+        # CGNR: PCG on the whole problem's normal equations, whose condition
+        # number amplifies rounding: card and CPU costs drift to 1e-5..3e-5 and
+        # a residual test may fall one PCG step apart (seen: 49 against 50)
+        ("CGNR", "JACOBI", {}, 1e-3),
+    ],
+)
+def test_iterative_device_loop_on_card_matches_cpu(cuda, solver, precond, kw, rtol):
+    """The iterative solvers under the device loop on the card (each LM
+    step one replayed CUDA graph whose PCG is a WHILE node) against the
+    CPU: the same decisions, costs to ``rtol``, and for the Schur solvers
+    the same PCG step counts."""
+    from skeres_tpu_torch.core.types import PreconditionerType
+
+    runs = []
+    for device in (cuda, "cpu"):
+        problem, _, _ = build_bal_problem(synthetic_bal(16, 500, 4))
+        runs.append(stt.solve(stt.SolverOptions(
+            linear_solver_type=LinearSolverType[solver],
+            preconditioner_type=PreconditionerType[precond], max_num_iterations=8,
+            run_full_iteration_budget=True, initial_trust_region_radius=1.0,
+            use_device_loop=True, device_loop_chunk_iterations=4,
+            dtype=torch.float64, device=device, **kw,
+        ), problem))
+    card, cpu = runs
+    assert card.device_loop_capture_time_in_seconds > 0.0
+    assert [it.step_is_successful for it in card.iterations] == [
+        it.step_is_successful for it in cpu.iterations]
+    counts = [[it.linear_solver_iterations for it in s.iterations] for s in (card, cpu)]
+    if solver == "CGNR":
+        assert max(abs(a - b) for a, b in zip(*counts)) <= 2
+    else:
+        assert counts[0] == counts[1]
+    assert max(counts[0]) > 1
+    np.testing.assert_allclose([it.cost for it in card.iterations],
+                               [it.cost for it in cpu.iterations], rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_dense_solvers_under_the_device_loop_on_card(cuda):
+    """DENSE_NORMAL_CHOLESKY captures (its factor and triangular solves are
+    library calls that a conditional body takes) and equals the CPU;
+    DENSE_QR raises, naming ``torch.linalg.qr``, and does not fall back to
+    the host loop."""
+    def solve(solver, device):
+        problem, _, _ = build_bal_problem(synthetic_bal(16, 500, 4))
+        return stt.solve(stt.SolverOptions(
+            linear_solver_type=LinearSolverType[solver], max_num_iterations=8,
+            run_full_iteration_budget=True, initial_trust_region_radius=1.0,
+            use_device_loop=True, device_loop_chunk_iterations=4, dtype=torch.float64,
+            device=device), problem)
+
+    card, cpu = solve("DENSE_NORMAL_CHOLESKY", cuda), solve("DENSE_NORMAL_CHOLESKY", "cpu")
+    assert card.device_loop_capture_time_in_seconds > 0.0
+    np.testing.assert_allclose([it.cost for it in card.iterations],
+                               [it.cost for it in cpu.iterations], rtol=1e-8)
+    with pytest.raises(NotImplementedError, match="torch.linalg.qr"):
+        solve("DENSE_QR", cuda)

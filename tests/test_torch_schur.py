@@ -103,8 +103,9 @@ def _torch_failing_below(orig, threshold):
     apart."""
 
     def factor(s, rhs, delta):
-        x = orig(s, rhs, delta)
-        return torch.where(torch.min(torch.diagonal(s) + delta) - 1.0 < threshold, torch.nan, x)
+        x, solve = orig(s, rhs, delta)
+        bad = torch.min(torch.diagonal(s) + delta) - 1.0 < threshold
+        return torch.where(bad, torch.nan, x), solve
 
     return factor
 

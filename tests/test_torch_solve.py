@@ -1,7 +1,8 @@
-"""The port's solve() end to end against ``skeres_tpu.solve``, the LM
-strategy recurrence, what the port refuses, and that it imports neither
-jax nor skeres_tpu. float64 on the CPU: per-iteration cost and radius to
-rtol 1e-8, final parameters to rtol 1e-6."""
+"""The port's solve() end to end against ``skeres_tpu.solve`` for every
+linear solver and preconditioner, the LM strategy recurrence, what the
+port refuses, and that it imports neither jax nor skeres_tpu. float64 on
+the CPU: per-iteration cost and radius to rtol 1e-8, final parameters to
+rtol 1e-6, unless a test states another tolerance."""
 
 import json
 import pathlib
@@ -16,25 +17,41 @@ import skeres_tpu as st
 import skeres_tpu_torch as stt
 from skeres_tpu.core.options import SolverOptions as JOptions
 from skeres_tpu.core.types import LinearSolverType as JLinearSolverType
+from skeres_tpu.core.types import PreconditionerType as JPreconditionerType
 from skeres_tpu.io import bal as jbal
 from skeres_tpu_torch.core import schur as schur_mod
 from skeres_tpu_torch.core.linear_solvers import lm_diagonal
 from skeres_tpu_torch.core.options import SolverOptions
 from skeres_tpu_torch.core.solver import TRACE_FILE
 from skeres_tpu_torch.core.types import (
+    DoglegType,
     LinearSolverType,
     MinimizerType,
+    PreconditionerType,
     TrustRegionStrategyType,
 )
 from skeres_tpu_torch.io import bal as tbal
 
 
-def _solve_both(bal, **kw):
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers run side by side on a few cores: one thread each for
+    the small problems here, or the workers' thread pools fight over the
+    cores (a DENSE_QR case took minutes that way)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _solve_both(bal, solver="DENSE_SCHUR", precond="JACOBI", **kw):
     jprob, jcams, jpts = jbal.build_bal_problem(bal)
-    js = st.solve(JOptions(linear_solver_type=JLinearSolverType.DENSE_SCHUR, **kw), jprob)
+    js = st.solve(JOptions(linear_solver_type=JLinearSolverType[solver],
+                           preconditioner_type=JPreconditionerType[precond], **kw), jprob)
     tprob, tcams, tpts = tbal.build_bal_problem(bal)
-    ts = stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR, device="cpu", **kw),
-                   tprob)
+    ts = stt.solve(SolverOptions(linear_solver_type=LinearSolverType[solver],
+                                 preconditioner_type=PreconditionerType[precond], device="cpu",
+                                 **kw), tprob)
     return (js, jcams.values, jpts.values), (ts, tcams.values, tpts.values)
 
 
@@ -137,11 +154,13 @@ def test_min_lm_diagonal_affects_step():
     "option",
     [
         dict(use_inner_iterations=True),
-        dict(linear_solver_type=LinearSolverType.DENSE_QR),
-        dict(linear_solver_type=LinearSolverType.ITERATIVE_SCHUR),
+        dict(linear_solver_type=LinearSolverType.DENSE_QR, check_gradients=True),
+        dict(linear_solver_type=LinearSolverType.ITERATIVE_SCHUR, use_inner_iterations=True),
         dict(minimizer_type=MinimizerType.LINE_SEARCH),
         dict(trust_region_strategy_type=TrustRegionStrategyType.DOGLEG),
-        dict(use_explicit_schur_complement=True),
+        dict(use_explicit_schur_complement=True,
+             trust_region_strategy_type=TrustRegionStrategyType.DOGLEG,
+             dogleg_type=DoglegType.SUBSPACE_DOGLEG),
         dict(mesh="obs"),
         dict(trust_region_minimizer_iterations_to_dump=[1]),
     ],
@@ -151,8 +170,77 @@ def test_unported_options_raise(option):
     problem, _, _ = tbal.build_bal_problem(bal)
     options = SolverOptions(**{"linear_solver_type": LinearSolverType.DENSE_SCHUR, "device": "cpu",
                                **option})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         stt.solve(options, problem)
+
+
+# -- every linear solver through solve(), host loop --------------------------------
+
+SOLVER_CASES = [
+    ("DENSE_NORMAL_CHOLESKY", "JACOBI", {}, 1e-8),
+    ("DENSE_NORMAL_CHOLESKY", "JACOBI", dict(use_mixed_precision_solves=True,
+                                             max_num_refinement_iterations=2), 1e-8),
+    ("DENSE_QR", "JACOBI", {}, 1e-8),
+    # CGNR: PCG on the whole problem's normal equations, whose condition
+    # number amplifies the rounding of its tens of steps a solve
+    ("CGNR", "JACOBI", {}, 1e-5),
+    ("ITERATIVE_SCHUR", "JACOBI", {}, 1e-8),
+    ("ITERATIVE_SCHUR", "SCHUR_JACOBI", {}, 1e-8),
+    ("ITERATIVE_SCHUR", "POWER_SERIES_EXPANSION", {}, 1e-8),
+    ("ITERATIVE_SCHUR", "CLUSTER_JACOBI", dict(cluster_jacobi_size=4), 1e-8),
+    ("ITERATIVE_SCHUR", "CLUSTER_TRIDIAGONAL", dict(cluster_jacobi_size=4), 1e-8),
+    ("ITERATIVE_SCHUR", "SCHUR_JACOBI", dict(use_explicit_schur_complement=True), 1e-8),
+    ("DENSE_SCHUR", "JACOBI", dict(use_mixed_precision_solves=True,
+                                   max_num_refinement_iterations=2), 1e-8),
+]
+
+
+@pytest.mark.parametrize("solver,precond,kw,rtol", SOLVER_CASES)
+def test_trajectory_of_each_solver_matches_jax(bal16, solver, precond, kw, rtol):
+    """8 steps at initial radius 1, the full budget (every accept/reject
+    decision on a cost change far above rounding), on synthetic_bal(16,
+    500, 4), the dense solvers on synthetic_bal(6, 60, 4) (they factor the
+    whole problem's Jacobian, 234 columns there): the same decisions and
+    PCG step counts (the Q test's and CGNR's residual test's own; none had
+    to be pinned on this scene), costs and radii at ``rtol``, final
+    parameters at 100 ``rtol``, and the Summary's solver, preconditioner
+    and S path."""
+    bal = jbal.synthetic_bal(6, 60, 4) if solver.startswith("DENSE_") and "SCHUR" not in solver \
+        else bal16
+    (js, jc, jp), (ts, tc, tp) = _solve_both(
+        bal, solver, precond, max_num_iterations=8, run_full_iteration_budget=True,
+        initial_trust_region_radius=1.0, **kw)
+    assert len(ts.iterations) == len(js.iterations) == 9
+    assert ts.num_successful_steps > 0
+    for a, b in zip(ts.iterations, js.iterations):
+        assert (a.step_is_valid, a.step_is_successful) == (b.step_is_valid, b.step_is_successful)
+        assert a.linear_solver_iterations == b.linear_solver_iterations
+        np.testing.assert_allclose(a.cost, b.cost, rtol=rtol)
+        np.testing.assert_allclose(a.trust_region_radius, b.trust_region_radius, rtol=rtol)
+    np.testing.assert_allclose(ts.final_cost, js.final_cost, rtol=rtol)
+    np.testing.assert_allclose(tc, jc, rtol=100 * rtol, atol=1e-9)
+    np.testing.assert_allclose(tp, jp, rtol=100 * rtol, atol=1e-9)
+    assert ts.linear_solver_type_used.value == js.linear_solver_type_used.value == solver
+    assert ts.preconditioner_type_used.value == js.preconditioner_type_used.value == precond
+    assert ts.schur_complement_path == js.schur_complement_path
+    if solver == "ITERATIVE_SCHUR":
+        assert ts.schur_complement_path == ("explicit" if kw.get("use_explicit_schur_complement")
+                                            else "implicit")
+        assert max(it.linear_solver_iterations for it in ts.iterations) > 1
+        assert solver in ts.full_report() and ts.schur_complement_path in ts.full_report()
+
+
+def test_iterative_schur_past_the_explicit_gate_reports_the_gate(bal16):
+    """``use_explicit_schur_complement`` with S past
+    ``explicit_schur_limit_bytes``: the implicit product, and the Summary
+    says why, as in the JAX package."""
+    (js, _, _), (ts, _, _) = _solve_both(
+        bal16, "ITERATIVE_SCHUR", "SCHUR_JACOBI", max_num_iterations=3,
+        use_explicit_schur_complement=True, explicit_schur_limit_bytes=4096)
+    assert ts.schur_complement_path == js.schur_complement_path
+    assert ts.schur_complement_path.startswith("implicit (gate: S too large")
+    np.testing.assert_allclose([it.cost for it in ts.iterations],
+                               [it.cost for it in js.iterations], rtol=1e-8)
 
 
 def test_device_defaults_to_the_card():
@@ -180,10 +268,22 @@ def test_trace_dir_writes_a_minimizer_trace(tmp_path):
 
 def test_unported_problem_features_raise():
     bal = tbal.synthetic_bal(4, 24, 3)
-    problem, _, _ = tbal.build_bal_problem(bal, use_schur_ordering=False)
-    with pytest.raises(NotImplementedError, match="ordering.py"):
-        stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR, device="cpu"),
-                  problem)
+    problem, cams, pts = tbal.build_bal_problem(bal, use_schur_ordering=False)
+    # an undeclared elimination group is found now (core/ordering.py)
+    s = stt.solve(SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR, device="cpu",
+                                max_num_iterations=2), problem)
+    assert s.linear_solver_type_used == LinearSolverType.DENSE_SCHUR
+    assert problem._groups[pts.group_index].schur_group == 0
+    # two point slots in one row: the Schur solvers refuse it by name
+    two = stt.Problem()
+    a = two.add_parameter_block_array(np.ones((3, 2)))
+    b = two.add_parameter_block_array(np.ones((5, 2)))
+    two.set_schur_elimination_group(b, 0)
+    two.add_residual_blocks(lambda p, d: p[0] + p[1] - p[2], None,
+                            [(a, np.arange(3)), (b, np.arange(3)), (b, np.arange(1, 4))])
+    with pytest.raises(NotImplementedError, match=">1 eliminated block"):
+        stt.solve(SolverOptions(linear_solver_type=LinearSolverType.ITERATIVE_SCHUR,
+                                device="cpu"), two)
     arr = problem.add_parameter_block_array(np.zeros((2, 3)))
     with pytest.raises(NotImplementedError, match="numeric_diff"):
         problem.add_residual_blocks(lambda p, d: p[0], None, [arr], numeric_diff=True)

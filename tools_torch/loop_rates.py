@@ -2,7 +2,8 @@
 """LM steps/s of the port's LM loops on one CUDA card (or the CPU), for one checkout.
 
     python3 tools_torch/loop_rates.py --root DIR [--loops host,device] [--runs 5] [--venice]
-                                      [--device cpu]
+                                      [--device cpu] [--linear-solver ITERATIVE_SCHUR]
+                                      [--preconditioner SCHUR_JACOBI]
 
 Imports ``skeres_tpu_torch`` from the checkout at DIR (this one, or an
 earlier commit unpacked with ``git archive``), then solves synthetic BAL-49
@@ -10,7 +11,11 @@ in float32 (30 LM steps, the full iteration budget; the device loop in one
 chunk of 30, as ``bench.py``) ``--runs`` times with each loop of
 ``--loops``, the loops in turns; with ``--venice`` also the venice-1778
 shape scene (5 steps, evaluation chunks of 262,144 rows) once with each
-loop. Prints the card's name and power limit, then one JSON line: LM
+loop. ``--linear-solver`` and ``--preconditioner`` (the enums' names;
+DENSE_SCHUR and JACOBI unless given) choose the damped solve, so that an
+iterative solve can be held against an earlier commit too; the record then
+carries the summed linear-solver (PCG) iterations of each run. Prints the
+card's name and power limit, then one JSON line: LM
 steps/s, the preprocessor's seconds and the Summary's evaluation and
 linear-solver seconds of every run, by scene and loop.
 ``--device cpu`` runs the same on the CPU (plain kernel versions), where
@@ -36,6 +41,8 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=5, help="BAL-49 runs of each loop")
     ap.add_argument("--venice", action="store_true", help="also one venice-shape run a loop")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--linear-solver", default="DENSE_SCHUR", help="a LinearSolverType name")
+    ap.add_argument("--preconditioner", default="JACOBI", help="a PreconditionerType name")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -46,7 +53,7 @@ def main() -> int:
         print("loop_rates: no CUDA device", file=sys.stderr)
         return 1
     import skeres_tpu_torch as stt
-    from skeres_tpu_torch.core.types import LinearSolverType
+    from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType
     from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
 
     check = os.path.join(root, "skeres_tpu_torch")
@@ -68,7 +75,8 @@ def main() -> int:
         if extra:
             extra["device_loop_chunk_iterations"] = steps
         return stt.SolverOptions(
-            linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=steps,
+            linear_solver_type=LinearSolverType[args.linear_solver],
+            preconditioner_type=PreconditionerType[args.preconditioner], max_num_iterations=steps,
             run_full_iteration_budget=True, dtype=torch.float32, device=args.device, **extra, **kw)
 
     def record(out, loop, s):
@@ -76,15 +84,19 @@ def main() -> int:
         out[loop]["lm_steps_per_s"].append(steps / s.minimizer_time_in_seconds)
         out[loop]["preprocessor_s"].append(s.preprocessor_time_in_seconds)
         out[loop]["final_cost"].append(s.final_cost)
+        out[loop]["linear_solver_iterations"].append(
+            sum(it.linear_solver_iterations for it in s.iterations))
         for key in ("jacobian_evaluation", "linear_solver", "residual_evaluation"):
             out[loop][key + "_s"].append(getattr(s, key + "_time_in_seconds"))
 
     def empty():
-        keys = ("lm_steps_per_s", "preprocessor_s", "final_cost", "jacobian_evaluation_s",
+        keys = ("lm_steps_per_s", "preprocessor_s", "final_cost", "linear_solver_iterations",
+                "jacobian_evaluation_s",
                 "linear_solver_s", "residual_evaluation_s")
         return {loop: {key: [] for key in keys} for loop in loops}
 
-    result = {"root": root, "device": smi, "bal49": empty()}
+    result = {"root": root, "device": smi, "linear_solver": args.linear_solver,
+              "preconditioner": args.preconditioner, "bal49": empty()}
     bal = synthetic_bal(49, 7776, 4)
     for loop in loops:  # warm-up: first-call set-up and the kernels' build
         stt.solve(options(loop, 2), build_bal_problem(bal)[0])
