@@ -23,7 +23,7 @@ non-zero and prints no result line):
                max|reference|, and the backward errors; a non-PD input gives
                non-finite outputs.
   5. K3      — the pair-product kernel against its plain version on a random
-               non-uniform problem (f = 5, e = 3, 1-6 observations per
+               non-uniform problem (f = 5 and 6, e = 3, 1-6 observations per
                point), float32 and float64, judged on the reduced unique-pair
                table.
   6. solve   — the first main path: synthetic BAL-49 (49 cameras, 7776
@@ -109,6 +109,32 @@ non-zero and prints no result line):
                CLUSTER_JACOBI and CLUSTER_TRIDIAGONAL (64 cameras a cluster):
                the path must read ``implicit (gate: S too large ...)``;
                steps/s, the cost after each step, seconds a damped solve.
+ 20. venice, dogleg — the venice scene, DENSE_SCHUR, 5 steps each with
+               TRADITIONAL_DOGLEG and SUBSPACE_DOGLEG (host loop): LM
+               steps/s, final cost, accepted steps, the Gauss-Newton solves'
+               iterations and jitter rungs, the steps that took the Cauchy
+               point, K3 and K2's update launches (one K3 and one factor a
+               Gauss-Newton solve and a rung: the dogleg step solves
+               nothing), beside phase 11's LM.
+ 21. venice, inner iterations — LM DENSE_SCHUR with ``use_inner_iterations``
+               on the host loop and the device loop (the tolerance-stopped
+               sweeps one WHILE node of the step's graph): LM steps/s, final
+               cost, ``num_inner_iteration_steps``, capture time and peak
+               memory, beside phases 11 and 16 without them.
+ 22. venice, the Problem API — camera 0 constant (the gauge) and a
+               SubsetManifold holding f, k1 and k2 on every camera: the
+               camera tangent is 6, S has 10,668 rows (explicit, K3 at
+               (f, e) = (6, 3), K2 over 21 panels). K3 at that shape
+               against its plain version and timed (this is where phase 10's
+               K3 check meets the (6, 3) instance); then the solve on the
+               host loop and the device loop, camera 0 and the intrinsics
+               unchanged after it.
+ 23. trust region and Problem API, card vs CPU — synthetic_bal(16, 500, 4),
+               float64, 10 steps at initial radius 1, card against CPU: both
+               dogleg types on the dense-W and the explicit path, inner
+               iterations on both loops, the focal lengths bounded on both
+               loops, camera 0 constant with a SubsetManifold on both loops;
+               the same decisions and costs to rtol 1e-8.
 
 The line before the last is a JSON object describing each kernel (its
 time, its launches on the main path, its bound: the larger of the bytes it
@@ -506,23 +532,25 @@ def k3_tables(plan, grid, cinv_flat):
 def phase_k3(device):
     from skeres_tpu_torch.core.explicit_schur import ExplicitSchurPlan
 
-    f, e, npts, nc = 5, 3, 4000, 40
-    rng = np.random.default_rng(7)
-    counts = rng.integers(1, 7, size=npts)
-    pt = np.repeat(np.arange(npts), counts)
-    cam = rng.integers(0, nc, size=len(pt))
-    a_flat = rng.normal(size=(len(pt), f * e))
-    cinv = rng.normal(size=(npts, e, e))
-    cinv = (cinv + np.swapaxes(cinv, 1, 2)).reshape(npts, e * e)
-    plan = ExplicitSchurPlan(cam_idx=cam, pt_idx=pt, num_cameras=nc, num_points=npts,
-                             f_size=f, e_size=e, pad_waste=100.0, device=device)
-    for dtype in (torch.float32, torch.float64):
-        grid = plan.build_grid(torch.as_tensor(a_flat, dtype=dtype, device=device))["grid"]
-        kern, plain = k3_tables(plan, grid.contiguous(), torch.as_tensor(cinv, dtype=dtype, device=device))
-        err, rel = rel_err(kern, plain)
-        print(f"[K3] random f=5 e=3 kp={plan.kp} (1-6 obs/point, {npts} points, "
-              f"{plan.n_uniq} pairs) {dtype}: table max|err| {err:.3e} (rel {rel:.3e})")
-        check(rel <= K3_RTOL[dtype], f"K3 random case {dtype}: rel error {rel:.3e}")
+    e, npts, nc = 3, 4000, 40
+    for f in (5, 6):
+        rng = np.random.default_rng(7)
+        counts = rng.integers(1, 7, size=npts)
+        pt = np.repeat(np.arange(npts), counts)
+        cam = rng.integers(0, nc, size=len(pt))
+        a_flat = rng.normal(size=(len(pt), f * e))
+        cinv = rng.normal(size=(npts, e, e))
+        cinv = (cinv + np.swapaxes(cinv, 1, 2)).reshape(npts, e * e)
+        plan = ExplicitSchurPlan(cam_idx=cam, pt_idx=pt, num_cameras=nc, num_points=npts,
+                                 f_size=f, e_size=e, pad_waste=100.0, device=device)
+        for dtype in (torch.float32, torch.float64):
+            grid = plan.build_grid(torch.as_tensor(a_flat, dtype=dtype, device=device))["grid"]
+            kern, plain = k3_tables(plan, grid.contiguous(),
+                                    torch.as_tensor(cinv, dtype=dtype, device=device))
+            err, rel = rel_err(kern, plain)
+            print(f"[K3] random f={f} e=3 kp={plan.kp} (1-6 obs/point, {npts} points, "
+                  f"{plan.n_uniq} pairs) {dtype}: table max|err| {err:.3e} (rel {rel:.3e})")
+            check(rel <= K3_RTOL[dtype], f"K3 random case f={f} {dtype}: rel error {rel:.3e}")
 
 
 # -- the explicit path on a scene with S past K1's 1024 rows ----------------------
@@ -662,13 +690,13 @@ def venice_scene():
     bal = synthetic_bal(**VENICE)
     t_gen = time.time() - t0
     t0 = time.time()
-    problem, _, _ = build_bal_problem(bal)
+    problem, cams, _ = build_bal_problem(bal)
     program = problem.compile()
     t_compile = time.time() - t0
     print(f"[venice] synthetic_bal{tuple(VENICE.values())}: {bal.num_cameras} cameras, "
           f"{bal.num_points} points, {bal.num_observations} observations; host time: "
           f"generate {t_gen:.2f} s, build and compile the problem {t_compile:.2f} s")
-    return problem, program
+    return problem, program, cams
 
 
 def profile_damped_solve(schur, data, g, diag):
@@ -908,7 +936,8 @@ def phase_venice_solve(device, problem, program) -> tuple[int, int, float, float
           f"{s.jacobian_evaluation_time_in_seconds:.4f} s, linear solver "
           f"{s.linear_solver_time_in_seconds:.4f} s, residual "
           f"{s.residual_evaluation_time_in_seconds:.4f} s, total {s.total_time_in_seconds:.4f} s")
-    print(f"[venice-solve] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[venice-solve] peak device memory {peak:.3f} GiB")
     print(f"[venice-solve] {s.num_linear_solves} damped solves: K3 launches {k3} "
           f"({k3 / max(s.num_linear_solves, 1):.2f} a solve), K1 panel launches inside K2 {k2} "
           f"({k2 / max(s.num_linear_solves, 1):.2f} a solve, {panels} panels a factor), "
@@ -921,8 +950,7 @@ def phase_venice_solve(device, problem, program) -> tuple[int, int, float, float
     check(k3 >= s.num_linear_solves > 0 and k2 >= panels * s.num_linear_solves
           and up >= (panels - 1) * s.num_linear_solves and up == k2 - k2 // panels,
           "venice solve: K3 or K2 did not launch on every damped solve")
-    return up, k3, steps / s.minimizer_time_in_seconds, s.final_cost
-
+    return up, k3, dict(rate=steps / s.minimizer_time_in_seconds, cost=s.final_cost, peak=peak)
 
 
 # -- the device loop: one captured CUDA graph per LM step ----------------------
@@ -979,10 +1007,11 @@ def venice_options(device, solver="DENSE_SCHUR", precond="JACOBI", steps=VENICE_
         evaluation_chunk_size=VENICE_CHUNK, **kw)
 
 
-def phase_venice_device_loop(device, problem, program, initial, host_rate: float) -> float:
+def phase_venice_device_loop(device, problem, program, initial, host_rate: float) -> dict:
     """The first CUDA graph of this process: the venice solve of phase 11
     with the device loop (one chunk of 5 steps), traced; then one untraced
-    run, beside phase 11's host loop. Returns the traced run's LM steps/s."""
+    run, beside phase 11's host loop. Returns the untraced run's LM
+    steps/s, final cost, capture seconds and peak GiB."""
     import skeres_tpu_torch as stt
     from skeres_tpu_torch.ops.cholesky import PANEL
 
@@ -1022,11 +1051,14 @@ def phase_venice_device_loop(device, problem, program, initial, host_rate: float
     check(n["IF"] >= solves > 0 and n["K3"] >= solves and n["K1"] >= panels * solves
           and n["update"] >= (panels - 1) * solves and n["update"] == n["K1"] - n["K1"] // panels,
           "device-loop venice: K3 or K2 not in the replays on every damped solve")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     r = solve(**loop)
     untraced = (r.num_successful_steps + r.num_unsuccessful_steps) / r.minimizer_time_in_seconds
     print(f"[device-loop venice] LM steps/s: host loop {host_rate:.4f} (phase 11), device loop "
           f"{untraced:.4f} untraced ({rate:.4f} traced)")
-    return rate
+    return dict(rate=untraced, cost=r.final_cost, capture=r.device_loop_capture_time_in_seconds,
+                peak=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def device_loop_card_vs_cpu(bal, label: str, device):
@@ -1377,6 +1409,255 @@ def phase_past_cap(device) -> dict:
     return launches
 
 
+# -- the rest of the trust region and the Problem API (phases 20-23) ---------------
+
+
+def rungs_of(iters) -> int:
+    """Jitter rungs behind DENSE_SCHUR linear solver iteration counts: a
+    solve counts 1 + its rungs, or the PCG fallback after two rungs."""
+    from skeres_tpu_torch.core.schur import FALLBACK_CG_ITERATIONS
+
+    return sum(2 if i == FALLBACK_CG_ITERATIONS else i - 1 for i in iters)
+
+
+def venice_solve(label, device, problem, program, initial, **options):
+    """One venice-shape DENSE_SCHUR solve through ``stt.solve`` from the
+    initial values, its numbers printed; every cost finite, a step
+    accepted, the final cost below the initial. Returns (Summary, launches,
+    peak GiB, LM steps/s)."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.ops.cholesky import cholesky_both, trailing_update_
+    from skeres_tpu_torch.ops.pair_product import pair_products
+
+    for grp, v in zip(program.groups, initial):  # each solve writes its solution back
+        grp.values = v.copy()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    s = stt.solve(venice_options(device, **options), problem, program)
+    n = {"K1": cholesky_both.launches, "K2 update": trailing_update_.launches,
+         "K3": pair_products.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = s.num_successful_steps + s.num_unsuccessful_steps
+    rate = steps / s.minimizer_time_in_seconds
+    costs = [it.cost for it in s.iterations]
+    print(f"[{label}] path {s.schur_complement_path}; costs: {json.dumps(costs)}")
+    print(f"[{label}] {steps} LM steps ({s.num_successful_steps} accepted) in "
+          f"{s.minimizer_time_in_seconds:.4f} s of minimizer time: {rate:.4f} LM steps/s; final "
+          f"cost {s.final_cost!r}; preprocessor {s.preprocessor_time_in_seconds:.4f} s (capture "
+          f"{s.device_loop_capture_time_in_seconds:.4f} s), jacobian "
+          f"{s.jacobian_evaluation_time_in_seconds:.4f} s, linear solver "
+          f"{s.linear_solver_time_in_seconds:.4f} s, residual "
+          f"{s.residual_evaluation_time_in_seconds:.4f} s; peak device memory {peak:.3f} GiB")
+    check(all(math.isfinite(c) for c in costs), f"{label}: non-finite cost")
+    check(s.num_successful_steps >= 1, f"{label}: no step accepted")
+    check(s.final_cost < s.initial_cost, f"{label}: final cost {s.final_cost} not below initial")
+    return s, n, peak, rate
+
+
+def phase_venice_dogleg(device, problem, program, initial, lm: dict) -> dict:
+    """Phase 20. ``lm``: phase 11's LM numbers. Returns the launches by path."""
+    from skeres_tpu_torch.core.types import DoglegType, TrustRegionStrategyType
+    from skeres_tpu_torch.ops.cholesky import PANEL
+
+    panels = math.ceil(9 * VENICE["num_cameras"] / PANEL)
+    launches = {}
+    for dogleg in ("TRADITIONAL_DOGLEG", "SUBSPACE_DOGLEG"):
+        label = f"venice {dogleg}"
+        s, n, _, rate = venice_solve(label, device, problem, program, initial,
+                                     trust_region_strategy_type=TrustRegionStrategyType.DOGLEG,
+                                     dogleg_type=DoglegType[dogleg])
+        gn = s.dogleg_gauss_newton_iterations
+        steps = s.num_successful_steps + s.num_unsuccessful_steps
+        print(f"[{label}] Gauss-Newton solves {len(gn)} (one a linearization), their linear "
+              f"solver iterations {gn}: {rungs_of(gn)} jitter rungs; steps that took the Cauchy "
+              f"point {s.num_dogleg_cauchy_steps} of {steps}; K3 launches {n['K3']} "
+              f"({n['K3'] / len(gn):.2f} a Gauss-Newton solve), K1 panel launches inside K2 "
+              f"{n['K1']}, trailing-update launches {n['K2 update']} "
+              f"({n['K2 update'] / len(gn):.2f} a Gauss-Newton solve, {panels} panels a factor)")
+        print(f"[{label}] beside LM (phase 11): LM steps/s {rate:.4f} against {lm['rate']:.4f}; "
+              f"final cost {s.final_cost!r} against {lm['cost']!r}")
+        check(s.schur_complement_path == "explicit", f"{label}: not the explicit path")
+        check(len(gn) == s.num_successful_steps + 1, f"{label}: {len(gn)} Gauss-Newton solves")
+        check(n["K3"] == len(gn), f"{label}: K3 launched {n['K3']} times for {len(gn)} "
+              "Gauss-Newton solves")
+        check(n["K2 update"] >= (panels - 1) * len(gn)
+              and n["K2 update"] == n["K1"] - n["K1"] // panels,
+              f"{label}: K2 did not factor once a Gauss-Newton solve")
+        launches[label] = n
+    return launches
+
+
+def phase_venice_inner(device, problem, program, initial, lm: dict, lm_device: dict) -> dict:
+    """Phase 21. ``lm``, ``lm_device``: phases 11 and 16's LM numbers.
+    Returns the host loop's launches."""
+    launches = {}
+    for loop, kw, base in (
+            ("host loop", {}, lm),
+            ("device loop", dict(use_device_loop=True, device_loop_chunk_iterations=VENICE_STEPS),
+             lm_device)):
+        label = f"venice inner iterations, {loop}"
+        s, n, peak, rate = venice_solve(label, device, problem, program, initial,
+                                        use_inner_iterations=True, **kw)
+        print(f"[{label}] num_inner_iteration_steps {s.num_inner_iteration_steps} (counted as "
+              f"the JAX package counts them); beside LM without inner iterations (phase "
+              f"{11 if loop == 'host loop' else 16}): LM steps/s {rate:.4f} against "
+              f"{base['rate']:.4f}, final cost {s.final_cost!r} against {base['cost']!r}, peak "
+              f"{peak:.3f} against {base['peak']:.3f} GiB"
+              + (f", capture {s.device_loop_capture_time_in_seconds:.4f} against "
+                 f"{base['capture']:.4f} s" if kw else ""))
+        if not kw:
+            check(n["K3"] == s.num_linear_solves, f"{label}: K3 launched {n['K3']} times")
+            launches[label] = n
+        else:
+            check(s.device_loop_capture_time_in_seconds > 0.0, f"{label}: no graph captured")
+    return launches
+
+
+def phase_venice_problem_api(device, problem, program, cams, initial, lm: dict) -> dict:
+    """Phase 22. Returns the host loop's launches and K3's numbers at
+    (f, e) = (6, 3)."""
+    from skeres_tpu_torch.models.manifolds import SubsetManifold
+    from skeres_tpu_torch.ops.cholesky import PANEL
+    from skeres_tpu_torch.ops.pair_product import pair_products, pair_products_reference
+
+    nc = VENICE["num_cameras"]
+    ci = cams.group_index
+    euclidean = cams._group.manifold
+    problem.set_manifold(cams, SubsetManifold(9, [6, 7, 8]))
+    problem.set_parameter_block_constant(cams[0])
+    try:
+        t0 = time.time()
+        declared = problem.compile()
+        for grp, v in zip(program.groups, initial):
+            grp.values = v.copy()
+        schur, data, g, diag = linearize(declared, device, torch.float32, VENICE_CHUNK)
+        plan = schur.explicit_plan
+        print(f"[venice Problem API] camera 0 constant, SubsetManifold(9, [6, 7, 8]) on every "
+              f"camera: compile and first linearization {time.time() - t0:.2f} s; path "
+              f"{schur.schur_path}; S {schur.num_f} rows; plan: kp {plan.kp}, {plan.n_uniq} unique "
+              f"camera pairs; effective parameters {declared.num_effective_parameters_reduced} of "
+              f"{declared.num_effective_parameters}")
+        check(schur.f_size == 6 and schur.num_f == 6 * nc and schur.schur_path == "explicit",
+              "venice Problem API: not the explicit S of 6-parameter cameras")
+        asm = first_assembly(schur, data, g, diag)
+        grid = asm["explicit_grid"]["grid"].contiguous()
+        cinv_flat = asm["cinv"].reshape(-1, 9).contiguous()
+        del asm
+        kern, plain = k3_tables(plan, grid, cinv_flat)
+        err, rel = rel_err(kern, plain)
+        print(f"[K3] (f, e) = (6, 3) at venice shape float32: table max|err| {err:.3e} "
+              f"(rel {rel:.3e})")
+        check(rel <= K3_RTOL[torch.float32], f"K3 (6, 3) venice: rel error {rel:.3e}")
+        del kern, plain
+        swap, valid, kl = plan.swap_mask, plan.pair_valid, plan.pair_kl
+        run_k = lambda: pair_products(grid, cinv_flat, swap, valid, kl, 6, 3)  # noqa: E731
+        run_p = lambda: pair_products_reference(grid, cinv_flat, swap, valid, kl, 6, 3,  # noqa: E731
+                                                plan.chunk_points)
+        t = [cuda_ms(run_k, calls=5), cuda_ms(run_p, calls=1), cuda_ms(run_p, calls=1),
+             cuda_ms(run_k, calls=5)]
+        moved = (plan.n_pair_rows * 36 + grid.numel() + cinv_flat.numel()) * 4 + 2 * swap.numel()
+        flop = 2 * plan.np_ * (plan.kp * 6 * 3 * 3 + plan.npairs * 6 * 6 * 3)
+        k3 = dict(err=err, ms=min(t[0], t[3]), plain_ms=min(t[1], t[2]), moved=moved, flop=flop)
+        print(f"[timing] K3 (6, 3) venice shape ({plan.n_pair_rows} pair rows, {moved / 1e9:.3f} "
+              f"GB moved): kernel {t[0]:.4f}/{t[3]:.4f} ms ({moved / 1e6 / k3['ms']:.1f} GB/s), "
+              f"plain {t[1]:.4f}/{t[2]:.4f} ms (median of 20 runs)")
+        del schur, data, g, diag, grid, cinv_flat, plan
+        panels = math.ceil(6 * nc / PANEL)
+        launches = {}
+        for loop, kw in (("host loop", {}),
+                         ("device loop", dict(use_device_loop=True,
+                                              device_loop_chunk_iterations=VENICE_STEPS))):
+            label = f"venice Problem API, {loop}"
+            s, n, peak, rate = venice_solve(label, device, problem, declared, initial, **kw)
+            # the solve's state is float32: compare with the float32 values it started from
+            cams_after = declared.groups[ci].values
+            cams_before = initial[ci].astype(np.float32).astype(np.float64)
+            print(f"[{label}] beside LM on the full cameras (phase {11 if not kw else 16}): "
+                  f"LM steps/s {rate:.4f}; {s.num_effective_parameters_reduced} effective "
+                  f"parameters; K3 launches {n['K3']}, trailing-update launches "
+                  f"{n['K2 update']} for {s.num_linear_solves} damped solves ({panels} panels)")
+            check(s.schur_complement_path == "explicit", f"{label}: not the explicit path")
+            check(np.array_equal(cams_after[0], cams_before[0]), f"{label}: camera 0 moved")
+            check(np.array_equal(cams_after[:, 6:], cams_before[:, 6:]),
+                  f"{label}: the held intrinsics moved")
+            if not kw:
+                check(n["K3"] == s.num_linear_solves
+                      and n["K2 update"] >= (panels - 1) * s.num_linear_solves,
+                      f"{label}: K3 or K2 did not launch on every damped solve")
+                launches[label] = n
+        print(f"[venice Problem API] LM on the full cameras (phase 11): {lm['rate']:.4f} LM "
+              f"steps/s, final cost {lm['cost']!r}")
+    finally:
+        problem.set_manifold(cams, euclidean)
+        problem.set_parameter_block_variable(cams[0])
+        for grp, v in zip(program.groups, initial):
+            grp.values = v.copy()
+    return dict(launches=launches, k3=k3)
+
+
+def solve_declared(bal, device, dtype, iters, declare="", **kw):
+    """:func:`solve_bal` (DENSE_SCHUR) with phase 23's declarations:
+    "bounds" (every focal length within 0.1 % of its value) or
+    "gauge+subset" (camera 0 constant, a SubsetManifold holding f, k1, k2)."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.types import LinearSolverType
+    from skeres_tpu_torch.io.bal import build_bal_problem
+    from skeres_tpu_torch.models.manifolds import SubsetManifold
+
+    problem, cams, _ = build_bal_problem(bal)
+    if declare == "bounds":
+        for i in range(len(cams)):
+            f = float(cams.values[i, 6])
+            problem.set_parameter_lower_bound(cams[i], 6, 0.999 * f)
+            problem.set_parameter_upper_bound(cams[i], 6, 1.001 * f)
+    elif declare == "gauge+subset":
+        problem.set_manifold(cams, SubsetManifold(9, [6, 7, 8]))
+        problem.set_parameter_block_constant(cams[0])
+    return stt.solve(stt.SolverOptions(
+        linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=iters,
+        run_full_iteration_budget=True, dtype=dtype, device=device, **kw), problem)
+
+
+def phase_trust_region_card_vs_cpu(device) -> dict:
+    """Phase 23. Returns the card's launches by path (host loop)."""
+    from skeres_tpu_torch.core import schur as schur_mod
+    from skeres_tpu_torch.core.types import DoglegType, TrustRegionStrategyType
+    from skeres_tpu_torch.io.bal import synthetic_bal
+    from skeres_tpu_torch.ops.cholesky import cholesky_both
+    from skeres_tpu_torch.ops.pair_product import pair_products
+
+    bal = synthetic_bal(16, 500, 4)
+    loop = dict(use_device_loop=True, device_loop_chunk_iterations=4)
+    cases = [(f"{d} {path}", path, dict(trust_region_strategy_type=TrustRegionStrategyType.DOGLEG,
+                                        dogleg_type=DoglegType[d]))
+             for path in ("dense-W", "explicit") for d in ("TRADITIONAL_DOGLEG", "SUBSPACE_DOGLEG")]
+    for name, kw in (("inner iterations", dict(use_inner_iterations=True)),
+                     ("bounds", dict(declare="bounds")),
+                     ("gauge+subset", dict(declare="gauge+subset"))):
+        cases += [(f"{name} host loop", "dense-W", kw), (f"{name} device loop", "dense-W",
+                                                         {**kw, **loop})]
+    launches = {}
+    saved = schur_mod.DENSE_W_LIMIT_BYTES
+    for label, path, kw in cases:
+        schur_mod.DENSE_W_LIMIT_BYTES = 0 if path == "explicit" else saved
+        try:
+            reset_launches()
+            card = card_vs_cpu(device, bal, f"trust region {label}", solve=solve_declared, **kw)
+        finally:
+            schur_mod.DENSE_W_LIMIT_BYTES = saved
+        check(card.schur_complement_path == path, f"trust region {label}: path "
+              f"{card.schur_complement_path}")
+        if "use_device_loop" not in kw:
+            launches[f"synthetic_bal(16, 500, 4) {label}"] = {
+                "K1": cholesky_both.launches, "K3": pair_products.launches}
+        if "dogleg_type" in kw:
+            print(f"[trust region {label}] Gauss-Newton solve iterations on the card "
+                  f"{card.dogleg_gauss_newton_iterations}, Cauchy steps "
+                  f"{card.num_dogleg_cauchy_steps}")
+    return launches
+
+
 def bound(nbytes: float, flop: float, flops_per_s: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / flops_per_s
@@ -1408,18 +1689,26 @@ def main() -> int:
     timed("card vs CPU", phase_card_vs_cpu, device)
     timed("explicit vs dense W", phase_explicit_vs_dense_w, device)
     timed("card vs CPU explicit", phase_card_vs_cpu_explicit, device)
-    problem, program = timed("venice scene", venice_scene)
+    problem, program, cams = timed("venice scene", venice_scene)
     venice = timed("venice", phase_venice, device, program)
     initial = [g.values.copy() for g in program.groups]
-    up_launches, k3_launches, venice_host_rate, venice_cost = timed(
+    up_launches, k3_launches, lm_host = timed(
         "venice solve", phase_venice_solve, device, problem, program)
     # phase 16 before any other graph: its traced solve must be this
     # process's first CUDA graph (see the note above trace_launches)
-    timed("device loop venice", phase_venice_device_loop, device, problem, program, initial,
-          venice_host_rate)
+    lm_device = timed("device loop venice", phase_venice_device_loop, device, problem, program,
+                      initial, lm_host["rate"])
     venice_paths = timed("venice iterative", phase_venice_iterative, device, problem, program,
-                            initial, venice_cost)
-    del problem, program, initial
+                            initial, lm_host["cost"])
+    tr_paths = {
+        **timed("venice dogleg", phase_venice_dogleg, device, problem, program, initial, lm_host),
+        **timed("venice inner iterations", phase_venice_inner, device, problem, program, initial,
+                lm_host, lm_device),
+    }
+    api = timed("venice Problem API", phase_venice_problem_api, device, problem, program, cams,
+                initial, lm_host)
+    tr_paths.update(api["launches"])
+    del problem, program, initial, cams
     torch.cuda.empty_cache()
     big_paths = {**venice_paths, **timed("past cap", phase_past_cap, device)}
     torch.cuda.empty_cache()
@@ -1428,6 +1717,7 @@ def main() -> int:
     timed("device loop explicit", phase_device_loop_explicit, device)
     timed("device loop BAL-49", phase_device_loop_bal49, device)
     solver_paths = timed("solvers card vs CPU", phase_solvers_card_vs_cpu, device)
+    solver_paths.update(timed("trust region card vs CPU", phase_trust_region_card_vs_cpu, device))
     k3_err, k3_ms, k3_plain, k3_bytes, k3_flop = venice["k3"]
     k2_ms, k2_plain, k2_library, k2_n = venice["k2"]
     n1 = 9 * 49  # K1's n on the main path: the BAL-49 S
@@ -1447,7 +1737,9 @@ def main() -> int:
             "replaces": "skeres_tpu/ops/pallas/cholesky.py:98",
             "launches": k1_launches,
             "launches_by_path": {"BAL-49 DENSE_SCHUR": k1_launches, **{
-                f"synthetic_bal(16, 500, 4) {k}": v["K1"] for k, v in solver_paths.items()}},
+                (k if k.startswith("synthetic") else f"synthetic_bal(16, 500, 4) {k}"): v["K1"]
+                for k, v in solver_paths.items()}, **{
+                f"{k} (panels inside K2)": v["K1"] for k, v in tr_paths.items()}},
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": k1_plain,
@@ -1462,7 +1754,8 @@ def main() -> int:
             "replaces": "skeres_tpu/ops/pallas/cholesky.py:249",
             "launches": up_launches,
             "launches_by_path": {"venice DENSE_SCHUR": up_launches,
-                                 **{k: v["K2 update"] for k, v in big_paths.items()}},
+                                 **{k: v["K2 update"] for k, v in big_paths.items()},
+                                 **{k: v["K2 update"] for k, v in tr_paths.items()}},
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain,
@@ -1477,11 +1770,16 @@ def main() -> int:
             "replaces": "skeres_tpu/ops/pallas/pair_product.py:49",
             "launches": k3_launches,
             "launches_by_path": {"venice DENSE_SCHUR": k3_launches,
-                                 **{k: v["K3"] for k, v in big_paths.items()}, **{
-                f"synthetic_bal(16, 500, 4) {k}": v["K3"] for k, v in solver_paths.items()}},
+                                 **{k: v["K3"] for k, v in big_paths.items()},
+                                 **{k: v["K3"] for k, v in tr_paths.items()}, **{
+                (k if k.startswith("synthetic") else f"synthetic_bal(16, 500, 4) {k}"): v["K3"]
+                for k, v in solver_paths.items()}},
             "max_abs_err": k3_err,
             "ms": k3_ms,
             "cluster_plan_ms": venice["k3_cluster_ms"],
+            "f6_e3": {"max_abs_err": api["k3"]["err"], "ms": api["k3"]["ms"],
+                      "plain_ms": api["k3"]["plain_ms"],
+                      "bound_ms": bound(api["k3"]["moved"], api["k3"]["flop"], 67e12)[0]},
             "plain_ms": k3_plain,
             "bound_ms": k3_bound[0],
             "bound_by": k3_bound[1],

@@ -10,14 +10,16 @@ form, and the pair products of the explicit Schur complement) are CUDA
 kernels written for Hopper (``csrc/cholesky.cu``, ``csrc/pair_product.cu``).
 
 This package imports torch and never jax or skeres_tpu. It runs the
-Levenberg-Marquardt trust region with every linear solver of the JAX
-package (DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR, DENSE_SCHUR,
-ITERATIVE_SCHUR and its preconditioners), on the host loop or the device
-loop; what it does not run yet (dogleg, the line search, inner iterations,
-a mesh) raises ``NotImplementedError``.
+trust region (Levenberg-Marquardt on the host loop or the device loop,
+dogleg on the host loop) with every linear solver of the JAX package
+(DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR, DENSE_SCHUR, ITERATIVE_SCHUR and
+its preconditioners), inner iterations and trust-region dumps; its
+``Problem`` has every manifold of the JAX package, constant blocks,
+bounds, numeric differentiation, block removal and ``evaluate``. What it
+does not run yet (the line-search minimizer, the gradient checker, a
+mesh) raises ``NotImplementedError``.
 """
 
-from skeres_tpu_torch.models.manifolds import EuclideanManifold
 from skeres_tpu_torch.ops.loss import (
     ArctanLoss,
     CauchyLoss,
@@ -40,6 +42,12 @@ def __getattr__(name):
 
     _core = {
         "Problem": "skeres_tpu_torch.core.problem",
+        "ResidualBlockId": "skeres_tpu_torch.core.problem",
+        **dict.fromkeys(
+            ("Manifold", "EuclideanManifold", "SubsetManifold", "QuaternionManifold",
+             "EigenQuaternionManifold", "SphereManifold", "LineManifold", "AngleManifold",
+             "ProductManifold"),
+            "skeres_tpu_torch.models.manifolds"),
         "SolverOptions": "skeres_tpu_torch.core.options",
         "Summary": "skeres_tpu_torch.core.summary",
         "solve": "skeres_tpu_torch.core.solver",

@@ -20,6 +20,12 @@ compiles a chunk of the LM loop into one XLA program (``lax.while_loop``,
   ``it``, since one graph serves every iteration;
 - after the K replays the host makes ONE packed device-to-host fetch.
 
+A bounded problem's candidate is projected onto the box and its
+convergence test reads the projected gradient, as in the JAX package's
+device loop, which has no projected line search (the host loop's); inner
+iterations refine the candidate inside the step, their tolerance-stopped
+sweeps one WHILE node.
+
 On the CPU the same step runs eagerly (``cond`` reads its predicate), so
 the CPU tests hold the port's device loop against the JAX package's.
 
@@ -188,8 +194,8 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
     def _body(self) -> None:
         """One LM step on the carry (``skeres_tpu/core/device_loop.py:122-285``)."""
         c, o = self._carry, self.options
-        cand, mcc, step_norm, lin_iters, jitter = self.solve_step(
-            c.state, c.data, c.g, c.diag, c.scale, c.radius, c.jitter
+        cand, mcc, step_norm, lin_iters, jitter, _ = self.solve_step(
+            c.state, c.data, c.g, c.diag, c.scale, c.radius, c.jitter, line_search=False
         )
         new_cost, x_norm = self.try_step(cand)
         valid = (torch.isfinite(new_cost) & torch.isfinite(mcc) & torch.isfinite(step_norm)
@@ -209,7 +215,7 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
         cond(accepted, lambda: self._relinearize(cand))
 
         # convergence tests on the post-step carry
-        g_max = torch.max(torch.abs(c.g))
+        g_max = self.gradient_max_norm(c.state, c.g)
         term = c.term
         if not o.run_full_iteration_budget:  # benchmark mode: no termination
             running = lambda t: t == _RUNNING  # noqa: E731

@@ -12,6 +12,14 @@ are assembled by planned segment reductions (``ops/segment_reduce.py``).
 The JAX package pads every batch with weight-0 copies of row 0 so that
 chunks and shards have static shapes; PyTorch needs no static shapes, so
 the port has no pad rows and a short last chunk instead.
+
+Constant blocks keep their tangent columns, zeroed, as in the JAX package
+(its free mask, ``Program.free_mask``): the Jacobian columns of a constant
+block, and its share of every step (``plus``, ``tangent_diff``). The JAX
+package multiplies each batch by a (B, T) copy of the mask; here each slot
+whose group holds a constant block multiplies its columns by its rows'
+(B,) block flags, which is the same product and no (B, T) array (180 MB at
+venice shape). ``project_bounds`` clamps a state into the bounds box.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from skeres_tpu_torch.core.gradient_checker import numeric_jacobian, ridders_jacobian
 from skeres_tpu_torch.core.problem import CompiledBatch, Program
 from skeres_tpu_torch.ops.corrector import apply_loss
 from skeres_tpu_torch.ops.segment_reduce import apply_reduce_plan, build_reduce_plan
@@ -57,6 +66,7 @@ class Evaluator:
         dtype=torch.float64,
         chunk_size: Optional[int] = None,
         diff_mode: str = "auto",
+        apply_loss_function: bool = True,
     ):
         if diff_mode not in ("auto", "forward", "reverse"):
             raise ValueError(f"jacobian_diff_mode {diff_mode!r}")
@@ -65,7 +75,21 @@ class Evaluator:
         self.dtype = dtype
         self.chunk_size = chunk_size
         self.diff_mode = diff_mode
+        # False: evaluate without the robustifier (Problem.evaluate's
+        # apply_loss_function)
+        self.apply_loss_function = apply_loss_function
         self.num_tangent = program.num_tangent
+        # the free mask (N,) and per group the blocks' 0/1 flags (None for a
+        # group with no constant block); None when every block is free
+        self._free_mask = None
+        self._block_free = [None] * len(program.groups)
+        if not bool(np.all(program.free_mask)):
+            self._free_mask = torch.as_tensor(program.free_mask, dtype=dtype).to(self.device)
+            for gi, g in enumerate(program.groups):
+                if any(g.constant):
+                    self._block_free[gi] = torch.tensor(
+                        [0.0 if c else 1.0 for c in g.constant], dtype=dtype, device=self.device)
+        self._bounds = program.bounds_arrays(self.device, dtype) if program.has_bounds else None
 
         # per batch: (data, per-slot block indices, (B, T) tangent indices)
         self._batch_const = []
@@ -126,7 +150,7 @@ class Evaluator:
         xs = self._gather_slots(batch, idx, state)
         r = torch.func.vmap(lambda d, *x: batch.fn(tuple(x), _row_data(batch, d)))(data, *xs)
         s = torch.sum(r * r, dim=-1)
-        if batch.loss is None:
+        if batch.loss is None or not self.apply_loss_function:
             return 0.5 * s
         return 0.5 * batch.loss.evaluate(s)[0]
 
@@ -148,6 +172,13 @@ class Evaluator:
                 xp = tuple(mf.plus(x, d) for mf, x, d in zip(manifolds, x_row, ds))
                 return batch.fn(xp, _row_data(batch, data_row))
 
+            if batch.numeric_diff:
+                # reference: NumericDiffCostFunction, for residuals whose
+                # derivative torch.func cannot give
+                if batch.numeric_diff_method == "ridders":
+                    return f(zero), ridders_jacobian(f, zero, batch.numeric_diff_step)
+                return f(zero), numeric_jacobian(f, zero, batch.numeric_diff_step,
+                                                 batch.numeric_diff_method)
             if reverse:
                 r, vjp_fn = torch.func.vjp(f, zero)
                 (jac_rows,) = torch.func.vmap(vjp_fn)(basis)  # (m, T)
@@ -158,7 +189,16 @@ class Evaluator:
             return f(zero), jac_cols.transpose(0, 1)
 
         r, jac = torch.func.vmap(one_block)(data, *xs)
-        cost, r_c, (jac_c,) = apply_loss(batch.loss, r, [jac])
+        cost, r_c, (jac_c,) = apply_loss(batch.loss if self.apply_loss_function else None,
+                                          r, [jac])
+        flags = [self._block_free[gi] for gi in batch.slot_groups]
+        if any(f is not None for f in flags):  # zero the constant blocks' columns
+            mask = torch.cat([
+                torch.ones((r.shape[0], t), dtype=self.dtype, device=self.device) if f is None
+                else f[ix][:, None].expand(-1, t)
+                for f, ix, t in zip(flags, idx, batch.tangent_sizes)
+            ], dim=1)
+            jac_c = jac_c * mask[:, None, :]
         return cost, r_c, jac_c
 
     # -- public functions ----------------------------------------------------------
@@ -277,13 +317,32 @@ class Evaluator:
         return torch.cat(parts, dim=1)
 
     def plus(self, state, step):
-        """x <- x (+) step, step (N,) in the global tangent space."""
+        """x <- x (+) step, step (N,) in the global tangent space (the
+        constant blocks' share zeroed)."""
+        if self._free_mask is not None:
+            step = step * self._free_mask
         new_state = []
         for g, o, x in zip(self.program.groups, self.program.tangent_offset, state):
             nb, t = g.num_blocks, g.tangent_size
             delta = step[o : o + nb * t].reshape(nb, t).to(x.dtype)
             new_state.append(g.manifold.plus(x, delta))
         return tuple(new_state)
+
+    def tangent_diff(self, y_state, x_state):
+        """The global tangent step ``y (-) x`` (N,), per group
+        ``manifold.minus`` (the constant blocks' share zeroed): the
+        effective step of a candidate projected onto the bounds box."""
+        out = torch.cat([
+            g.manifold.minus(y, x).to(self.dtype).reshape(-1)
+            for g, y, x in zip(self.program.groups, y_state, x_state)
+        ])
+        return out if self._free_mask is None else out * self._free_mask
+
+    def project_bounds(self, state):
+        """Clamp ambient coordinates into [lower, upper]."""
+        if self._bounds is None:
+            return state
+        return tuple(torch.clamp(x, lo, hi) for x, lo, hi in zip(state, *self._bounds))
 
     def x_norm(self, state):
         return torch.sqrt(sum(torch.sum(x.to(self.dtype) ** 2) for x in state))

@@ -1,27 +1,36 @@
-"""Trust-region minimizer: the outer Levenberg-Marquardt loop.
+"""Trust-region minimizer: the outer Levenberg-Marquardt / dogleg loop.
 
 PyTorch counterpart of the host loop of ``skeres_tpu/core/minimizer.py``
 (reference lineage: ``internal/ceres/trust_region_minimizer.cc``,
-``levenberg_marquardt_strategy.cc``, ``trust_region_step_evaluator.cc``).
-Each iteration runs ``solve_step`` (the damped solve of the chosen linear
-solver + candidate) and ``try_step`` (residual-only evaluation); ``linearize`` (the full
-Jacobian pass) runs only after accepted steps, and returns what the device
-loop (``core/device_loop.py``) copies into its carry. The device computes,
-and only scalars cross to the host: one fetch per linearization and per
-step, plus the jitter ladder's finiteness read.
+``levenberg_marquardt_strategy.cc``, ``dogleg_strategy.cc``,
+``trust_region_step_evaluator.cc``). Each iteration runs ``solve_step``
+(the damped solve of the chosen linear solver, or a dogleg step, and the
+candidate) and ``try_step`` (residual-only evaluation); ``linearize`` (the
+full Jacobian pass, and for dogleg the Gauss-Newton point, solved once a
+linearization and kept across rejected steps) runs only after accepted
+steps, and returns what the device loop (``core/device_loop.py``) copies
+into its carry. The device computes, and only scalars cross to the host:
+one fetch per linearization and per step, plus the jitter ladder's
+finiteness read.
 
 The D clamping, the radius update, the non-monotonic step window and the
 convergence tests are the reference's formulas, so iteration counts match
 the JAX package step for step. The hooks sit where the JAX minimizer has
 them: the evaluation callback before each evaluation, the iteration
 callbacks and ``update_state_every_iteration`` after iteration 0 and each
-valid step, a checkpoint after each accepted one, and a resumed solve's
-radius and iteration count (``initial_radius_override``,
-``initial_iteration``). The linear solvers branch as in the JAX minimizer
-(``_solver_data``, ``_solve_damped``, ``_scale_data``, ``_jtj_dx``): the
-Schur solvers scale and prepare their data once per linearization, the
-others scale at solve time. Dogleg, bounds, inner iterations and dumps are
-still to port.
+valid step, a checkpoint after each accepted one, the trust-region dumps
+after each damped solve, and a resumed solve's radius and iteration count
+(``initial_radius_override``, ``initial_iteration``). The linear solvers
+branch as in the JAX minimizer (``_solver_data``, ``_solve_damped``,
+``_scale_data``, ``_jtj_dx``): the Schur solvers scale and prepare their
+data once per linearization, the others scale at solve time.
+
+Bounds: the candidate is projected onto the box and the model sees the
+effective (projected) step; a step the projection clipped takes the
+projected Armijo line search (its loop a :func:`while_loop`, its branch a
+:func:`cond`); the gradient tolerance reads the projected gradient. Inner
+iterations (``core/inner_iterations.py``) refine the candidate before its
+cost is taken, as the reference orders them.
 """
 
 from __future__ import annotations
@@ -29,12 +38,16 @@ from __future__ import annotations
 import inspect
 import logging
 import math
+import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from skeres_tpu_torch.core.evaluator import BatchBlocks, Evaluator
+from skeres_tpu_torch.core.graph import cond, while_loop
 from skeres_tpu_torch.core.linear_solvers import (
     cho_solve,
     cholesky_nan,
@@ -47,10 +60,13 @@ from skeres_tpu_torch.core.schur import SchurSolver
 from skeres_tpu_torch.core.summary import IterationSummary, Summary
 from skeres_tpu_torch.core.types import (
     CallbackReturnType,
+    DoglegType,
+    DumpFormatType,
     LinearSolverType,
     LoggingType,
     PreconditionerType,
     TerminationType,
+    TrustRegionStrategyType,
 )
 from skeres_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -114,8 +130,9 @@ _SCHUR_TYPES = (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR)
 
 
 class TrustRegionMinimizer:
-    """LM host loop over the evaluator and the linear solver ``solver_type``
-    (with ``schur_solver`` for the two Schur types)."""
+    """Trust-region host loop over the evaluator and the linear solver
+    ``solver_type`` (with ``schur_solver`` for the two Schur types, and
+    ``inner_refiner`` for inner iterations)."""
 
     def __init__(
         self,
@@ -124,12 +141,19 @@ class TrustRegionMinimizer:
         summary: Summary,
         solver_type: LinearSolverType,
         schur_solver: Optional[SchurSolver] = None,
+        inner_refiner=None,
     ):
         self.ev = evaluator
         self.options = options
         self.summary = summary
         self.solver_type = solver_type
         self.schur_solver = schur_solver
+        self.inner_refiner = inner_refiner
+        self.dogleg = options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
+        # dogleg's counts on the device (Summary.dogleg_gauss_newton_iterations,
+        # num_dogleg_cauchy_steps), read once when the loop ends
+        self._gn_iters = []
+        self._cauchy = []
         if (solver_type in _SCHUR_TYPES) != (schur_solver is not None):
             raise ValueError(f"{solver_type.value} with schur_solver={schur_solver!r}")
         # set by solve() when resuming from a checkpoint
@@ -298,9 +322,19 @@ class TrustRegionMinimizer:
 
     # -- the three per-iteration programs ----------------------------------------
 
+    def gradient_max_norm(self, state, g):
+        """max|g|, or where the problem is bounded the projected gradient's
+        max|x - P(x - g)| (reference: trust_region_minimizer.cc): the raw
+        |g| never vanishes at an active bound."""
+        ev = self.ev
+        if ev.program.has_bounds:
+            g = ev.tangent_diff(ev.project_bounds(ev.plus(state, -g)), state)
+        return torch.max(torch.abs(g))
+
     def linearize(self, state, scale_prev=None):
         """Full evaluation at ``state``: (cost, g, diag, prepared solver
-        data, scale, max|g|, ||g||). The Jacobi column scaling
+        data, scale, max|g|, ||g||), and for dogleg the Gauss-Newton point
+        in the scaled space after them. The Jacobi column scaling
         ``1 / (1 + sqrt(diag))`` is computed fresh unless ``scale_prev``
         pins it (refresh_jacobi_scaling=False)."""
         ev = self.ev
@@ -313,22 +347,185 @@ class TrustRegionMinimizer:
         else:
             scale = scale_prev
         data = self._prep_data(blocks, scale)
-        return cost, g, diag, data, scale, torch.max(torch.abs(g)), torch.sqrt(torch.sum(g * g))
-
-    def solve_step(self, state, data, g, diag, scale, radius, jitter):
-        """Damped solve in the scaled space J_s = J S and the candidate.
-        ``radius`` is a float or a device scalar, ``jitter`` a device
-        scalar. Returns (new_state, model_cost_change, step_norm, linear
-        solver iterations, jitter_used), all on the device."""
+        out = (cost, g, diag, data, scale, self.gradient_max_norm(state, g),
+               torch.sqrt(torch.sum(g * g)))
+        if not self.dogleg:
+            return out
+        # the Gauss-Newton point: one (nearly) undamped solve a
+        # linearization, reused across every radius change (reference:
+        # dogleg_strategy.cc ComputeGaussNewtonStep); the JAX package's
+        # _solve_scaled(..., jitter=None) starts the ladder at 0
         scaled = data if self.schur_solver is not None else self._scale_data(data, scale)
-        y, lin_iters, jitter_used = self._solve_damped(
-            scaled, g * scale, diag * scale * scale, radius, jitter)
+        y_gn, iters, _ = self._solve_damped(scaled, g * scale, diag * scale * scale, 1e32,
+                                            torch.zeros((), dtype=g.dtype, device=g.device))
+        self._gn_iters.append(iters)
+        return out + (y_gn,)
+
+    def solve_step(self, state, data, g, diag, scale, radius, jitter, y_gn=None, cost=None,
+                   line_search=True):
+        """The step in the scaled space J_s = J S and the candidate: the
+        damped solve, or with dogleg the dogleg step from ``y_gn``.
+        ``radius`` is a float or a device scalar, ``jitter`` a device
+        scalar; ``cost`` (the current cost) feeds the projected line search
+        of a bounded problem, which ``line_search=False`` leaves out (the
+        device loop, as the JAX package's, only projects). Returns
+        (new_state, model_cost_change, step_norm, linear solver
+        iterations, jitter_used, dx), all on the device."""
+        ev = self.ev
+        gs = g * scale
+        if self.dogleg:
+            step = (self._subspace_dogleg_step if self.options.dogleg_type
+                    == DoglegType.SUBSPACE_DOGLEG else self._dogleg_step)
+            y, lin_iters, cauchy = step(data, scale, gs, y_gn, radius)
+            self._cauchy.append(cauchy)
+            jitter_used = jitter
+        else:
+            scaled = data if self.schur_solver is not None else self._scale_data(data, scale)
+            y, lin_iters, jitter_used = self._solve_damped(
+                scaled, gs, diag * scale * scale, radius, jitter)
         dx = y * scale
-        new_state = self.ev.plus(state, dx)
+        new_state = ev.plus(state, dx)
+        if ev.program.has_bounds:
+            # reference bounds semantics: the candidate is the projection
+            # onto the box, and the model sees the effective step
+            projected = ev.project_bounds(new_state)
+            if line_search and self.options.max_num_line_search_step_size_iterations > 0:
+                new_state = self._projected_line_search(state, data, g, scale, dx, projected,
+                                                        cost)
+            else:
+                new_state = projected
+            dx = ev.tangent_diff(new_state, state)
+            y = dx / scale
         dx_jtj_dx = self._model_quadratic(data, dx, scale)
         model_cost_change = -(torch.dot(g, dx) + 0.5 * dx_jtj_dx)
         step_norm = torch.sqrt(torch.sum(y * y))  # scaled-space norm
-        return new_state, model_cost_change, step_norm, lin_iters, jitter_used
+        if self.inner_refiner is not None:
+            # reference order: inner iterations refine the candidate before
+            # its cost decides the step
+            new_state = self.inner_refiner.refine(new_state)
+        return new_state, model_cost_change, step_norm, lin_iters, jitter_used, dx
+
+    def _projected_line_search(self, state, data, g, scale, dx, projected, cost):
+        """The projected Armijo line search on a step the projection clipped
+        (``skeres_tpu/core/minimizer.py:525-611``). Its direction is the TR
+        step, or where the projected step would ascend along the active
+        face, the projected Cauchy direction ``-t_c g``; it takes the first
+        alpha in 1, 1/2, ... (at most max_num_line_search_step_size_iterations
+        + 1 tries) with f(P(x + alpha d)) <= f(x) + c1 g.(P(x + alpha d) - x),
+        and where none holds, the plain projected step (the trust region
+        then rejects and shrinks). Returns the candidate."""
+        ev, o = self.ev, self.options
+        dtype, device = g.dtype, g.device
+        eff0 = ev.tangent_diff(projected, state)
+        g2 = torch.sum(g * g)
+        t_c = g2 / torch.clamp(self._model_quadratic(data, g, scale), min=torch.finfo(dtype).tiny)
+        d_vec = torch.where(torch.dot(g, eff0) < 0.0, dx, -t_c * g)
+        c1 = o.line_search_sufficient_function_decrease
+        max_k = int(o.max_num_line_search_step_size_iterations)
+        alpha = torch.ones((), dtype=dtype, device=device)
+        k = torch.zeros((), dtype=torch.int64, device=device)
+        ok = torch.zeros((), dtype=torch.bool, device=device)
+
+        def body():
+            cand = ev.project_bounds(ev.plus(state, alpha * d_vec))
+            accept = ev.cost(cand) <= cost + c1 * torch.dot(g, ev.tangent_diff(cand, state))
+            alpha.copy_(torch.where(accept, alpha, alpha * 0.5))
+            k.add_(1)
+            ok.copy_(accept)
+
+        clipped = torch.any(torch.abs(eff0 - dx) > 0.0)
+        cond(clipped, lambda: while_loop(lambda: (~ok) & (k <= max_k), body))
+        step = torch.where(clipped & ok, alpha * d_vec, dx)
+        return ev.project_bounds(ev.plus(state, step))
+
+    def _dogleg_step(self, data, scale, gs, y_gn, radius):
+        """Traditional dogleg in the Jacobi-scaled space (reference:
+        ``dogleg_strategy.cc`` ComputeTraditionalDoglegStep): the Cauchy
+        point, the Gauss-Newton point, or their segment's crossing of the
+        trust-region boundary; vector operations only. Returns (y, 1, took
+        the Cauchy point)."""
+        g2 = torch.dot(gs, gs)
+        g_b_g = torch.dot(gs, self._jtj_scaled(data, gs, scale))
+        alpha = g2 / torch.where(g_b_g > 0.0, g_b_g, torch.ones_like(g_b_g))
+        pc = -alpha * gs  # the Cauchy point
+        pc_norm = torch.sqrt(torch.sum(pc * pc))
+        gn_norm = torch.sqrt(torch.sum(y_gn * y_gn))
+        gn_ok = torch.isfinite(gn_norm)
+
+        # the segment pc -> gn: ||pc + beta d|| = radius
+        d = torch.where(gn_ok, y_gn, pc) - pc
+        dd = torch.dot(d, d)
+        pd = torch.dot(pc, d)
+        disc = torch.clamp(pd * pd + dd * (radius * radius - pc_norm * pc_norm), min=0.0)
+        beta = (-pd + torch.sqrt(disc)) / torch.where(dd > 0.0, dd, torch.ones_like(dd))
+        interp = pc + torch.clamp(beta, 0.0, 1.0) * d
+
+        g_norm = torch.sqrt(g2)
+        cauchy_capped = -(radius / torch.where(g_norm > 0.0, g_norm, torch.ones_like(g_norm))) * gs
+        take_gn = gn_ok & (gn_norm <= radius)
+        y = torch.where(take_gn, y_gn, torch.where(pc_norm >= radius, cauchy_capped, interp))
+        cauchy = ~take_gn & ((pc_norm >= radius) | ~gn_ok)
+        return y, torch.ones((), dtype=torch.int64, device=gs.device), cauchy
+
+    def _subspace_dogleg_step(self, data, scale, gs, y_gn, radius):
+        """2-D subspace dogleg (reference: ``dogleg_strategy.cc``
+        ComputeSubspaceDoglegStep): the quadratic model minimized exactly
+        on the trust-region disk within span{gradient, Gauss-Newton point}.
+        As in the JAX package, the boundary is parametrized by angle and
+        minimized by a 256-point grid and Newton polish from the best point
+        and from the best one more than pi/2 away (m(t) has at most two
+        local minima on the circle), in place of the reference's quartic.
+        A degenerate subspace takes the traditional step. Returns (y, 1,
+        took the Cauchy point)."""
+        dtype, device = gs.dtype, gs.device
+        one = torch.ones((), dtype=dtype, device=device)
+        g_norm = torch.sqrt(torch.dot(gs, gs))
+        b1 = gs / torch.where(g_norm > 0.0, g_norm, one)
+        v = y_gn - torch.dot(y_gn, b1) * b1
+        v_norm = torch.sqrt(torch.dot(v, v))
+        gn_ok = torch.isfinite(torch.dot(y_gn, y_gn))
+        ok = gn_ok & (v_norm > 1e-12 * torch.clamp(g_norm, min=1.0))
+        b2 = v / torch.where(v_norm > 0.0, v_norm, one)
+
+        bb1 = self._jtj_scaled(data, b1, scale)
+        bb2 = self._jtj_scaled(data, b2, scale)
+        b00, b01 = torch.dot(b1, bb1), torch.dot(b1, bb2)
+        b10, b11 = torch.dot(b2, bb1), torch.dot(b2, bb2)
+        g0, g1 = torch.dot(gs, b1), torch.dot(gs, b2)
+
+        # the interior minimizer of the 2x2 model, if positive definite and
+        # inside the disk
+        det = b00 * b11 - b01 * b10
+        inv_det = 1.0 / torch.where(det != 0.0, det, one)
+        x_int = torch.stack([-(b11 * g0 - b01 * g1) * inv_det, -(-b10 * g0 + b00 * g1) * inv_det])
+        interior_ok = (b00 > 0.0) & (det > 0.0) & (torch.dot(x_int, x_int) <= radius * radius)
+
+        def model(t):  # the model on the boundary x = radius (cos t, sin t)
+            x0, x1 = radius * torch.cos(t), radius * torch.sin(t)
+            return 0.5 * (b00 * x0 * x0 + 2.0 * b01 * x0 * x1 + b11 * x1 * x1) + g0 * x0 + g1 * x1
+
+        t = torch.arange(256, dtype=dtype, device=device) * (2.0 * math.pi / 256)
+        vals = model(t)
+        t0 = t[torch.argmin(vals)]
+        t1 = t[torch.argmin(torch.where(torch.cos(t - t0) < 0.0, vals, torch.inf))]
+        dm = torch.func.grad(model)
+        d2m = torch.func.grad(dm)
+
+        def newton(tt):
+            for _ in range(4):
+                h = d2m(tt)
+                tt = tt - dm(tt) / torch.where(torch.abs(h) > 1e-30, h, one)
+            return tt
+
+        # Newton may walk to a maximum: the best of all four
+        cands = torch.stack([newton(t0), newton(t1), t0, t1])
+        t_star = cands[torch.argmin(model(cands))]
+        x_bnd = radius * torch.stack([torch.cos(t_star), torch.sin(t_star)])
+        x_sub = torch.where(interior_ok, x_int, x_bnd)
+        y_sub = x_sub[0] * b1 + x_sub[1] * b2
+
+        y_trad, iters, cauchy = self._dogleg_step(data, scale, gs, y_gn, radius)
+        return torch.where(ok, y_sub, y_trad), iters, ~ok & cauchy
 
     def try_step(self, new_state):
         """Residual-only evaluation of the candidate: (cost, |x|)."""
@@ -344,6 +541,12 @@ class TrustRegionMinimizer:
         self._current_cost = float("inf")
         out = self._minimize_loop(state)
         s = self.summary
+        if self._gn_iters:  # one read of dogleg's counts
+            gn = torch.stack(self._gn_iters).tolist()
+            cauchy = torch.stack(self._cauchy).tolist() if self._cauchy else []
+            s.dogleg_gauss_newton_iterations = [int(v) for v in gn]
+            s.num_dogleg_cauchy_steps = int(sum(cauchy))
+            self._gn_iters, self._cauchy = [], []
         if self._best_state is not None and self._best_cost < self._current_cost:
             out = self._best_state
             s.final_cost = self._best_cost
@@ -376,7 +579,7 @@ class TrustRegionMinimizer:
 
         t0 = time.time()
         self._prepare_for_evaluation(True, True)
-        cost_d, g, diag, data, scale, g_max_d, g_norm_d = self.linearize(state)
+        cost_d, g, diag, data, scale, g_max_d, g_norm_d, *gn = self.linearize(state)
         cost, g_max_norm, g_norm = torch.stack([cost_d, g_max_d, g_norm_d]).tolist()
         s.jacobian_evaluation_time_in_seconds += time.time() - t0
         s.num_jacobian_evaluations += 1
@@ -428,14 +631,15 @@ class TrustRegionMinimizer:
             iter_start = time.time()
 
             t0 = time.time()
-            new_state, mcc_d, step_norm_d, lin_iters, jitter = self.solve_step(
-                state, data, g, diag, scale, radius, jitter
+            new_state, mcc_d, step_norm_d, lin_iters, jitter, dx = self.solve_step(
+                state, data, g, diag, scale, radius, jitter, *gn, cost=cost
             )
             if o.detailed_step_timings:
                 synchronize(device)
             step_solver_time = time.time() - t0
             s.linear_solver_time_in_seconds += step_solver_time
             s.num_linear_solves += 1
+            self._maybe_dump(iteration, state, data, g, diag, radius, dx)
 
             t0 = time.time()
             self._prepare_for_evaluation(False, True)
@@ -512,7 +716,7 @@ class TrustRegionMinimizer:
                 t0 = time.time()
                 self._prepare_for_evaluation(True, False)
                 pinned = o.jacobi_scaling and not o.refresh_jacobi_scaling
-                cost_d, g, diag, data, scale, g_max_d, g_norm_d = self.linearize(
+                cost_d, g, diag, data, scale, g_max_d, g_norm_d, *gn = self.linearize(
                     state, scale if pinned else None
                 )
                 cost, gmax, gnorm = torch.stack([cost_d, g_max_d, g_norm_d]).tolist()
@@ -595,7 +799,43 @@ class TrustRegionMinimizer:
             f" {it.cumulative_time_in_seconds:11.2e}"
         )
 
-    # -- hooks (skeres_tpu/core/minimizer.py:184-198, :1224-1279) ---------------
+    # -- hooks (skeres_tpu/core/minimizer.py:184-253, :1224-1279) ---------------
+
+    def _maybe_dump(self, iteration: int, state, data, g, diag, radius, dx):
+        """Trust-region linear-system dumps (reference:
+        TrustRegionMinimizer::MaybeDumpLinearLeastSquaresProblem, ``solver.h``
+        trust_region_problem_dump_*) at the iterations listed in
+        ``trust_region_minimizer_iterations_to_dump``. TEXTFILE writes
+        ``lm_iteration_NNN.npz`` into ``trust_region_problem_dump_directory``
+        with ``gradient``, ``lm_diagonal``, ``trust_region_radius``, ``step``
+        and ``state_<group>``, the same values as the JAX package's dump, and
+        ``solver_data_<k>``, the leaves of the linear solver's data in
+        ``torch.utils._pytree`` order. Those leaves follow the port's data,
+        not the JAX package's: no pad rows, and for the Schur solvers the
+        port's prepared dict (its keys sorted), not the JAX pytree, so their
+        number, order and shapes differ. CONSOLE prints shapes and norms."""
+        o = self.options
+        if iteration not in o.trust_region_minimizer_iterations_to_dump:
+            return
+        host = lambda t: t.detach().to("cpu").numpy()  # noqa: E731
+        leaves = [x for x in pytree.tree_leaves(data) if isinstance(x, torch.Tensor)]
+        if o.trust_region_problem_dump_format_type == DumpFormatType.CONSOLE:
+            lines = [f"LM iteration {iteration}: radius={float(radius):.6e} "
+                     f"|g|={float(torch.linalg.norm(g)):.6e} "
+                     f"|step|={float(torch.linalg.norm(dx)):.6e}"]
+            lines += [f"  solver_data[{k}]: shape {tuple(leaf.shape)} dtype {leaf.dtype}"
+                      for k, leaf in enumerate(leaves)]
+            print("\n".join(lines), flush=True)
+            return
+        if not o.trust_region_problem_dump_directory:
+            return
+        os.makedirs(o.trust_region_problem_dump_directory, exist_ok=True)
+        arrays = {"gradient": host(g), "lm_diagonal": host(diag),
+                  "trust_region_radius": np.asarray(float(radius)), "step": host(dx)}
+        arrays.update({f"state_{gi}": host(x) for gi, x in enumerate(state)})
+        arrays.update({f"solver_data_{k}": host(leaf) for k, leaf in enumerate(leaves)})
+        np.savez_compressed(os.path.join(o.trust_region_problem_dump_directory,
+                                         f"lm_iteration_{iteration:03d}.npz"), **arrays)
 
     def _maybe_checkpoint(self, state, radius: float, iteration: int, cost: float):
         """Save a checkpoint every ``checkpoint_every_n_iterations``-th

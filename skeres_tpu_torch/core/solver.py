@@ -9,13 +9,16 @@ of ``core/device_loop.py`` with ``use_device_loop``), write the solution
 back. A checkpoint (``resume_from``) replaces the initial values, radius
 and iteration count.
 
-The port runs the Levenberg-Marquardt trust region with every linear
-solver of the JAX package: DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR (JACOBI
-or SUBSET), DENSE_SCHUR and ITERATIVE_SCHUR (JACOBI, SCHUR_JACOBI,
-POWER_SERIES_EXPANSION, CLUSTER_JACOBI, CLUSTER_TRIDIAGONAL; the implicit
-or the explicit S), chosen as the reference's preprocessor chooses
-(``_select_linear_solver``); the downgrades it makes are logged and
-written to the Summary. Every option it does not run yet raises
+The port runs the trust region, Levenberg-Marquardt or dogleg
+(traditional or subspace; the host loop, as in the JAX package), with
+every linear solver of the JAX package: DENSE_QR, DENSE_NORMAL_CHOLESKY,
+CGNR (JACOBI or SUBSET), DENSE_SCHUR and ITERATIVE_SCHUR (JACOBI,
+SCHUR_JACOBI, POWER_SERIES_EXPANSION, CLUSTER_JACOBI, CLUSTER_TRIDIAGONAL;
+the implicit or the explicit S), chosen as the reference's preprocessor
+chooses (``_select_linear_solver``); the downgrades it makes are logged
+and written to the Summary. Inner iterations (``use_inner_iterations``)
+refine the independent group in both loops; the trust-region dumps write
+or print the linear system. Every option it does not run yet raises
 ``NotImplementedError`` naming what is missing; none falls back to
 something else.
 """
@@ -31,6 +34,7 @@ import torch
 
 from skeres_tpu_torch.core.device_loop import DeviceLoopMinimizer
 from skeres_tpu_torch.core.evaluator import Evaluator
+from skeres_tpu_torch.core.inner_iterations import InnerIterationRefiner
 from skeres_tpu_torch.core.minimizer import TrustRegionMinimizer, synchronize
 from skeres_tpu_torch.core.options import SolverOptions
 from skeres_tpu_torch.core.ordering import apply_schur_ordering
@@ -52,11 +56,8 @@ _DEFAULTS = SolverOptions()
 # than the default raises
 _UNPORTED = {
     "minimizer_type": "the line-search minimizer (core/line_search.py)",
-    "trust_region_strategy_type": "the dogleg strategy",
     "mesh": "multi-device sharding (parallel/mesh.py)",
-    "use_inner_iterations": "inner iterations (core/inner_iterations.py)",
     "check_gradients": "the gradient checker (core/gradient_checker.py)",
-    "trust_region_minimizer_iterations_to_dump": "trust-region problem dumps",
 }
 
 
@@ -118,9 +119,9 @@ def solve(
     summary.num_effective_parameters = program.num_effective_parameters
     summary.num_residual_blocks = program.num_residual_blocks
     summary.num_residuals = program.num_residuals
-    summary.num_parameter_blocks_reduced = program.num_parameter_blocks
-    summary.num_parameters_reduced = program.num_parameters
-    summary.num_effective_parameters_reduced = program.num_effective_parameters
+    summary.num_parameter_blocks_reduced = program.num_parameter_blocks_reduced
+    summary.num_parameters_reduced = program.num_parameters_reduced
+    summary.num_effective_parameters_reduced = program.num_effective_parameters_reduced
     summary.num_residual_blocks_reduced = program.num_residual_blocks
     summary.num_residuals_reduced = program.num_residuals
     summary.minimizer_type = options.minimizer_type
@@ -184,13 +185,23 @@ def solve(
             # a wanted explicit-S plan was rejected: say what runs instead
             log.warning("explicit Schur complement plan rejected (%s); using %s",
                         schur_solver.explicit_reject_reason, summary.schur_complement_path)
+    inner_refiner = None
+    if options.use_inner_iterations:
+        if any(g.schur_group == 0 for g in program.groups):
+            inner_refiner = InnerIterationRefiner(
+                evaluator, num_sweeps=5, tolerance=options.inner_iteration_tolerance)
+        else:
+            summary.message = (
+                "use_inner_iterations ignored: no independent group declared "
+                "(set_schur_elimination_group(arr, 0))"
+            )
     minimizer_cls, kw = TrustRegionMinimizer, {}
     if options.use_device_loop:
         minimizer_cls = DeviceLoopMinimizer
         kw["chunk_iterations"] = min(options.device_loop_chunk_iterations,
                                      options.max_num_iterations)
     minimizer = minimizer_cls(evaluator, options, summary, solver_type,
-                              schur_solver=schur_solver, **kw)
+                              schur_solver=schur_solver, inner_refiner=inner_refiner, **kw)
 
     if options.resume_from:
         groups, radius, iteration, _cost = load_checkpoint(options.resume_from)

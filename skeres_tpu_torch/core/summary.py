@@ -71,6 +71,12 @@ class Summary:
     residual_evaluation_time_in_seconds: float = 0.0
     jacobian_evaluation_time_in_seconds: float = 0.0
     num_linear_solves: int = 0
+    # dogleg (host loop): the linear solver iterations of each Gauss-Newton
+    # solve (one a linearization; a Schur solve counts 1 + its jitter rungs),
+    # and the steps that took the Cauchy point (the GN point not finite, or
+    # the Cauchy point on or past the trust-region boundary)
+    dogleg_gauss_newton_iterations: List[int] = dataclasses.field(default_factory=list)
+    num_dogleg_cauchy_steps: int = 0
     num_residual_evaluations: int = 0
     num_jacobian_evaluations: int = 0
 

@@ -160,6 +160,10 @@ int dispatch(const void* grid, const void* cinv, const void* swap, const void* v
     return launch<T, 9, 3>(grid, cinv, swap, valid, pair_kl, out, num_points, kp, npairs,
                            tile, stream);
   }
+  if (f == 6 && e == 3) {  // calibrated cameras: f, k1, k2 held by a SubsetManifold
+    return launch<T, 6, 3>(grid, cinv, swap, valid, pair_kl, out, num_points, kp, npairs,
+                           tile, stream);
+  }
   if (f == 5 && e == 3) {  // the tests' shape
     return launch<T, 5, 3>(grid, cinv, swap, valid, pair_kl, out, num_points, kp, npairs,
                            tile, stream);

@@ -34,7 +34,7 @@ __all__ = [
     "pair_products_reference",
 ]
 
-KERNEL_SHAPES = ((9, 3), (5, 3))  # (f, e) instances in csrc/pair_product.cu
+KERNEL_SHAPES = ((9, 3), (6, 3), (5, 3))  # (f, e) instances in csrc/pair_product.cu
 _SMEM_BUDGET = 40 * 1024  # bytes of shared memory a block's tile may take
 
 

@@ -1,13 +1,14 @@
-"""Angle-axis rotation, differentiable with ``torch.func``.
+"""SO(3) and quaternion rotations, differentiable with ``torch.func``.
 
-PyTorch counterpart of ``skeres_tpu/ops/rotation.py`` (the part the BAL
-slice needs). Every function works on the last axis and broadcasts over
+PyTorch counterpart of ``skeres_tpu/ops/rotation.py`` (reference lineage:
+``include/ceres/rotation.h``), all thirteen of its functions. Every function works on the last axis and broadcasts over
 leading axes, so it runs on one block under ``torch.func.vmap`` and on a
 whole batch alike. Small-angle branches keep the double-``where`` guard:
 the square root never sees the masked value, so ``vjp``/``jvp`` stay
 finite at theta == 0.
 
-Quaternions are scalar-first ``[w, x, y, z]`` (the Ceres order).
+Quaternions are scalar-first ``[w, x, y, z]`` (the Ceres order) unless the
+function name says ``eigen`` (``[x, y, z, w]``, scalar last).
 """
 
 from __future__ import annotations
@@ -15,10 +16,19 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "angle_axis_rotate_point",
+    "angle_axis_to_quaternion",
     "quaternion_to_angle_axis",
+    "quaternion_product",
+    "quaternion_conjugate",
+    "unit_quaternion_rotate_point",
+    "quaternion_rotate_point",
+    "angle_axis_rotate_point",
+    "quaternion_to_rotation_matrix",
     "rotation_matrix_to_quaternion",
+    "angle_axis_to_rotation_matrix",
     "rotation_matrix_to_angle_axis",
+    "eigen_quaternion_to_ceres",
+    "ceres_quaternion_to_eigen",
 ]
 
 _SMALL = 1e-12  # threshold on theta^2 below which Taylor branches engage
@@ -27,6 +37,58 @@ _SMALL = 1e-12  # threshold on theta^2 below which Taylor branches engage
 def _safe_sqrt(x2, use_taylor):
     """sqrt(x2) that has a finite derivative on the Taylor branch."""
     return torch.sqrt(torch.where(use_taylor, torch.ones_like(x2), x2))
+
+
+def angle_axis_to_quaternion(aa):
+    """Angle-axis (…,3) -> unit quaternion (…,4), scalar-first:
+    q = [cos(theta/2), sin(theta/2)/theta * aa]."""
+    theta2 = torch.sum(aa * aa, dim=-1, keepdim=True)
+    small = theta2 < _SMALL
+    theta = _safe_sqrt(theta2, small)
+    half = 0.5 * theta
+    # sin(theta/2)/theta; Taylor: 1/2 - theta^2/48
+    k = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(half) / theta)
+    w = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(half))
+    return torch.cat([w, k * aa], dim=-1)
+
+
+def quaternion_conjugate(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quaternion_product(a, b):
+    """Hamilton product, scalar-first (z = a * b)."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def unit_quaternion_rotate_point(q, p):
+    """Rotate point(s) p (…,3) by the unit quaternion q (…,4), scalar-first,
+    in the expanded form p + w t + q.xyz x t with t = 2 q.xyz x p."""
+    w, x, y, z = q[..., 0:1], q[..., 1:2], q[..., 2:3], q[..., 3:4]
+    px, py, pz = p[..., 0:1], p[..., 1:2], p[..., 2:3]
+    tx = 2.0 * (y * pz - z * py)
+    ty = 2.0 * (z * px - x * pz)
+    tz = 2.0 * (x * py - y * px)
+    rx = px + w * tx + (y * tz - z * ty)
+    ry = py + w * ty + (z * tx - x * tz)
+    rz = pz + w * tz + (x * ty - y * tx)
+    return torch.cat([rx, ry, rz], dim=-1)
+
+
+def quaternion_rotate_point(q, p):
+    """Rotate by a quaternion that need not be unit (normalized first)."""
+    scale = 1.0 / torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+    return unit_quaternion_rotate_point(scale * q, p)
 
 
 def angle_axis_rotate_point(aa, p):
@@ -78,6 +140,22 @@ def quaternion_to_angle_axis(q):
     return k * xyz
 
 
+def quaternion_to_rotation_matrix(q):
+    """Unit quaternion (…,4) scalar-first -> rotation matrix (…,3,3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], dim=-1),
+            torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], dim=-1),
+            torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
 def rotation_matrix_to_quaternion(r):
     """Rotation matrix (…,3,3) -> unit quaternion (…,4) scalar-first.
 
@@ -111,5 +189,19 @@ def rotation_matrix_to_quaternion(r):
     return torch.where(q[..., :1] < 0, -q, q)
 
 
+def angle_axis_to_rotation_matrix(aa):
+    return quaternion_to_rotation_matrix(angle_axis_to_quaternion(aa))
+
+
 def rotation_matrix_to_angle_axis(r):
     return quaternion_to_angle_axis(rotation_matrix_to_quaternion(r))
+
+
+def eigen_quaternion_to_ceres(q_xyzw):
+    """[x,y,z,w] -> [w,x,y,z]."""
+    return torch.cat([q_xyzw[..., 3:4], q_xyzw[..., :3]], dim=-1)
+
+
+def ceres_quaternion_to_eigen(q_wxyz):
+    """[w,x,y,z] -> [x,y,z,w]."""
+    return torch.cat([q_wxyz[..., 1:4], q_wxyz[..., :1]], dim=-1)

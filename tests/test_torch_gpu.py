@@ -148,7 +148,7 @@ def test_k2_matches_plain_version_on_card(cuda, dtype, tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
-@pytest.mark.parametrize("f,e,kp", [(9, 3, 5), (5, 3, 6)])
+@pytest.mark.parametrize("f,e,kp", [(9, 3, 5), (6, 3, 5), (5, 3, 6)])
 def test_k3_matches_plain_version_on_card(cuda, dtype, tol, f, e, kp):
     """K3 against its plain version on random inputs, every row within
     ``tol`` of max|reference|; an unsupported (f, e) raises."""
@@ -378,3 +378,82 @@ def test_dense_solvers_under_the_device_loop_on_card(cuda):
                                [it.cost for it in cpu.iterations], rtol=1e-8)
     with pytest.raises(NotImplementedError, match="torch.linalg.qr"):
         solve("DENSE_QR", cuda)
+
+
+# -- dogleg, inner iterations and the Problem API on the card ----------------------
+
+
+def _card_and_cpu(cuda, declare=None, compare_cameras=True, **kw):
+    """The same float64 solve of synthetic_bal(16, 500, 4), 8 steps at
+    initial radius 1 with the full budget, on the card and on the CPU:
+    the same decisions, costs to rtol 1e-8, and unless
+    ``compare_cameras`` is False the final cameras to rtol 1e-6;
+    ``declare(problem, cams)`` adds declarations to both problems."""
+    runs = []
+    for device in (cuda, "cpu"):
+        problem, cams, _ = build_bal_problem(synthetic_bal(16, 500, 4))
+        if declare is not None:
+            declare(problem, cams)
+        s = stt.solve(stt.SolverOptions(
+            linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=8,
+            run_full_iteration_budget=True, initial_trust_region_radius=1.0,
+            dtype=torch.float64, device=device, **kw), problem)
+        runs.append((s, cams.values.copy()))
+    (card, card_cams), (cpu, cpu_cams) = runs
+    assert [it.step_is_successful for it in card.iterations] == [
+        it.step_is_successful for it in cpu.iterations]
+    np.testing.assert_allclose([it.cost for it in card.iterations],
+                               [it.cost for it in cpu.iterations], rtol=1e-8)
+    if compare_cameras:
+        np.testing.assert_allclose(card_cams, cpu_cams, rtol=1e-6, atol=1e-9)
+    return card, cpu
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dogleg", ["TRADITIONAL_DOGLEG", "SUBSPACE_DOGLEG"])
+def test_dogleg_on_card_matches_cpu(cuda, dogleg):
+    """Both dogleg types on the host loop: the card's decisions and costs
+    (rtol 1e-8) are the CPU's, with one Gauss-Newton solve a
+    linearization on each. The cameras are not compared: the Gauss-Newton
+    point of a gauge-free problem is the solve of a near-singular system
+    (a jitter rung, or a plain factor that rounding lets through), whose
+    components along the 7-dof gauge the rounding sets, and which the cost
+    does not see."""
+    from skeres_tpu_torch.core.types import DoglegType, TrustRegionStrategyType
+
+    card, cpu = _card_and_cpu(cuda, compare_cameras=False,
+                              trust_region_strategy_type=TrustRegionStrategyType.DOGLEG,
+                              dogleg_type=DoglegType[dogleg])
+    assert len(card.dogleg_gauss_newton_iterations) == len(cpu.dogleg_gauss_newton_iterations) \
+        == card.num_successful_steps + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("device_loop", [False, True], ids=["host loop", "device loop"])
+def test_inner_iterations_on_card_match_cpu(cuda, device_loop):
+    """Inner iterations on both loops (the tolerance-stopped sweeps one
+    WHILE node of the device loop's graph): costs to rtol 1e-8."""
+    kw = dict(use_inner_iterations=True)
+    if device_loop:
+        kw.update(use_device_loop=True, device_loop_chunk_iterations=4)
+    card, _ = _card_and_cpu(cuda, **kw)
+    assert (card.device_loop_capture_time_in_seconds > 0.0) == device_loop
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("device_loop", [False, True], ids=["host loop", "device loop"])
+def test_declarations_on_card_match_cpu(cuda, device_loop):
+    """A SubsetManifold holding f, k1 and k2, camera 0 constant and each
+    camera's z translation bounded below at 1e-3 under its value: costs to
+    rtol 1e-8 on both loops."""
+    from skeres_tpu_torch.models.manifolds import SubsetManifold
+
+    def declare(problem, cams):
+        problem.set_manifold(cams, SubsetManifold(9, [6, 7, 8]))
+        problem.set_parameter_block_constant(cams[0])
+        for i in range(len(cams)):
+            problem.set_parameter_lower_bound(cams[i], 5, float(cams.values[i, 5]) - 1e-3)
+
+    kw = dict(use_device_loop=True, device_loop_chunk_iterations=4) if device_loop else {}
+    card, _ = _card_and_cpu(cuda, declare, **kw)
+    assert card.num_effective_parameters_reduced == 15 * 6 + 500 * 3

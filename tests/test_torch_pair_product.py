@@ -3,8 +3,10 @@ Pallas pair-product kernel (interpret mode, as
 tests/test_explicit_schur.py runs it) on the same numpy inputs, and the
 wrapper's contract. The JAX kernel writes g-major rows; they are permuted
 to the port's f-major rows before the comparison. float64, tolerance
-1e-12 of max|reference| (3-term sums in two orders). The kernel itself
-against the plain version needs a card: tests/test_torch_gpu.py."""
+1e-12 of max|reference| (3-term sums in two orders); the shapes of the
+kernel's instances, (9, 3), (6, 3) (calibrated cameras behind a
+SubsetManifold) and (5, 3), and a kp of 2. The kernel itself against the
+plain version needs a card: tests/test_torch_gpu.py."""
 
 import shutil
 
@@ -37,7 +39,8 @@ def _torch_args(c):
     )
 
 
-@pytest.mark.parametrize("seed,p,kp,f,e", [(0, 23, 5, 9, 3), (1, 37, 4, 5, 3), (2, 9, 2, 9, 3)])
+@pytest.mark.parametrize("seed,p,kp,f,e", [(0, 23, 5, 9, 3), (1, 37, 4, 5, 3), (2, 9, 2, 9, 3),
+                                            (6, 31, 5, 6, 3)])
 def test_plain_k3_matches_pallas_kernel(seed, p, kp, f, e):
     c = _case(seed, p, kp, f, e)
     want = np.asarray(pair_products_lanes(
