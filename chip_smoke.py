@@ -131,10 +131,49 @@ non-zero and prints no result line):
                unchanged after it.
  23. trust region and Problem API, card vs CPU — synthetic_bal(16, 500, 4),
                float64, 10 steps at initial radius 1, card against CPU: both
-               dogleg types on the dense-W and the explicit path, inner
+               dogleg types on the dense-W and the explicit path (cameras 0
+               and 1 constant: the gauge fixed), inner
                iterations on both loops, the focal lengths bounded on both
                loops, camera 0 constant with a SubsetManifold on both loops;
                the same decisions and costs to rtol 1e-8.
+ 24. pose graph — synthetic_sphere(2500) (sphere2500, BASELINE config 3:
+               2,500 SE(3) poses with the Eigen-quaternion manifold, 2,548
+               edges, pose 0 constant), SPARSE_NORMAL_CHOLESKY (CGNR),
+               JACOBI, up to 100 LM steps on the host loop and the device
+               loop in float32 and float64 (check_gradients on the float64
+               host loop): chi^2 before and after, LM steps/s, termination;
+               the gradient check alone, timed; the float64 trajectory
+               against the CPU's (CGNR's bound of phase 17, 1e-3; whether it
+               holds 1e-8 is printed); the 2-D square loop of
+               tests/test_pose_graph.py card against CPU, at its ground truth.
+ 25. venice line search — the venice scene of phases 10-11 from its
+               initial values, MinimizerType.LINE_SEARCH (Ceres
+               ``bundle_adjuster --line_search``): L-BFGS rank 20, Wolfe
+               steps, float32, 30 iterations: iterations/s, step-search
+               evaluations an iteration, the final cost beside phase 11's
+               LM, peak memory. Then every direction type with Armijo and
+               Wolfe steps on synthetic_bal(16, 500, 4), float64, 20
+               iterations, card against CPU (the same iterations, evaluations
+               and decisions, costs to rtol 1e-8), and GradientProblem on
+               Rosenbrock and on the sphere manifold.
+ 26. covariance — SCHUR_COMPLEMENT, float64, on phase 22's calibrated
+               venice scene at its host-loop solution: S of 10,668 rows by
+               the explicit path (K3 at (6, 3) in float64, once, then held
+               against its plain version on the same inputs),
+               null_space_rank 1 (the gauge's scale), the predicted rank
+               10,661; compute(), its eigh and three block queries timed.
+               DENSE_SVD on sphere2500 after its float64 solve: J^T J over
+               15,000 tangent coordinates (1.8 GB), compute() and its eigh
+               timed. The scene of tests/test_covariance_gradient.py: both
+               algorithms on both S paths, against each other and card
+               against CPU.
+ 27. scoreboards — the 42 MGH cases and the 34 embedded NIST starts,
+               float64, DENSE_QR, with the options of tests/test_mgh.py and
+               tests/test_nist.py, on the card; the same on the CPU in a
+               child process started after phase 1 (``chip_smoke.py
+               --scoreboards-cpu``); the card must certify the same cases.
+               Phases 25 and 26 need the venice scene, whose host data lives
+               on from phase 10 to 26.
 
 The line before the last is a JSON object describing each kernel (its
 time, its launches on the main path, its bound: the larger of the bytes it
@@ -1174,6 +1213,14 @@ def reset_launches() -> None:
     cholesky_both.launches = trailing_update_.launches = pair_products.launches = 0
 
 
+def launch_counts() -> dict:
+    from skeres_tpu_torch.ops.cholesky import cholesky_both, trailing_update_
+    from skeres_tpu_torch.ops.pair_product import pair_products
+
+    return {"K1": cholesky_both.launches, "K2 update": trailing_update_.launches,
+            "K3": pair_products.launches}
+
+
 def solve_chain(n, device, dtype, iters, **kw):
     """CGNR on an anchored odometry chain of ``n`` 2-vectors with three
     long-range closures (the scene of tests/test_subset_preconditioner.py,
@@ -1426,8 +1473,6 @@ def venice_solve(label, device, problem, program, initial, **options):
     accepted, the final cost below the initial. Returns (Summary, launches,
     peak GiB, LM steps/s)."""
     import skeres_tpu_torch as stt
-    from skeres_tpu_torch.ops.cholesky import cholesky_both, trailing_update_
-    from skeres_tpu_torch.ops.pair_product import pair_products
 
     for grp, v in zip(program.groups, initial):  # each solve writes its solution back
         grp.values = v.copy()
@@ -1435,8 +1480,7 @@ def venice_solve(label, device, problem, program, initial, **options):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     s = stt.solve(venice_options(device, **options), problem, program)
-    n = {"K1": cholesky_both.launches, "K2 update": trailing_update_.launches,
-         "K3": pair_products.launches}
+    n = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     steps = s.num_successful_steps + s.num_unsuccessful_steps
     rate = steps / s.minimizer_time_in_seconds
@@ -1515,8 +1559,9 @@ def phase_venice_inner(device, problem, program, initial, lm: dict, lm_device: d
 
 
 def phase_venice_problem_api(device, problem, program, cams, initial, lm: dict) -> dict:
-    """Phase 22. Returns the host loop's launches and K3's numbers at
-    (f, e) = (6, 3)."""
+    """Phase 22. Returns the host loop's launches, K3's numbers at (f, e) =
+    (6, 3) and the host loop's solution (where phase 26 takes the
+    covariance)."""
     from skeres_tpu_torch.models.manifolds import SubsetManifold
     from skeres_tpu_torch.ops.cholesky import PANEL
     from skeres_tpu_torch.ops.pair_product import pair_products, pair_products_reference
@@ -1586,6 +1631,7 @@ def phase_venice_problem_api(device, problem, program, cams, initial, lm: dict) 
                       and n["K2 update"] >= (panels - 1) * s.num_linear_solves,
                       f"{label}: K3 or K2 did not launch on every damped solve")
                 launches[label] = n
+                solved = [grp.values.copy() for grp in declared.groups]  # phase 26's point
         print(f"[venice Problem API] LM on the full cameras (phase 11): {lm['rate']:.4f} LM "
               f"steps/s, final cost {lm['cost']!r}")
     finally:
@@ -1593,13 +1639,14 @@ def phase_venice_problem_api(device, problem, program, cams, initial, lm: dict) 
         problem.set_parameter_block_variable(cams[0])
         for grp, v in zip(program.groups, initial):
             grp.values = v.copy()
-    return dict(launches=launches, k3=k3)
+    return dict(launches=launches, k3=k3, solved=solved)
 
 
 def solve_declared(bal, device, dtype, iters, declare="", **kw):
     """:func:`solve_bal` (DENSE_SCHUR) with phase 23's declarations:
-    "bounds" (every focal length within 0.1 % of its value) or
-    "gauge+subset" (camera 0 constant, a SubsetManifold holding f, k1, k2)."""
+    "bounds" (every focal length within 0.1 % of its value),
+    "gauge+subset" (camera 0 constant, a SubsetManifold holding f, k1, k2)
+    or "gauge" (cameras 0 and 1 constant: the 7-dof gauge fixed)."""
     import skeres_tpu_torch as stt
     from skeres_tpu_torch.core.types import LinearSolverType
     from skeres_tpu_torch.io.bal import build_bal_problem
@@ -1614,6 +1661,9 @@ def solve_declared(bal, device, dtype, iters, declare="", **kw):
     elif declare == "gauge+subset":
         problem.set_manifold(cams, SubsetManifold(9, [6, 7, 8]))
         problem.set_parameter_block_constant(cams[0])
+    elif declare == "gauge":
+        problem.set_parameter_block_constant(cams[0])
+        problem.set_parameter_block_constant(cams[1])
     return stt.solve(stt.SolverOptions(
         linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=iters,
         run_full_iteration_budget=True, dtype=dtype, device=device, **kw), problem)
@@ -1629,8 +1679,13 @@ def phase_trust_region_card_vs_cpu(device) -> dict:
 
     bal = synthetic_bal(16, 500, 4)
     loop = dict(use_device_loop=True, device_loop_chunk_iterations=4)
+    # dogleg with the gauge fixed: the Gauss-Newton point of a gauge-free
+    # scene solves a near-singular system, where rounding decides between a
+    # plain factor and a jitter rung and sets the point's gauge components;
+    # the traditional step's length, and so the trajectory, follow them (on
+    # an NVIDIA H100 80GB HBM3 the card and the CPU once parted by 7.95e-5)
     cases = [(f"{d} {path}", path, dict(trust_region_strategy_type=TrustRegionStrategyType.DOGLEG,
-                                        dogleg_type=DoglegType[d]))
+                                        dogleg_type=DoglegType[d], declare="gauge"))
              for path in ("dense-W", "explicit") for d in ("TRADITIONAL_DOGLEG", "SUBSPACE_DOGLEG")]
     for name, kw in (("inner iterations", dict(use_inner_iterations=True)),
                      ("bounds", dict(declare="bounds")),
@@ -1658,6 +1713,538 @@ def phase_trust_region_card_vs_cpu(device) -> dict:
     return launches
 
 
+# -- pose graphs, the line search, covariance, the registries (phases 24-27) ------
+
+
+def check_no_launches(label: str) -> dict:
+    """The kernels' launches since the last reset: none on these paths."""
+    n = launch_counts()
+    print(f"[{label}] kernel launches: {json.dumps(n)}")
+    check(not any(n.values()), f"{label}: a kernel launched on a path that factors nothing")
+    return n
+
+
+def same_trajectory(label: str, card, cpu, rtol: float, bound_name: str = "") -> float:
+    """The card's and the CPU's Summaries: the same decisions (and, for a
+    line search, the same step-search evaluations) and iteration count,
+    costs to ``rtol`` (relative to each CPU cost, or to 1e-10 of the
+    initial cost where a cost nears zero, as on a graph whose measurements
+    are exact: the square loop ends at 1e-25 from 17.8). Returns the
+    largest relative cost difference."""
+    seq = [(it.step_is_successful, it.line_search_function_evaluations) for it in card.iterations]
+    seq_cpu = [(it.step_is_successful, it.line_search_function_evaluations)
+               for it in cpu.iterations]
+    a = np.array([it.cost for it in card.iterations])
+    b = np.array([it.cost for it in cpu.iterations])
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-10 * abs(b[0])))) \
+        if len(a) == len(b) else math.inf
+    print(f"[{label}] {len(a) - 1} iterations on the card, {len(b) - 1} on the CPU; "
+          f"termination {card.termination_type.value} / {cpu.termination_type.value}; max "
+          f"relative cost difference {rel:.3e}" + (f" ({bound_name})" if bound_name else ""))
+    check(seq == seq_cpu, f"{label}: the card's decisions differ from the CPU's")
+    check(card.termination_type == cpu.termination_type, f"{label}: terminations differ")
+    check(rel <= rtol, f"{label}: card and CPU costs differ by {rel:.3e} > {rtol:.0e}")
+    return rel
+
+
+SPHERE_POSES = 2500  # sphere2500 (BASELINE config 3)
+# CGNR card against CPU (ROADMAP Queue 3 note f): phase 17's bound is 1e-3;
+# on sphere2500 the PCG ends on its cap on 12 of 18 solves
+SPHERE_CGNR_RTOL = 1e-2
+
+
+def solve_sphere(graph, device, dtype, device_loop=False, **kw):
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType
+    from skeres_tpu_torch.io.g2o import build_pose_graph_problem
+
+    problem, poses = build_pose_graph_problem(graph)
+    s = stt.solve(stt.SolverOptions(
+        linear_solver_type=LinearSolverType.SPARSE_NORMAL_CHOLESKY,
+        preconditioner_type=PreconditionerType.JACOBI, max_num_iterations=100, dtype=dtype,
+        device=device, use_device_loop=device_loop, **kw), problem)
+    return s, poses
+
+
+def phase_pose_graph(device) -> dict:
+    """Phase 24. Returns the launches by path."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.gradient_checker import check_program_gradients
+    from skeres_tpu_torch.core.types import LinearSolverType
+    from skeres_tpu_torch.io.g2o import PoseGraph2D, build_pose_graph_problem, synthetic_sphere
+
+    t0 = time.time()
+    graph = synthetic_sphere(SPHERE_POSES)
+    n_odo = SPHERE_POSES - 1
+    print(f"[pose graph] synthetic_sphere({SPHERE_POSES}): {len(graph.poses)} poses, "
+          f"{len(graph.edges)} edges ({n_odo} odometry, {len(graph.edges) - n_odo} loop "
+          f"closures), SE(3) with the Eigen-quaternion manifold, pose 0 constant "
+          f"({6 * (SPHERE_POSES - 1)} free tangent coordinates); made in {time.time() - t0:.2f} s")
+    launches, runs = {}, {}
+    for loop in ("host loop", "device loop"):
+        for dtype in (torch.float32, torch.float64):
+            label = f"sphere{SPHERE_POSES} {loop} {str(dtype).replace('torch.', '')}"
+            gradients = dtype == torch.float64 and loop == "host loop"
+            reset_launches()
+            s, poses = solve_sphere(graph, device, dtype, device_loop=loop == "device loop",
+                                    check_gradients=gradients)
+            runs[label] = s
+            steps = s.num_successful_steps + s.num_unsuccessful_steps
+            costs = [it.cost for it in s.iterations]
+            print(f"[{label}] CGNR (SPARSE_NORMAL_CHOLESKY) JACOBI: chi^2 {2 * s.initial_cost!r} -> "
+                  f"{2 * s.final_cost!r}; {steps} LM steps ({s.num_successful_steps} accepted) in "
+                  f"{s.minimizer_time_in_seconds:.4f} s: {steps / s.minimizer_time_in_seconds:.4f} "
+                  f"LM steps/s; PCG steps {[it.linear_solver_iterations for it in s.iterations[1:]]}"
+                  f"; preprocessor {s.preprocessor_time_in_seconds:.4f} s"
+                  + (" (the gradient check included)" if gradients else "")
+                  + f"; {s.termination_type.value}: {s.message}")
+            launches[label] = check_no_launches(label)
+            check(s.linear_solver_type_used.value == "CGNR", f"{label}: not CGNR")
+            check(all(math.isfinite(c) for c in costs), f"{label}: non-finite cost")
+            check(s.termination_type.value in ("CONVERGENCE", "NO_CONVERGENCE"),
+                  f"{label}: {s.termination_type.value}: {s.message}")
+            check(s.final_cost < 1e-2 * s.initial_cost, f"{label}: final cost {s.final_cost}")
+            qn = np.linalg.norm(poses.values[:, 3:], axis=1)
+            check(np.abs(qn - 1.0).max() <= (1e-5 if dtype == torch.float32 else 1e-12),
+                  f"{label}: quaternions left the unit sphere")
+            check(np.array_equal(poses.values[0], graph.poses[0].astype(
+                np.float32 if dtype == torch.float32 else np.float64).astype(np.float64)),
+                  f"{label}: pose 0 moved")
+            if loop == "device loop":
+                check(s.device_loop_capture_time_in_seconds > 0.0, f"{label}: no graph captured")
+    # the gradient check alone, f64 on the card
+    program = build_pose_graph_problem(graph)[0].compile()
+    ev = Evaluator(program, device=device, dtype=torch.float64)
+    t0 = time.time()
+    ok, msg = check_program_gradients(program, ev)
+    torch.cuda.synchronize()
+    print(f"[pose graph] gradient check f64 on the card ({program.num_residual_blocks} edges, 12 "
+          f"tangent columns each): {'passed' if ok else msg} in {time.time() - t0:.4f} s")
+    check(ok, f"pose graph gradient check: {msg}")
+    # the f64 trajectory against the CPU's
+    cpu, _ = solve_sphere(graph, "cpu", torch.float64)
+    # CGNR's PCG ends on its 500-step cap on most of these solves, where the
+    # iterate it stops at depends on the summation order: the trajectories
+    # part mid-way (by 2.2e-3 on an NVIDIA H100 80GB HBM3, past phase 17's
+    # 1e-3) and meet again at the minimum
+    label = f"sphere{SPHERE_POSES} f64 card vs CPU"
+    card = runs[f"sphere{SPHERE_POSES} host loop float64"]
+    same_trajectory(label, card, cpu, SPHERE_CGNR_RTOL, "CGNR, its PCG at the 500-step cap")
+    per_step = [abs(a.cost - b.cost) / b.cost for a, b in zip(card.iterations, cpu.iterations)]
+    final = abs(card.final_cost - cpu.final_cost) / cpu.final_cost
+    print(f"[{label}] relative cost difference by iteration {[f'{d:.1e}' for d in per_step]}; "
+          f"final chi^2 {2 * card.final_cost!r} against {2 * cpu.final_cost!r} ({final:.3e}); "
+          f"within 1e-8: {max(per_step) <= 1e-8}")
+    check(final <= 1e-6, f"{label}: the final costs differ by {final:.3e}")
+    # the square loop of tests/test_pose_graph.py
+    gt = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, np.pi / 2], [1.0, 1.0, np.pi],
+                   [0.0, 1.0, -np.pi / 2]])
+    edges = np.array([[0, 1], [1, 2], [2, 3], [3, 0]], dtype=np.int32)
+    meas = []
+    for a, b in edges:
+        d, c, s_ = gt[b, :2] - gt[a, :2], np.cos(gt[a, 2]), np.sin(gt[a, 2])
+        dyaw = gt[b, 2] - gt[a, 2]
+        meas.append([c * d[0] + s_ * d[1], -s_ * d[0] + c * d[1],
+                     np.arctan2(np.sin(dyaw), np.cos(dyaw))])
+    rng = np.random.default_rng(0)
+    noisy = gt.copy()
+    noisy[1:, :2] += rng.normal(0, 0.2, (3, 2))
+    noisy[1:, 2] += rng.normal(0, 0.15, 3)
+    square = PoseGraph2D(poses=noisy, ids=np.arange(4), edges=edges, measurements=np.array(meas),
+                         sqrt_information=np.broadcast_to(np.eye(3) * 10.0, (4, 3, 3)).copy())
+    out = {}
+    reset_launches()
+    for dev in (device, "cpu"):
+        problem, poses = build_pose_graph_problem(square)
+        out[dev] = (stt.solve(stt.SolverOptions(
+            linear_solver_type=LinearSolverType.DENSE_NORMAL_CHOLESKY, max_num_iterations=50,
+            device=dev), problem), poses.values.copy())
+    launches["square loop (2-D)"] = check_no_launches("square loop")
+    same_trajectory("square loop f64 card vs CPU", out[device][0], out["cpu"][0], 1e-8)
+    err = np.abs(out[device][1][:, :2] - gt[:, :2]).max()
+    print(f"[square loop] {out[device][0].termination_type.value} on the card, positions within "
+          f"{err:.3e} of the ground truth")
+    check(out[device][0].termination_type.value == "CONVERGENCE" and err <= 1e-6,
+          "square loop: not at the ground truth")
+    return launches
+
+
+LINE_SEARCH_STEPS = 30
+
+
+def line_search_options(device, dtype, **kw):
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.types import MinimizerType
+
+    return stt.SolverOptions(minimizer_type=MinimizerType.LINE_SEARCH, dtype=dtype,
+                             device=device, **kw)
+
+
+def phase_venice_line_search(device, problem, program, initial, lm: dict) -> dict:
+    """Phase 25, venice shape (Ceres ``bundle_adjuster --line_search``):
+    L-BFGS (rank 20) with Wolfe steps, float32, 30 iterations, from the
+    scene's initial values; then every direction type with both step
+    searches card against CPU on a small scene, and GradientProblem.
+    Returns the launches by path."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.gradient_problem import GradientProblem, solve_gradient_problem
+    from skeres_tpu_torch.core.types import LineSearchDirectionType, LineSearchType
+    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
+
+    for grp, v in zip(program.groups, initial):
+        grp.values = v.copy()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    label = "venice line search"
+    try:
+        s = stt.solve(line_search_options(
+            device, torch.float32, line_search_direction_type=LineSearchDirectionType.LBFGS,
+            max_lbfgs_rank=20, line_search_type=LineSearchType.WOLFE,
+            max_num_iterations=LINE_SEARCH_STEPS, evaluation_chunk_size=VENICE_CHUNK),
+            problem, program)
+    finally:
+        for grp, v in zip(program.groups, initial):
+            grp.values = v.copy()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    its = len(s.iterations) - 1
+    evals = [it.line_search_function_evaluations for it in s.iterations[1:]]
+    costs = [it.cost for it in s.iterations]
+    print(f"[{label}] LBFGS (rank 20), WOLFE, float32: costs {json.dumps(costs)}")
+    print(f"[{label}] {its} iterations ({s.num_successful_steps} accepted) in "
+          f"{s.minimizer_time_in_seconds:.4f} s: {its / s.minimizer_time_in_seconds:.4f} "
+          f"iterations/s; step-search evaluations {evals} ({sum(evals) / max(its, 1):.3f} an "
+          f"iteration; each a cost and a gradient); final cost {s.final_cost!r} against LM's "
+          f"{lm['cost']!r} after {VENICE_STEPS} steps (phase 11); peak device memory {peak:.3f} "
+          f"GiB (LM {lm['peak']:.3f}); {s.termination_type.value}: {s.message}")
+    launches = {label: check_no_launches(label)}
+    check(all(math.isfinite(c) for c in costs), f"{label}: non-finite cost")
+    check(s.final_cost < s.initial_cost, f"{label}: no decrease")
+    check(its >= 1, f"{label}: no iteration")
+
+    bal = synthetic_bal(16, 500, 4)
+    reset_launches()
+    for direction in LineSearchDirectionType:
+        for search in LineSearchType:
+            kw = dict(line_search_direction_type=direction, line_search_type=search,
+                      max_num_iterations=20)
+            runs = [stt.solve(line_search_options(dev, torch.float64, **kw),
+                              build_bal_problem(bal)[0]) for dev in (device, "cpu")]
+            same_trajectory(f"line search {direction.value} {search.value} card vs CPU", *runs,
+                            1e-8)
+
+    def rosenbrock(x):
+        return (1.0 - x[0]) ** 2 + 100.0 * (x[1] - x[0] ** 2) ** 2
+
+    c = np.array([1.0, 2.0, 2.0]) / 3.0
+    for name, f, n, x0, manifold in (
+            ("Rosenbrock", rosenbrock, 2, [-1.2, 1.0], None),
+            ("sphere", lambda x: -torch.dot(torch.as_tensor(c, dtype=x.dtype, device=x.device), x),
+             3, [1.0, 0.0, 0.0], stt.SphereManifold(3))):
+        out = [solve_gradient_problem(line_search_options(dev, torch.float64,
+                                                          max_num_iterations=300),
+                                      GradientProblem(f, n, manifold), np.array(x0))
+               for dev in (device, "cpu")]
+        # the Rosenbrock valley magnifies last-bit gradient differences (its
+        # CPU test against the JAX package holds it to 1e-6)
+        same_trajectory(f"GradientProblem {name} card vs CPU", out[0][1], out[1][1], 1e-6)
+        print(f"[GradientProblem {name}] solution on the card {out[0][0].tolist()}, "
+              f"{out[0][1].termination_type.value}")
+        check(out[0][1].termination_type.value == "CONVERGENCE", f"GradientProblem {name}")
+    launches["synthetic_bal(16, 500, 4) line search, every direction and step search"] = \
+        check_no_launches("line search card vs CPU")
+    return launches
+
+
+
+def covariance_of(problem, device, algorithm, program=None, **kw):
+    from skeres_tpu_torch.core.covariance import Covariance, CovarianceOptions
+    from skeres_tpu_torch.core.types import CovarianceAlgorithmType
+
+    cov = Covariance(CovarianceOptions(algorithm_type=CovarianceAlgorithmType[algorithm],
+                                       device=device, **kw))
+    return cov, cov.compute(problem, program)
+
+
+def timed_query(cov, b1, b2):
+    t0 = time.time()
+    out = cov.get_covariance_block_in_tangent_space(b1, b2)
+    return out, 1e3 * (time.time() - t0)
+
+
+def phase_venice_covariance(device, problem, program, cams, solved) -> dict:
+    """Phase 26a: SCHUR_COMPLEMENT covariance, float64, of phase 22's
+    calibrated-camera venice scene at its host-loop solution. Returns the
+    launches and K3's check."""
+    from skeres_tpu_torch.core.problem import ParameterBlockArray
+    from skeres_tpu_torch.models.manifolds import SubsetManifold
+
+    nc = VENICE["num_cameras"]
+    euclidean = cams._group.manifold
+    problem.set_manifold(cams, SubsetManifold(9, [6, 7, 8]))
+    problem.set_parameter_block_constant(cams[0])
+    label = "venice calibrated covariance (SCHUR_COMPLEMENT)"
+    try:
+        for grp, v in zip(program.groups, solved):
+            grp.values = v.copy()
+        declared = problem.compile()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.time()
+        cov, ok = covariance_of(problem, device, "SCHUR_COMPLEMENT", declared, null_space_rank=1,
+                                evaluation_chunk_size=VENICE_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        schur = cov._schur
+        free = int(declared.free_mask[schur.ret_offset : schur.ret_offset + schur.num_f].sum())
+        print(f"[{label}] float64 at phase 22's host-loop solution; S {schur.num_f} rows "
+              f"({schur.schur_path} path), {free} free camera coordinates; null_space_rank 1 "
+              f"(the scale of the gauge; camera 0 holds the rest); predicted rank {free - 1}")
+        print(f"[{label}] compute() {ok}: {wall:.4f} s wall (evaluate "
+              f"{cov.seconds['evaluate']:.4f} s, S and its guards {cov.seconds['assemble']:.4f} s, "
+              f"eigh of {free} x {free} {cov.seconds['eigh']:.4f} s, the whole pseudo-inverse "
+              f"{cov.seconds['pinv']:.4f} s); rank {cov.rank}; smallest kept eigenvalue "
+              f"{cov.smallest_kept!r}; peak device memory {peak:.3f} GiB; launches {json.dumps(n)}")
+        check(ok, f"{label}: compute() returned False (rank {cov.rank})")
+        check(schur.schur_path == "explicit" and schur.f_size == 6 and schur.num_f == 6 * nc,
+              f"{label}: not the explicit S of 6-parameter cameras")
+        check(cov.rank == free - 1, f"{label}: rank {cov.rank}, predicted {free - 1}")
+        check(n["K3"] == 1 and n["K1"] == n["K2 update"] == 0,
+              f"{label}: launches {n}, expected K3 once and no factor")
+        pts = ParameterBlockArray(problem, schur.elim_group)
+        queries = {}
+        for name, (b1, b2) in (("camera", (cams[5], cams[5])), ("camera-point", (cams[5], pts[7])),
+                               ("point-point", (pts[7], pts[7]))):
+            block, ms = timed_query(cov, b1, b2)
+            queries[name] = (block, ms)
+            print(f"[{label}] {name} block {block.shape}: {ms:.3f} ms; max|entry| "
+                  f"{np.abs(block).max():.6e}")
+            check(np.isfinite(block).all(), f"{label}: {name} block not finite")
+        for name in ("camera", "point-point"):
+            block = queries[name][0]
+            check(np.allclose(block, block.T, rtol=1e-8, atol=1e-14 * np.abs(block).max())
+                  and np.linalg.eigvalsh(0.5 * (block + block.T)).min() > 0.0,
+                  f"{label}: the {name} block is not symmetric positive definite")
+        zero, _ = timed_query(cov, cams[0], cams[5])
+        check(not zero.any(), f"{label}: the constant camera's covariance is not zero")
+        # K3 against its plain version on this call's inputs: float64, (6, 3)
+        prep = schur.prepare(schur.solver_data(cov._blocks))
+        zeros = torch.zeros(declared.num_tangent, dtype=torch.float64, device=device)
+        asm = schur._assemble(prep, zeros, zeros)
+        grid = asm["explicit_grid"]["grid"].contiguous()
+        cinv_flat = asm["cinv"].reshape(-1, 9).contiguous()
+        del prep, asm
+        kern, plain = k3_tables(schur.explicit_plan, grid, cinv_flat)
+        err, rel = rel_err(kern, plain)
+        print(f"[K3] (f, e) = (6, 3) at venice shape float64 (the covariance's S): table "
+              f"max|err| {err:.3e} (rel {rel:.3e})")
+        check(rel <= K3_RTOL[torch.float64], f"K3 (6, 3) float64 venice: rel error {rel:.3e}")
+        del kern, plain, grid, cinv_flat, cov
+    finally:
+        problem.set_manifold(cams, euclidean)
+        problem.set_parameter_block_variable(cams[0])
+        for grp, v in zip(program.groups, solved):
+            grp.values = v.copy()
+        torch.cuda.empty_cache()
+    return dict(launches={label: n}, k3_f64_err=err)
+
+
+def phase_covariance(device) -> dict:
+    """Phase 26b: DENSE_SVD on sphere2500 after its solve, and the small
+    BA scene of tests/test_covariance_gradient.py card against CPU."""
+    from skeres_tpu_torch.core.schur import DENSE_W_LIMIT_BYTES
+    from skeres_tpu_torch.core import schur as schur_mod
+    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
+    from skeres_tpu_torch.io.g2o import build_pose_graph_problem, synthetic_sphere
+
+    launches = {}
+    graph = synthetic_sphere(SPHERE_POSES)
+    s, poses = solve_sphere(graph, device, torch.float64)
+    problem, poses2 = build_pose_graph_problem(graph)
+    poses2.values = poses.values
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    label = f"sphere{SPHERE_POSES} covariance (DENSE_SVD)"
+    t0 = time.time()
+    cov, ok = covariance_of(problem, device, "DENSE_SVD")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_free = 6 * (SPHERE_POSES - 1)
+    print(f"[{label}] float64 at the f64 solution (chi^2 {2 * s.final_cost!r}); J^T J over "
+          f"{6 * SPHERE_POSES} tangent coordinates ({(6 * SPHERE_POSES) ** 2 * 8 / 1e9:.2f} GB), "
+          f"{n_free} free: compute() {ok} in {wall:.4f} s (evaluate {cov.seconds['evaluate']:.4f} "
+          f"s, J^T J {cov.seconds['assemble']:.4f} s, eigh {cov.seconds['eigh']:.4f} s, the whole "
+          f"pseudo-inverse {cov.seconds['pinv']:.4f} s); rank {cov.rank}; smallest kept eigenvalue "
+          f"{cov.smallest_kept!r}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    launches[label] = check_no_launches(label)
+    check(ok and cov.rank == n_free, f"{label}: compute() {ok}, rank {cov.rank}")
+    mid = SPHERE_POSES // 2
+    block, ms = timed_query(cov, poses2[mid], poses2[mid])
+    print(f"[{label}] pose {mid}'s block: {ms:.3f} ms, diagonal {np.diag(block).tolist()}")
+    check(np.isfinite(block).all() and np.linalg.eigvalsh(0.5 * (block + block.T)).min() > 0.0,
+          f"{label}: pose {mid}'s block is not positive definite")
+    del cov
+    torch.cuda.empty_cache()
+
+    # tests/test_covariance_gradient.py's scene: both algorithms, both devices
+    bal = synthetic_bal(num_cameras=5, num_points=30, observations_per_point=4)
+    reset_launches()
+    blocks = {}
+    saved = schur_mod.DENSE_W_LIMIT_BYTES
+    for path in ("dense-W", "explicit"):
+        schur_mod.DENSE_W_LIMIT_BYTES = 0 if path == "explicit" else DENSE_W_LIMIT_BYTES
+        try:
+            for dev in (device, "cpu"):
+                problem, cams, pts = build_bal_problem(bal)
+                problem.set_parameter_block_constant(cams[0])
+                problem.set_parameter_block_constant(cams[1])
+                if dev == device and path == "dense-W":
+                    solve_bal_problem(problem, "cpu")
+                    solution = [g.values.copy() for g in problem._groups]
+                for grp, v in zip(problem._groups, solution):
+                    grp.values = v.copy()
+                for algo in ("DENSE_SVD", "SCHUR_COMPLEMENT"):
+                    cov, ok = covariance_of(problem, dev, algo)
+                    check(ok, f"small BA covariance {algo} {dev}: compute() False")
+                    pairs = [(cams[2], cams[2]), (cams[2], cams[4]), (cams[3], pts[7]),
+                             (pts[11], cams[2]), (pts[3], pts[3]), (pts[3], pts[19]),
+                             (cams[0], cams[2])]
+                    blocks[(path, dev, algo)] = [cov.get_covariance_block_in_tangent_space(*p)
+                                                 for p in pairs]
+        finally:
+            schur_mod.DENSE_W_LIMIT_BYTES = saved
+    # SCHUR_COMPLEMENT against DENSE_SVD as tests/test_covariance_gradient.py
+    # holds them; card against CPU as tests/test_torch_covariance.py holds the
+    # port against the JAX package (J^T J is 8.4e7-conditioned here)
+    worst = {}
+    for path in ("dense-W", "explicit"):
+        for a, b, rtol, atol in (
+                ((device, "SCHUR_COMPLEMENT"), (device, "DENSE_SVD"), 1e-5, 1e-9),
+                ((device, "DENSE_SVD"), ("cpu", "DENSE_SVD"), 1e-7, 1e-12),
+                ((device, "SCHUR_COMPLEMENT"), ("cpu", "SCHUR_COMPLEMENT"), 1e-7, 1e-12)):
+            key = f"{path}: {a[1]} {a[0]} vs {b[1]} {b[0]}"
+            worst[key] = max(float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-300))
+                             for x, y in zip(blocks[(path, *a)], blocks[(path, *b)]))
+            check(all(np.allclose(x, y, rtol=rtol, atol=atol)
+                      for x, y in zip(blocks[(path, *a)], blocks[(path, *b)])),
+                  f"small BA covariance {key}: differ beyond rtol {rtol:.0e}")
+    print("[small BA covariance] synthetic_bal(5, 30, 4), cameras 0 and 1 constant, 7 block pairs "
+          "of every type; largest difference relative to each block's largest entry: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    launches["synthetic_bal(5, 30, 4) covariance, both algorithms"] = launch_counts()
+    return launches
+
+
+def solve_bal_problem(problem, device):
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.types import LinearSolverType
+
+    return stt.solve(stt.SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
+                                       max_num_iterations=25, device=device), problem)
+
+
+def scoreboards(device) -> dict:
+    """The MGH and NIST registries solved on ``device`` in float64 with
+    the options of tests/test_mgh.py and tests/test_nist.py: per case,
+    (certified, F)."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.types import LinearSolverType
+    from skeres_tpu_torch.io.nist_strd import EMBEDDED
+    from skeres_tpu_torch.io.nist_strd import PROBLEMS as NIST
+    from skeres_tpu_torch.models.mgh import PROBLEMS as MGH
+
+    tight = dict(use_nonmonotonic_steps=True, function_tolerance=1e-16, gradient_tolerance=1e-16,
+                 parameter_tolerance=1e-16, linear_solver_type=LinearSolverType.DENSE_QR,
+                 device=device)
+    out = {}
+    for num in sorted(MGH):
+        prob = MGH[num]
+        problem = stt.Problem()
+        x = problem.add_parameter_block(np.asarray(prob.x0, dtype=np.float64))
+        problem.add_residual_block(lambda params, data, prob=prob: prob.residual(params[0]),
+                                   None, [x])
+        s = stt.solve(stt.SolverOptions(max_num_iterations=prob.max_iterations, **tight), problem)
+        f = 2.0 * s.final_cost
+        out[f"MGH {num} {prob.name}"] = (bool(prob.certified(f)), f, at_cap(s))
+    for name in EMBEDDED:
+        prob = NIST[name]
+        y, X = prob.data()
+        for start, b0 in enumerate(prob.starts):
+            problem = stt.Problem()
+            b = problem.add_parameter_block(np.asarray(b0, dtype=np.float64))
+            problem.add_residual_blocks(
+                lambda params, data, prob=prob: data[0:1] - prob.model(params[0], data[None, 1:]),
+                None, [(b.array, np.zeros(len(y), dtype=np.int32))],
+                data=np.concatenate([(np.log(y) if prob.log_response else y).reshape(-1, 1), X],
+                                    axis=1))
+            s = stt.solve(stt.SolverOptions(max_num_iterations=1500, **tight), problem)
+            ssr, c = 2.0 * s.final_cost, prob.certified_ssr
+            ok = ssr < 1e-20 if c < 1e-20 else abs(ssr - c) <= 1e-6 * c
+            out[f"NIST {name} start {start}"] = (bool(ok), ssr, at_cap(s))
+    return out
+
+
+def at_cap(summary) -> bool:
+    return summary.message == "Maximum number of iterations reached."
+
+
+SCOREBOARDS_CPU_ERR = os.path.join(ROOT, "build", "scoreboards_cpu.err")
+
+
+def start_cpu_scoreboards() -> subprocess.Popen:
+    """The CPU's scoreboards in a child process, while the card runs the
+    other phases (phase 27 reads them). Its standard error goes to a file,
+    which no pipe can fill up."""
+    os.makedirs(os.path.dirname(SCOREBOARDS_CPU_ERR), exist_ok=True)
+    with open(SCOREBOARDS_CPU_ERR, "w") as err:
+        return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--scoreboards-cpu"],
+                                stdout=subprocess.PIPE, stderr=err, text=True, cwd=ROOT)
+
+
+def phase_scoreboards(device, cpu_child: subprocess.Popen) -> dict:
+    """Phase 27. Returns the launches on the path."""
+    t0 = time.time()
+    reset_launches()
+    card = scoreboards(device)
+    t_card = time.time() - t0
+    launches = check_no_launches("MGH/NIST scoreboards")
+    out, _ = cpu_child.communicate(timeout=900)
+    lines = out.strip().splitlines()
+    if cpu_child.returncode != 0 or not lines:
+        with open(SCOREBOARDS_CPU_ERR) as f:
+            err = f.read()
+        check(False, f"CPU scoreboards: exit {cpu_child.returncode}\n{out[-2000:]}\n{err[-4000:]}")
+    cpu = {k: tuple(v) for k, v in json.loads(lines[-1]).items()}
+    check(set(card) == set(cpu), "scoreboards: different cases")
+    # a case that ends on its step limit on both devices is certified or not
+    # by where rounding left it: on the CPU, a start changed by 1e-15 takes
+    # MGH penalty2_n10 from F = 2.93661e-4 (certified) to 4.36039e-4
+    at_limit = {k for k in card if card[k][2] and cpu[k][2]}
+    differ = [k for k in card if card[k][0] != cpu[k][0] and k not in at_limit]
+    at_limit_differ = [k for k in at_limit if card[k][0] != cpu[k][0]]
+    for group in ("MGH", "NIST"):
+        keys = [k for k in card if k.startswith(group)]
+        print(f"[scoreboards] {group}: the card certifies {sum(card[k][0] for k in keys)} of "
+              f"{len(keys)}, the CPU {sum(cpu[k][0] for k in keys)}; not certified on the card: "
+              f"{[k for k in keys if not card[k][0]]}")
+    rel = max(abs(card[k][1] - cpu[k][1]) / max(abs(cpu[k][1]), 1e-300)
+              for k in card if card[k][0] and cpu[k][1] > 1e-12)
+    print(f"[scoreboards] float64, DENSE_QR: {len(card)} cases on the card in {t_card:.1f} s "
+          f"(the CPU's ran beside the other phases in a child process); largest relative F "
+          f"difference among the certified nonzero minima {rel:.3e}; ending on the step limit on "
+          f"both devices: {sorted(at_limit)}; certified differently: {differ}, and at the step "
+          f"limit: {[(k, card[k][1], cpu[k][1]) for k in at_limit_differ]} (F on the card, the "
+          f"CPU)")
+    check(not differ, f"scoreboards: the card and the CPU certify differently: {differ}")
+    return {"MGH and NIST scoreboards (float64, DENSE_QR)": launches}
+
+
 def bound(nbytes: float, flop: float, flops_per_s: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / flops_per_s
@@ -1668,8 +2255,22 @@ def main() -> int:
     if sys.argv[1:] == ["--traced-bal49"]:
         print(json.dumps(traced_bal49()))
         return 0
+    if sys.argv[1:] == ["--scoreboards-cpu"]:
+        torch.set_num_threads(1)
+        print(json.dumps(scoreboards("cpu")))
+        return 0
     t_start = time.time()
     phase_device()
+    cpu_scoreboards = start_cpu_scoreboards()
+    try:
+        return run_phases(t_start, cpu_scoreboards)
+    finally:
+        if cpu_scoreboards.poll() is None:
+            cpu_scoreboards.kill()
+            cpu_scoreboards.communicate()
+
+
+def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
     device = "cuda"
     from skeres_tpu_torch.ops.cholesky import PANEL
 
@@ -1708,7 +2309,7 @@ def main() -> int:
     api = timed("venice Problem API", phase_venice_problem_api, device, problem, program, cams,
                 initial, lm_host)
     tr_paths.update(api["launches"])
-    del problem, program, initial, cams
+    k3_f6 = api["k3"]
     torch.cuda.empty_cache()
     big_paths = {**venice_paths, **timed("past cap", phase_past_cap, device)}
     torch.cuda.empty_cache()
@@ -1718,6 +2319,15 @@ def main() -> int:
     timed("device loop BAL-49", phase_device_loop_bal49, device)
     solver_paths = timed("solvers card vs CPU", phase_solvers_card_vs_cpu, device)
     solver_paths.update(timed("trust region card vs CPU", phase_trust_region_card_vs_cpu, device))
+    # phases 24-27: the venice scene (host data) lived on for 25 and 26
+    new_paths = timed("pose graph", phase_pose_graph, device)
+    new_paths.update(timed("venice line search", phase_venice_line_search, device, problem,
+                           program, initial, lm_host))
+    cov = timed("venice covariance", phase_venice_covariance, device, problem, program, cams,
+                api["solved"])
+    del problem, program, initial, cams, api
+    new_paths.update(timed("covariance", phase_covariance, device))
+    new_paths.update(timed("scoreboards", phase_scoreboards, device, cpu_scoreboards))
     k3_err, k3_ms, k3_plain, k3_bytes, k3_flop = venice["k3"]
     k2_ms, k2_plain, k2_library, k2_n = venice["k2"]
     n1 = 9 * 49  # K1's n on the main path: the BAL-49 S
@@ -1739,7 +2349,8 @@ def main() -> int:
             "launches_by_path": {"BAL-49 DENSE_SCHUR": k1_launches, **{
                 (k if k.startswith("synthetic") else f"synthetic_bal(16, 500, 4) {k}"): v["K1"]
                 for k, v in solver_paths.items()}, **{
-                f"{k} (panels inside K2)": v["K1"] for k, v in tr_paths.items()}},
+                f"{k} (panels inside K2)": v["K1"] for k, v in tr_paths.items()},
+                **{k: v["K1"] for k, v in {**new_paths, **cov["launches"]}.items()}},
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": k1_plain,
@@ -1755,7 +2366,9 @@ def main() -> int:
             "launches": up_launches,
             "launches_by_path": {"venice DENSE_SCHUR": up_launches,
                                  **{k: v["K2 update"] for k, v in big_paths.items()},
-                                 **{k: v["K2 update"] for k, v in tr_paths.items()}},
+                                 **{k: v["K2 update"] for k, v in tr_paths.items()},
+                                 **{k: v["K2 update"] for k, v in
+                                    {**new_paths, **cov["launches"]}.items()}},
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain,
@@ -1773,13 +2386,15 @@ def main() -> int:
                                  **{k: v["K3"] for k, v in big_paths.items()},
                                  **{k: v["K3"] for k, v in tr_paths.items()}, **{
                 (k if k.startswith("synthetic") else f"synthetic_bal(16, 500, 4) {k}"): v["K3"]
-                for k, v in solver_paths.items()}},
+                for k, v in solver_paths.items()},
+                **{k: v["K3"] for k, v in {**new_paths, **cov["launches"]}.items()}},
             "max_abs_err": k3_err,
             "ms": k3_ms,
             "cluster_plan_ms": venice["k3_cluster_ms"],
-            "f6_e3": {"max_abs_err": api["k3"]["err"], "ms": api["k3"]["ms"],
-                      "plain_ms": api["k3"]["plain_ms"],
-                      "bound_ms": bound(api["k3"]["moved"], api["k3"]["flop"], 67e12)[0]},
+            "f6_e3": {"max_abs_err": k3_f6["err"], "ms": k3_f6["ms"],
+                      "plain_ms": k3_f6["plain_ms"],
+                      "bound_ms": bound(k3_f6["moved"], k3_f6["flop"], 67e12)[0],
+                      "float64_max_abs_err": cov["k3_f64_err"]},
             "plain_ms": k3_plain,
             "bound_ms": k3_bound[0],
             "bound_by": k3_bound[1],

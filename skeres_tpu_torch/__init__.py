@@ -13,11 +13,16 @@ This package imports torch and never jax or skeres_tpu. It runs the
 trust region (Levenberg-Marquardt on the host loop or the device loop,
 dogleg on the host loop) with every linear solver of the JAX package
 (DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR, DENSE_SCHUR, ITERATIVE_SCHUR and
-its preconditioners), inner iterations and trust-region dumps; its
-``Problem`` has every manifold of the JAX package, constant blocks,
-bounds, numeric differentiation, block removal and ``evaluate``. What it
-does not run yet (the line-search minimizer, the gradient checker, a
-mesh) raises ``NotImplementedError``.
+its preconditioners), inner iterations and trust-region dumps, and the
+line-search minimizer (``MinimizerType.LINE_SEARCH``; ``GradientProblem``
+and ``GradientProblemSolver`` for a scalar function); ``check_gradients``
+holds every residual's Jacobian against numeric differences, and
+``Covariance`` estimates the solution's covariance (DENSE_SVD or
+SCHUR_COMPLEMENT). Its ``Problem`` has every manifold of the JAX package,
+constant blocks, bounds, numeric differentiation, block removal and
+``evaluate``; pose graphs (``models/pose_graph.py``, ``io/g2o.py``), priors,
+cubic interpolation and the MGH and NIST registries come with it. What it
+does not run yet (a mesh) raises ``NotImplementedError``.
 """
 
 from skeres_tpu_torch.ops.loss import (
@@ -51,6 +56,9 @@ def __getattr__(name):
         "SolverOptions": "skeres_tpu_torch.core.options",
         "Summary": "skeres_tpu_torch.core.summary",
         "solve": "skeres_tpu_torch.core.solver",
+        "Covariance": "skeres_tpu_torch.core.covariance",
+        "GradientProblem": "skeres_tpu_torch.core.gradient_problem",
+        "GradientProblemSolver": "skeres_tpu_torch.core.gradient_problem",
     }
     if name in _core:
         return getattr(import_module(_core[name]), name)

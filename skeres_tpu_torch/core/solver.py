@@ -18,9 +18,13 @@ the implicit or the explicit S), chosen as the reference's preprocessor
 chooses (``_select_linear_solver``); the downgrades it makes are logged
 and written to the Summary. Inner iterations (``use_inner_iterations``)
 refine the independent group in both loops; the trust-region dumps write
-or print the linear system. Every option it does not run yet raises
-``NotImplementedError`` naming what is missing; none falls back to
-something else.
+or print the linear system. ``MinimizerType.LINE_SEARCH`` runs the
+line-search minimizer (``core/line_search.py``; ``use_device_loop`` does
+not apply to it, as in the JAX package), and ``check_gradients`` checks
+every batch's Jacobian against numeric differences before the solve
+(``core/gradient_checker.py``). The one option it does not run yet
+(``mesh``) raises ``NotImplementedError``; none falls back to something
+else.
 """
 
 from __future__ import annotations
@@ -34,14 +38,21 @@ import torch
 
 from skeres_tpu_torch.core.device_loop import DeviceLoopMinimizer
 from skeres_tpu_torch.core.evaluator import Evaluator
+from skeres_tpu_torch.core.gradient_checker import check_program_gradients
 from skeres_tpu_torch.core.inner_iterations import InnerIterationRefiner
+from skeres_tpu_torch.core.line_search import LineSearchMinimizer
 from skeres_tpu_torch.core.minimizer import TrustRegionMinimizer, synchronize
 from skeres_tpu_torch.core.options import SolverOptions
 from skeres_tpu_torch.core.ordering import apply_schur_ordering
 from skeres_tpu_torch.core.problem import Problem, Program
 from skeres_tpu_torch.core.schur import SchurSolver
 from skeres_tpu_torch.core.summary import Summary
-from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType, TerminationType
+from skeres_tpu_torch.core.types import (
+    LinearSolverType,
+    MinimizerType,
+    PreconditionerType,
+    TerminationType,
+)
 from skeres_tpu_torch.utils.checkpoint import load_checkpoint
 
 __all__ = ["TRACE_FILE", "solve"]
@@ -55,9 +66,7 @@ _DEFAULTS = SolverOptions()
 # options that select code the port does not have yet: any value other
 # than the default raises
 _UNPORTED = {
-    "minimizer_type": "the line-search minimizer (core/line_search.py)",
     "mesh": "multi-device sharding (parallel/mesh.py)",
-    "check_gradients": "the gradient checker (core/gradient_checker.py)",
 }
 
 
@@ -195,13 +204,17 @@ def solve(
                 "use_inner_iterations ignored: no independent group declared "
                 "(set_schur_elimination_group(arr, 0))"
             )
-    minimizer_cls, kw = TrustRegionMinimizer, {}
-    if options.use_device_loop:
-        minimizer_cls = DeviceLoopMinimizer
-        kw["chunk_iterations"] = min(options.device_loop_chunk_iterations,
-                                     options.max_num_iterations)
-    minimizer = minimizer_cls(evaluator, options, summary, solver_type,
-                              schur_solver=schur_solver, inner_refiner=inner_refiner, **kw)
+    if options.minimizer_type == MinimizerType.LINE_SEARCH:
+        # before the device-loop branch: use_device_loop does not apply
+        minimizer = LineSearchMinimizer(evaluator, options, summary)
+    else:
+        minimizer_cls, kw = TrustRegionMinimizer, {}
+        if options.use_device_loop:
+            minimizer_cls = DeviceLoopMinimizer
+            kw["chunk_iterations"] = min(options.device_loop_chunk_iterations,
+                                         options.max_num_iterations)
+        minimizer = minimizer_cls(evaluator, options, summary, solver_type,
+                                  schur_solver=schur_solver, inner_refiner=inner_refiner, **kw)
 
     if options.resume_from:
         groups, radius, iteration, _cost = load_checkpoint(options.resume_from)
@@ -218,13 +231,23 @@ def solve(
                 summary.message = "checkpoint group shape mismatch"
                 return summary
             g.values = v
-        minimizer.initial_radius_override = radius
-        minimizer.initial_iteration = iteration
+        if hasattr(minimizer, "initial_radius_override"):
+            minimizer.initial_radius_override = radius
+            minimizer.initial_iteration = iteration
+
+    if options.check_gradients:
+        ok, msg = check_program_gradients(
+            program, evaluator, relative_precision=options.gradient_check_relative_precision,
+            step_size=options.gradient_check_numeric_derivative_relative_step_size)
+        if not ok:
+            summary.termination_type = TerminationType.FAILURE
+            summary.message = f"Gradient check failed: {msg}"
+            return summary
 
     state = program.initial_state(device, options.dtype)
     # the device loop's first linearization and CUDA-graph capture count as
     # preprocessing, as the JAX package's compilation does
-    if options.use_device_loop:
+    if isinstance(minimizer, DeviceLoopMinimizer):
         minimizer.compile_programs(state)
         summary.device_loop_capture_time_in_seconds = minimizer.capture_seconds
     synchronize(device)

@@ -412,16 +412,21 @@ def _card_and_cpu(cuda, declare=None, compare_cameras=True, **kw):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dogleg", ["TRADITIONAL_DOGLEG", "SUBSPACE_DOGLEG"])
 def test_dogleg_on_card_matches_cpu(cuda, dogleg):
-    """Both dogleg types on the host loop: the card's decisions and costs
-    (rtol 1e-8) are the CPU's, with one Gauss-Newton solve a
-    linearization on each. The cameras are not compared: the Gauss-Newton
-    point of a gauge-free problem is the solve of a near-singular system
-    (a jitter rung, or a plain factor that rounding lets through), whose
-    components along the 7-dof gauge the rounding sets, and which the cost
-    does not see."""
+    """Both dogleg types on the host loop, cameras 0 and 1 held constant
+    (the 7-dof gauge fixed): the card's decisions, costs (rtol 1e-8) and
+    cameras are the CPU's, with one Gauss-Newton solve a linearization on
+    each. Without the gauge fixed, the Gauss-Newton point solves a
+    near-singular system (a jitter rung, or a plain factor that rounding
+    lets through), whose gauge components the rounding sets, and the
+    step's length and so the trajectory follow them: the subspace case
+    parted from the CPU in one of six runs on an NVIDIA H100 80GB HBM3."""
     from skeres_tpu_torch.core.types import DoglegType, TrustRegionStrategyType
 
-    card, cpu = _card_and_cpu(cuda, compare_cameras=False,
+    def gauge(problem, cams):
+        problem.set_parameter_block_constant(cams[0])
+        problem.set_parameter_block_constant(cams[1])
+
+    card, cpu = _card_and_cpu(cuda, gauge,
                               trust_region_strategy_type=TrustRegionStrategyType.DOGLEG,
                               dogleg_type=DoglegType[dogleg])
     assert len(card.dogleg_gauss_newton_iterations) == len(cpu.dogleg_gauss_newton_iterations) \
@@ -457,3 +462,76 @@ def test_declarations_on_card_match_cpu(cuda, device_loop):
     kw = dict(use_device_loop=True, device_loop_chunk_iterations=4) if device_loop else {}
     card, _ = _card_and_cpu(cuda, declare, **kw)
     assert card.num_effective_parameters_reduced == 15 * 6 + 500 * 3
+
+
+# -- the line search, pose graphs and covariance on the card -------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("direction", ["LBFGS", "BFGS", "NONLINEAR_CONJUGATE_GRADIENT"])
+def test_line_search_on_card_matches_cpu(cuda, direction):
+    """MinimizerType.LINE_SEARCH on synthetic_bal(16, 500, 4), float64, 15
+    iterations with Wolfe steps: the same decisions and step-search
+    evaluations, costs to rtol 1e-8."""
+    from skeres_tpu_torch.core.types import LineSearchDirectionType, MinimizerType
+
+    runs = []
+    for device in (cuda, "cpu"):
+        problem, _, _ = build_bal_problem(synthetic_bal(16, 500, 4))
+        runs.append(stt.solve(stt.SolverOptions(
+            minimizer_type=MinimizerType.LINE_SEARCH, max_num_iterations=15,
+            line_search_direction_type=LineSearchDirectionType[direction], dtype=torch.float64,
+            device=device), problem))
+    card, cpu = runs
+    assert [(it.step_is_successful, it.line_search_function_evaluations)
+            for it in card.iterations] == [(it.step_is_successful,
+                                            it.line_search_function_evaluations)
+                                           for it in cpu.iterations]
+    np.testing.assert_allclose([it.cost for it in card.iterations],
+                               [it.cost for it in cpu.iterations], rtol=1e-8)
+
+
+@pytest.mark.gpu
+def test_pose_graph_on_card_matches_cpu(cuda):
+    """A 200-pose synthetic sphere, DENSE_NORMAL_CHOLESKY, float64, 10
+    steps, with check_gradients: the same decisions, costs to rtol 1e-8."""
+    from skeres_tpu_torch.io.g2o import build_pose_graph_problem, synthetic_sphere
+
+    graph = synthetic_sphere(num_poses=200, loops_every=15)
+    runs = []
+    for device in (cuda, "cpu"):
+        problem, _ = build_pose_graph_problem(graph)
+        runs.append(stt.solve(stt.SolverOptions(
+            linear_solver_type=LinearSolverType.DENSE_NORMAL_CHOLESKY, max_num_iterations=10,
+            run_full_iteration_budget=True, check_gradients=True, dtype=torch.float64,
+            device=device), problem))
+    card, cpu = runs
+    assert [it.step_is_successful for it in card.iterations] == [
+        it.step_is_successful for it in cpu.iterations]
+    np.testing.assert_allclose([it.cost for it in card.iterations],
+                               [it.cost for it in cpu.iterations], rtol=1e-8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["DENSE_SVD", "SCHUR_COMPLEMENT"])
+def test_covariance_on_card_matches_cpu(cuda, algorithm):
+    """tests/test_covariance_gradient.py's scene at one point, float64:
+    every block pair type on the card equals the CPU's to rtol 1e-7 (its
+    J^T J is 8.4e7-conditioned)."""
+    from skeres_tpu_torch.core.covariance import Covariance, CovarianceOptions
+    from skeres_tpu_torch.core.types import CovarianceAlgorithmType
+
+    bal = synthetic_bal(num_cameras=5, num_points=30, observations_per_point=4)
+    blocks = []
+    for device in (cuda, "cpu"):
+        problem, cams, pts = build_bal_problem(bal)
+        problem.set_parameter_block_constant(cams[0])
+        problem.set_parameter_block_constant(cams[1])
+        cov = Covariance(CovarianceOptions(
+            algorithm_type=CovarianceAlgorithmType[algorithm], device=device))
+        assert cov.compute(problem)
+        blocks.append([cov.get_covariance_block_in_tangent_space(a, b) for a, b in (
+            (cams[2], cams[2]), (cams[3], pts[7]), (pts[3], pts[3]), (pts[3], pts[19]),
+            (cams[0], cams[2]))])
+    for x, y in zip(*blocks):
+        np.testing.assert_allclose(x, y, rtol=1e-7, atol=1e-12)

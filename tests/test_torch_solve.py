@@ -24,7 +24,7 @@ from skeres_tpu_torch.core import schur as schur_mod
 from skeres_tpu_torch.core.linear_solvers import lm_diagonal
 from skeres_tpu_torch.core.options import SolverOptions
 from skeres_tpu_torch.core.solver import TRACE_FILE
-from skeres_tpu_torch.core.types import LinearSolverType, MinimizerType, PreconditionerType
+from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType
 from skeres_tpu_torch.io import bal as tbal
 
 
@@ -148,8 +148,6 @@ def test_min_lm_diagonal_affects_step():
 @pytest.mark.parametrize(
     "option",
     [
-        dict(linear_solver_type=LinearSolverType.DENSE_QR, check_gradients=True),
-        dict(minimizer_type=MinimizerType.LINE_SEARCH),
         dict(mesh="obs"),
     ],
 )
@@ -179,17 +177,20 @@ def _by_name(options_cls, option):
         dict(use_explicit_schur_complement=True, trust_region_strategy_type="DOGLEG",
              dogleg_type="SUBSPACE_DOGLEG"),
         dict(trust_region_minimizer_iterations_to_dump=[1]),
+        dict(linear_solver_type="DENSE_QR", check_gradients=True),
+        dict(minimizer_type="LINE_SEARCH"),
     ],
     ids=["inner iterations", "ITERATIVE_SCHUR inner iterations", "dogleg", "subspace dogleg",
-         "dump"],
+         "dump", "check_gradients", "line search"],
 )
 def test_formerly_unported_options_match_jax(option, tmp_path):
-    """The options the port raised on before this slice (the five cases
-    that left test_unported_options_raise): each runs, with the same
-    trajectory as the JAX package's, costs to rtol 1e-8, on the scene of
-    that test at initial radius 1 (at the default radius ITERATIVE_SCHUR's
-    PCG counts part after three steps, with or without inner iterations);
-    the dump writes its file."""
+    """The options the port raised on before (the seven cases that left
+    test_unported_options_raise: five with the trust region's slices, the
+    gradient check and the line-search minimizer with theirs): each runs,
+    with the same trajectory as the JAX package's, costs to rtol 1e-8, on
+    the scene of that test at initial radius 1 (at the default radius
+    ITERATIVE_SCHUR's PCG counts part after three steps, with or without
+    inner iterations); the dump writes its file."""
     bal = tbal.synthetic_bal(4, 24, 3)
     kw = {**dict(linear_solver_type="DENSE_SCHUR", max_num_iterations=5,
                  initial_trust_region_radius=1.0,
@@ -376,7 +377,9 @@ def test_write_back_and_report():
 
 def test_package_imports_neither_jax_nor_skeres_tpu():
     """In a fresh interpreter, with jax and skeres_tpu made unimportable,
-    every module of the port (and chip_smoke.py) still imports."""
+    every module of the port (and chip_smoke.py) still imports: the line
+    search, GradientProblem, covariance, the gradient checker, the pose
+    graphs, priors, MGH, interpolation, g2o and the NIST data among them."""
     code = (
         "import sys, pkgutil, importlib\n"
         "pre = set(sys.modules)\n"
@@ -386,6 +389,10 @@ def test_package_imports_neither_jax_nor_skeres_tpu():
         "for m in pkgutil.walk_packages(skeres_tpu_torch.__path__, 'skeres_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for m in ('core.line_search', 'core.gradient_problem', 'core.covariance',\n"
+        "          'core.gradient_checker', 'models.pose_graph', 'models.priors',\n"
+        "          'models.mgh', 'ops.interpolation', 'io.g2o', 'io.nist_strd'):\n"
+        "    assert sys.modules['skeres_tpu_torch.' + m], m\n"
         "new = set(sys.modules) - pre\n"
         "bad = [m for m in new if m.startswith(('jax', 'skeres_tpu.')) and sys.modules[m]]\n"
         "assert not bad, bad\n"
