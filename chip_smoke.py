@@ -175,6 +175,44 @@ non-zero and prints no result line):
                Phases 25 and 26 need the venice scene, whose host data lives
                on from phase 10 to 26.
 
+ 28. split BAL-49 — synthetic_bal(49, 7776, 4) with each camera split into
+               a pose (6) and an intrinsics (3) block: two retained groups,
+               so S (441 rows) comes from the column probe, K1 factors it.
+               float64, 30 steps, host loop and device loop, against the
+               unsplit (dense-W) solve on the card: every step's cost to
+               rtol 1e-8, the unsplit final cost phase 6's 4801.92 (rtol
+               1e-5); then LM steps/s of both loops in float32.
+ 29. Dubrovnik shape — synthetic_bal(356, 226_730, 5) (the counts of BAL
+               problem-356-226730, 1,133,650 observations), split: S of
+               3,204 rows by the probe in 26 chunks, K2 over 7 panels;
+               float64, 5 steps, both loops, against the unsplit scene on
+               the explicit path (K3 at (9, 3) in float64, K2): every step's
+               cost to rtol 1e-8; the probe's and a damped solve's time, the
+               peak memory, K2's launches.
+ 30. split venice — the venice scene of phases 10-26 split (run right after
+               phase 19, while its host data lives): one generic S product
+               timed (beside phase 18's unsplit one), one chunk of the column
+               probe timed and two of its columns held against S e_j;
+               ITERATIVE_SCHUR with SCHUR_JACOBI, float32, 5 steps, both
+               loops. A DENSE_SCHUR solve (126 chunks, then K2 at 16,002) is
+               not run.
+ 31. general structure, card vs CPU — float64: the three-signature problem
+               of tests/test_schur_general.py, the same with the points
+               declared between the two retained groups, and the ellipse
+               (rows of three slots); DENSE_SCHUR (the probe, K1) and
+               ITERATIVE_SCHUR with JACOBI, SCHUR_JACOBI and
+               POWER_SERIES_EXPANSION on both loops, 9 steps at initial
+               radius 1: the same decisions, costs to rtol 1e-8; the
+               SCHUR_COMPLEMENT covariance (S by the probe) against DENSE_SVD,
+               card and CPU, to 1e-8 of a block's largest entry.
+ 32. tools — in subprocesses ``python -m skeres_tpu_torch.cli.bundle_adjuster
+               --num_cameras 49 --num_points 7776 --max_iterations 30`` (final
+               cost phase 6's), ``pose_graph_3d --num_poses 2500`` (chi^2
+               phase 24's 270.37) and ``pose_graph_2d`` on a square loop
+               written to a temporary directory; then every
+               ``examples_torch`` script's ``main()`` on the card by default,
+               each with the assertion of its test.
+
 The line before the last is a JSON object describing each kernel (its
 time, its launches on the main path, its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the peak for their type,
@@ -2245,6 +2283,531 @@ def phase_scoreboards(device, cpu_child: subprocess.Popen) -> dict:
     return {"MGH and NIST scoreboards (float64, DENSE_QR)": launches}
 
 
+# -- the general Schur structure, the CLIs and the examples (phases 28-32) ---------
+
+SPLIT_STEPS = 30  # phase 28, as phases 6 and 15
+BAL49_FINAL = 4801.92  # phase 6's final cost (float32), to the digits PERF.md gives
+# the camera, point and observation-per-point counts of BAL problem-356-226730
+DUBROVNIK = dict(num_cameras=356, num_points=226_730, observations_per_point=5)
+DUBROVNIK_STEPS = 5
+# phase 31: every Schur path of the general structure, both loops
+GENERAL_SOLVERS = (("DENSE_SCHUR", "JACOBI"), ("ITERATIVE_SCHUR", "JACOBI"),
+                   ("ITERATIVE_SCHUR", "SCHUR_JACOBI"),
+                   ("ITERATIVE_SCHUR", "POWER_SERIES_EXPANSION"))
+SPHERE_CHI2 = 270.37  # phase 24's final chi^2 on sphere2500
+
+
+def solve_split(bal, device, dtype, iters, split=True, solver="DENSE_SCHUR", precond="JACOBI",
+                **kw):
+    """``bal`` through ``stt.solve`` with each camera split into a pose (6)
+    and an intrinsics (3) block (``split``), or whole; the full budget."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType
+    from skeres_tpu_torch.io.bal import build_bal_problem, build_split_bal_problem
+
+    problem = (build_split_bal_problem if split else build_bal_problem)(bal)[0]
+    return stt.solve(stt.SolverOptions(
+        linear_solver_type=LinearSolverType[solver],
+        preconditioner_type=PreconditionerType[precond], max_num_iterations=iters,
+        run_full_iteration_budget=True, dtype=dtype, device=device, **kw), problem)
+
+
+def cost_gap(label: str, got, ref, rtol: float) -> float:
+    """Every step's cost of ``got`` against ``ref`` (two Summaries of the
+    same problem): the same iteration count, costs to ``rtol``. Prints how
+    many decisions agree. Returns the largest relative difference."""
+    a = np.array([it.cost for it in got.iterations])
+    b = np.array([it.cost for it in ref.iterations])
+    check(len(a) == len(b), f"{label}: {len(a)} iterations against {len(b)}")
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    same = sum(x.step_is_successful == y.step_is_successful
+               for x, y in zip(got.iterations, ref.iterations))
+    print(f"[{label}] costs {json.dumps(a.tolist())}; max relative difference from the reference "
+          f"{rel:.3e} over {len(a)} iterations; {same} of {len(a)} decisions agree")
+    check(rel <= rtol, f"{label}: costs differ by {rel:.3e} > {rtol:.0e}")
+    return rel
+
+
+def phase_split_bal49(device) -> dict:
+    """Phase 28: BAL-49 split, S (441 rows) by the column probe, K1.
+    Returns the launches by path."""
+    from skeres_tpu_torch.io.bal import synthetic_bal
+
+    bal = synthetic_bal(49, 7776, 4)
+    reset_launches()
+    ref = solve_split(bal, device, torch.float64, SPLIT_STEPS, split=False)
+    check(ref.schur_complement_path == "dense-W", "split BAL-49: the reference is not dense W")
+    print(f"[split BAL-49] unsplit reference, float64 host loop: path dense-W, final cost "
+          f"{ref.final_cost!r} (phase 6, float32: {BAL49_FINAL})")
+    check(abs(ref.final_cost / BAL49_FINAL - 1.0) <= 1e-5,
+          f"split BAL-49: the unsplit float64 final cost {ref.final_cost} is not phase 6's")
+    launches = {}
+    for loop in ("host loop", "device loop"):
+        label = f"split BAL-49 float64 {loop}"
+        reset_launches()
+        s = solve_split(bal, device, torch.float64, SPLIT_STEPS,
+                        use_device_loop=loop == "device loop")
+        n = launch_counts()
+        check(s.schur_complement_path.startswith("column-probe (gate: structure:"),
+              f"{label}: path {s.schur_complement_path}")
+        cost_gap(label, s, ref, 1e-8)
+        print(f"[{label}] kernel launches {json.dumps(n)} for {s.num_linear_solves} damped solves"
+              + (" (counts captures, not replays)" if loop == "device loop" else ""))
+        check(n["K2 update"] == n["K3"] == 0, f"{label}: K2's update or K3 launched")
+        if loop == "host loop":
+            check(n["K1"] >= s.num_linear_solves > 0,
+                  f"{label}: K1 launched {n['K1']} times for {s.num_linear_solves} solves")
+        else:
+            check(n["K1"] >= 1, f"{label}: K1 not in the captured step")
+        launches[label] = n
+    rates = {}
+    for loop in ("host loop", "device loop"):
+        kw = dict(use_device_loop=loop == "device loop")
+        solve_split(bal, device, torch.float32, 2, **kw)  # first-call set-up
+        s = solve_split(bal, device, torch.float32, SPLIT_STEPS, **kw)
+        steps = s.num_successful_steps + s.num_unsuccessful_steps
+        rates[loop] = steps / s.minimizer_time_in_seconds
+        print(f"[split BAL-49 float32 {loop}] {steps} LM steps in {s.minimizer_time_in_seconds:.4f} "
+              f"s: {rates[loop]:.3f} LM steps/s; a damped solve "
+              f"{s.linear_solver_time_in_seconds / max(s.num_linear_solves, 1):.5f} s (host loop "
+              f"clock); final cost {s.final_cost!r}; capture "
+              f"{s.device_loop_capture_time_in_seconds:.4f} s")
+        check(s.final_cost < 1e-2 * s.initial_cost, f"split BAL-49 float32 {loop}: no descent")
+    return launches
+
+
+def phase_dubrovnik(device) -> dict:
+    """Phase 29: the Dubrovnik shape split, S (3,204 rows) by the column
+    probe in 26 chunks, K2 over 7 panels; held against the unsplit scene on
+    the explicit path (K3 at (9, 3) in float64, K2). Returns the launches
+    by path."""
+    from skeres_tpu_torch.core.schur import PROBE_CHUNK
+    from skeres_tpu_torch.io.bal import build_split_bal_problem, synthetic_bal
+    from skeres_tpu_torch.ops.cholesky import PANEL
+
+    t0 = time.time()
+    bal = synthetic_bal(**DUBROVNIK)
+    n_f = 9 * bal.num_cameras
+    panels = -(-n_f // PANEL)
+    print(f"[dubrovnik] synthetic_bal{tuple(DUBROVNIK.values())}: {bal.num_cameras} cameras, "
+          f"{bal.num_points} points, {bal.num_observations} observations; S {n_f} rows: "
+          f"{-(-n_f // PROBE_CHUNK)} probe chunks, {panels} K2 panels; made in "
+          f"{time.time() - t0:.2f} s")
+    launches = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ref = solve_split(bal, device, torch.float64, DUBROVNIK_STEPS, split=False)
+    n = launch_counts()
+    print(f"[dubrovnik unsplit float64 host loop] path {ref.schur_complement_path}; final cost "
+          f"{ref.final_cost!r}; kernel launches {json.dumps(n)} for {ref.num_linear_solves} "
+          f"damped solves; {ref.linear_solver_time_in_seconds / ref.num_linear_solves:.4f} s a "
+          f"damped solve; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(ref.schur_complement_path == "explicit", "dubrovnik: the unsplit scene is not explicit")
+    check(n["K3"] == ref.num_linear_solves and n["K2 update"] >= (panels - 1) * n["K3"],
+          "dubrovnik unsplit: K3 or K2 not on every damped solve")
+    launches["Dubrovnik shape unsplit float64 (explicit)"] = n
+    for loop in ("host loop", "device loop"):
+        label = f"dubrovnik split float64 {loop}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        s = solve_split(bal, device, torch.float64, DUBROVNIK_STEPS,
+                        use_device_loop=loop == "device loop")
+        n = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(s.schur_complement_path.startswith("column-probe"), f"{label}: not the probe")
+        cost_gap(label, s, ref, 1e-8)
+        steps = s.num_successful_steps + s.num_unsuccessful_steps
+        print(f"[{label}] {steps} LM steps in {s.minimizer_time_in_seconds:.4f} s: "
+              f"{steps / s.minimizer_time_in_seconds:.4f} LM steps/s; a damped solve "
+              f"{s.linear_solver_time_in_seconds / s.num_linear_solves:.4f} s (host clock); "
+              f"capture {s.device_loop_capture_time_in_seconds:.4f} s; peak {peak:.3f} GiB; "
+              f"kernel launches {json.dumps(n)} for {s.num_linear_solves} damped solves"
+              + (" (counts captures)" if loop == "device loop" else ""))
+        check(n["K3"] == 0, f"{label}: K3 launched on the probe path")
+        if loop == "host loop":
+            check(n["K2 update"] >= (panels - 1) * s.num_linear_solves > 0
+                  and n["K1"] >= panels * s.num_linear_solves,
+                  f"{label}: K2 not over {panels} panels on every damped solve")
+        else:
+            check(n["K2 update"] >= panels - 1, f"{label}: K2 not in the captured step")
+        launches[f"Dubrovnik shape split float64 {loop} (probe)"] = n
+    # one damped solve's column probe, and the whole damped solve, timed
+    program = build_split_bal_problem(bal)[0].compile()
+    schur, data, g, diag = linearize(program, device, torch.float64)
+    asm = first_assembly(schur, data, g, diag)
+    torch.cuda.reset_peak_memory_stats()
+    probe_ms = cuda_ms(lambda: schur._dense_s(asm), reps=3, calls=1)
+    eye = torch.zeros((schur.num_f, PROBE_CHUNK), dtype=torch.float64, device=device)
+    eye[:PROBE_CHUNK].diagonal().fill_(1.0)
+    chunk_ms = cuda_ms(lambda: schur._s_matmat(asm, eye), reps=3, calls=1)
+    solve_ms = cuda_ms(lambda: schur.solve_damped(data, g, diag, 1e-4, 1e-6, 1e32), reps=3, calls=1)
+    print(f"[dubrovnik probe] float64: S ({schur.num_f} rows) by the column probe "
+          f"{probe_ms:.3f} ms ({-(-schur.num_f // PROBE_CHUNK)} chunks; one chunk "
+          f"{chunk_ms:.3f} ms); the whole damped solve (the probe, K2 over {panels} panels, the "
+          f"back-substitution) {solve_ms:.3f} ms; median of 3; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del schur, data, g, diag, asm, eye
+    torch.cuda.empty_cache()
+    return launches
+
+
+def split_venice_bal(program, initial):
+    """The venice scene of phases 10-26 as a BalProblem, from its compiled
+    program and initial values (no second generation)."""
+    from skeres_tpu_torch.io.bal import BalProblem
+
+    batch = program.batches[0]
+    return BalProblem(cameras=initial[0], points=initial[1],
+                      camera_index=np.asarray(batch.slot_indices[0]),
+                      point_index=np.asarray(batch.slot_indices[1]),
+                      observations=np.asarray(batch.data))
+
+
+def phase_split_venice(device, program, initial) -> dict:
+    """Phase 30: venice shape split (two retained groups, 16,002 retained
+    coordinates): the generic S product timed, one chunk of the column
+    probe timed and checked, ITERATIVE_SCHUR with SCHUR_JACOBI on both
+    loops. Returns the launches by path."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.schur import PROBE_CHUNK
+    from skeres_tpu_torch.core.types import PreconditionerType
+    from skeres_tpu_torch.io.bal import build_split_bal_problem
+
+    t0 = time.time()
+    bal = split_venice_bal(program, initial)
+    problem = build_split_bal_problem(bal)[0]
+    split = problem.compile()
+    print(f"[split venice] poses (6) and intrinsics (3) of {bal.num_cameras} cameras, "
+          f"{bal.num_points} points, {bal.num_observations} observations; built and compiled "
+          f"in {time.time() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    schur, data, g, diag = linearize(split, device, torch.float32, VENICE_CHUNK, iterative=True,
+                                     preconditioner=PreconditionerType.SCHUR_JACOBI)
+    asm = first_assembly(schur, data, g, diag)
+    gen = torch.Generator(device=device).manual_seed(1)
+    v = torch.randn(schur.num_f, device=device, dtype=torch.float32, generator=gen)
+    ms = cuda_ms(lambda: schur._s_matvec(asm, v), calls=3)
+    print(f"[split venice] one generic S product (two retained slots a row: 8 row products, 3 "
+          f"gathers, 3 segment sums over {asm['per_batch'][0][1].shape[0]} rows) float32: "
+          f"{ms:.4f} ms (median of 20 runs; phase 18 times the unsplit product)")
+    eye = torch.zeros((schur.num_f, PROBE_CHUNK), dtype=torch.float32, device=device)
+    eye[:PROBE_CHUNK].diagonal().fill_(1.0)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    chunk_ms = cuda_ms(lambda: schur._s_matmat(asm, eye), reps=3, calls=1)
+    extra = (torch.cuda.max_memory_allocated() - base) / 2**30
+    cols = schur._s_matmat(asm, eye)
+    for j in (0, 77):
+        e_j = eye[:, j].contiguous()
+        err, rel = rel_err(cols[:, j], schur._s_matvec(asm, e_j))
+        check(rel <= 1e-5, f"split venice: probe column {j} differs from S e_j by {rel:.3e}")
+    chunks = -(-schur.num_f // PROBE_CHUNK)
+    print(f"[split venice] one column-probe chunk (S on {PROBE_CHUNK} identity columns) float32: "
+          f"{chunk_ms:.3f} ms (median of 3), {extra:.3f} GiB above the assembly; columns 0 and 77 "
+          f"equal S e_j; a DENSE_SCHUR damped solve here would run {chunks} chunks: "
+          f"~{chunks * chunk_ms / 1e3:.2f} s before K2 (not run)")
+    del schur, data, g, diag, asm, eye, cols, v
+    torch.cuda.empty_cache()
+    launches = {}
+    for loop in ("host loop", "device loop"):
+        label = f"split venice ITERATIVE_SCHUR SCHUR_JACOBI {loop}"
+        for grp, vals in zip(split.groups, (initial[0][:, :6], initial[0][:, 6:], initial[1])):
+            grp.values = np.ascontiguousarray(vals)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        s = stt.solve(venice_options(device, "ITERATIVE_SCHUR", "SCHUR_JACOBI",
+                                     use_device_loop=loop == "device loop"), problem, split)
+        n = check_no_launches(label)
+        steps = s.num_successful_steps + s.num_unsuccessful_steps
+        costs = [it.cost for it in s.iterations]
+        print(f"[{label}] path {s.schur_complement_path}; costs {json.dumps(costs)}; PCG steps "
+              f"{[it.linear_solver_iterations for it in s.iterations[1:]]}; {steps} LM steps in "
+              f"{s.minimizer_time_in_seconds:.4f} s: {steps / s.minimizer_time_in_seconds:.4f} "
+              f"LM steps/s; capture {s.device_loop_capture_time_in_seconds:.4f} s; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        check(s.schur_complement_path == "implicit", f"{label}: path {s.schur_complement_path}")
+        check(all(math.isfinite(c) for c in costs) and s.final_cost < s.initial_cost,
+              f"{label}: no descent")
+        launches[label] = n
+    return launches
+
+
+def general_problem(between=False, priors=False):
+    """The three-signature problem of tests/test_schur_general.py (3 poses
+    of 4, 3 intrinsics of 2, 12 points of 3, eliminated; batches (pose,
+    intrinsics, point), (pose, point) and a pose prior), optionally with
+    the points declared between the retained groups, and with priors on the
+    points and intrinsics (a full-rank J^T J for the covariance)."""
+    import skeres_tpu_torch as stt
+
+    rng = np.random.default_rng(11)
+    pose_v = rng.standard_normal((3, 4)) * 0.5
+    intr_v = 1.0 + 0.1 * rng.standard_normal((3, 2))
+    pt_v = rng.standard_normal((12, 3))
+    problem = stt.Problem()
+    poses = problem.add_parameter_block_array(pose_v, name="poses")
+    if between:
+        pts = problem.add_parameter_block_array(pt_v, name="points")
+        intrs = problem.add_parameter_block_array(intr_v, name="intrs")
+    else:
+        intrs = problem.add_parameter_block_array(intr_v, name="intrs")
+        pts = problem.add_parameter_block_array(pt_v, name="points")
+    problem.set_schur_elimination_group(pts, 0)
+    problem.set_schur_elimination_group(poses, 1)
+    problem.set_schur_elimination_group(intrs, 1)
+    pose_idx = np.repeat(np.arange(3), 12)
+    pt_idx = np.tile(np.arange(12), 3)
+    mono_data = rng.standard_normal((36, 2))
+
+    def mono(params, data):
+        pose, intr, pt = params
+        u = torch.tanh(pose[0] + 0.3 * pt[0]) * intr[0]
+        v = (pose[2] + pose[3] * pt[2]) * intr[1]
+        return torch.stack([u - data[0], v * 0.5 - data[1]])
+
+    def stereo(params, data):
+        pose, pt = params
+        return torch.stack([pose[0] * pt[0] + pose[1], pose[2] * pt[1] - pose[3] * pt[2],
+                            torch.sum(pose[:3] * pt)]) - data
+
+    problem.add_residual_blocks(mono, None, [(poses, pose_idx), (intrs, pose_idx.copy()),
+                                             (pts, pt_idx)], data=mono_data)
+    sel = rng.choice(36, size=14, replace=False)
+    problem.add_residual_blocks(stereo, None, [(poses, pose_idx[sel]), (pts, pt_idx[sel])],
+                                data=rng.standard_normal((14, 3)))
+    problem.add_residual_blocks(lambda p, d: 0.7 * (p[0] - d), None, [(poses, np.arange(3))],
+                                data=rng.standard_normal((3, 4)) * 0.1)
+    if priors:
+        problem.add_residual_blocks(lambda p, d: 0.5 * (p[0] - d), None, [(pts, np.arange(12))],
+                                    data=np.zeros((12, 3)))
+        problem.add_residual_blocks(lambda p, d: 0.5 * (p[0] - d), None, [(intrs, np.arange(3))],
+                                    data=np.ones((3, 2)))
+    return problem, poses, intrs, pts
+
+
+def phase_general_card_vs_cpu(device) -> dict:
+    """Phase 31: the general structure, float64, card against CPU: the
+    three-signature problem, the same with the points between the retained
+    groups, and the ellipse (three slots a row); DENSE_SCHUR (the column
+    probe, K1) and ITERATIVE_SCHUR with JACOBI, SCHUR_JACOBI and
+    POWER_SERIES_EXPANSION on both loops; then the SCHUR_COMPLEMENT
+    covariance against DENSE_SVD. Returns the launches by path."""
+    import skeres_tpu_torch as stt
+    from examples_torch.ellipse_approximation import build_problem as ellipse_problem
+    from skeres_tpu_torch.core.covariance import Covariance, CovarianceOptions
+    from skeres_tpu_torch.core.types import CovarianceAlgorithmType, LinearSolverType
+    from skeres_tpu_torch.core.types import PreconditionerType
+
+    scenes = {"three-signature": lambda: general_problem()[0],
+              "points between": lambda: general_problem(between=True)[0],
+              "ellipse": lambda: ellipse_problem(60, 10)}
+    launches, worst = {}, 0.0
+    for scene, build in scenes.items():
+        for solver, precond in GENERAL_SOLVERS:
+            for loop in ("host loop", "device loop"):
+                label = f"general {scene} {solver} {precond} {loop}"
+                runs = {}
+                for dev in (device, "cpu"):
+                    reset_launches()
+                    runs[dev] = stt.solve(stt.SolverOptions(
+                        linear_solver_type=LinearSolverType[solver],
+                        preconditioner_type=PreconditionerType[precond], max_num_iterations=9,
+                        eta=1e-10, initial_trust_region_radius=1.0, run_full_iteration_budget=True,
+                        use_device_loop=loop == "device loop", device_loop_chunk_iterations=3,
+                        dtype=torch.float64, device=dev), build())
+                    if dev == device:
+                        n = launch_counts()
+                worst = max(worst, same_trajectory(label, runs[device], runs["cpu"], 1e-8))
+                card = runs[device]
+                if solver == "DENSE_SCHUR":
+                    check(card.schur_complement_path.startswith("column-probe"),
+                          f"{label}: path {card.schur_complement_path}")
+                    check(n["K1"] >= (card.num_linear_solves if loop == "host loop" else 1) > 0,
+                          f"{label}: K1 launched {n['K1']} times")
+                else:
+                    check(not any(n.values()), f"{label}: a kernel launched")
+                launches[label] = n
+    print(f"[general] {len(launches)} trajectories card against CPU, the largest relative cost "
+          f"difference {worst:.3e}")
+    # covariance at the CPU's solution, on both devices
+    problem, poses, intrs, pts = general_problem(priors=True)
+    stt.solve(stt.SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
+                                max_num_iterations=50, device="cpu"), problem)
+    covs = {}
+    for dev in (device, "cpu"):
+        for algorithm in ("SCHUR_COMPLEMENT", "DENSE_SVD"):
+            cov = Covariance(CovarianceOptions(
+                algorithm_type=CovarianceAlgorithmType[algorithm], device=dev))
+            check(cov.compute(problem), f"general covariance {algorithm} on {dev}: compute failed")
+            covs[(dev, algorithm)] = cov
+    pairs = [(poses[0], poses[2]), (poses[1], intrs[1]), (intrs[2], pts[5]), (pts[3], pts[3]),
+             (pts[0], pts[11]), (pts[7], poses[2])]
+    gap = 0.0
+    for a, b in pairs:
+        want = covs[("cpu", "DENSE_SVD")].get_covariance_block_in_tangent_space(a, b)
+        scale = np.abs(want).max()
+        for key, cov in covs.items():
+            got = cov.get_covariance_block_in_tangent_space(a, b)
+            gap = max(gap, float(np.abs(got - want).max() / scale))
+    print(f"[general covariance] SCHUR_COMPLEMENT (S by the column probe) and DENSE_SVD, card and "
+          f"CPU, against the CPU's DENSE_SVD over {len(pairs)} block pairs of every type: the "
+          f"largest difference {gap:.3e} of a block's largest entry")
+    check(gap <= 1e-8, f"general covariance: blocks differ by {gap:.3e}")
+    return launches
+
+
+def run_tool(label: str, args, timeout: int = 600) -> str:
+    """``python -m <args>`` from the checkout; its standard output."""
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                         timeout=timeout, cwd=ROOT)
+    check(out.returncode == 0, f"{label}: exit {out.returncode}\n{out.stdout[-2000:]}\n"
+          f"{out.stderr[-4000:]}")
+    print(f"[tools] {label}: exit 0 in {time.time() - t0:.1f} s")
+    return out.stdout
+
+
+def report_cost(stdout: str, which: str) -> float:
+    """The Initial or Final cost of a full report printed by a tool."""
+    import re
+
+    return float(re.search(rf"^{which}\s+(\S+)", stdout, re.M).group(1))
+
+
+def write_square_g2o(directory: str) -> str:
+    """A 2-D square loop of four poses: exact relative measurements (1, 0,
+    pi/2), identity information, perturbed initial poses."""
+    path = os.path.join(directory, "square.g2o")
+    init = [(0.0, 0.0, 0.0), (1.1, -0.1, 1.4), (0.9, 1.2, 3.0), (-0.1, 0.9, -1.4)]
+    lines = [f"VERTEX_SE2 {i} {x} {y} {t}" for i, (x, y, t) in enumerate(init)]
+    lines += [f"EDGE_SE2 {i} {(i + 1) % 4} 1.0 0.0 {np.pi / 2} 1 0 0 1 0 1" for i in range(4)]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its standard output swallowed (the
+    examples print their reports and progress)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def phase_tools(device) -> dict:
+    """Phase 32: the CLIs in subprocesses and every example's ``main()`` on
+    the card, by default (no device given), each with the assertion of its
+    test. Returns the launches by path."""
+    import tempfile
+
+    import examples_torch.bundle_adjuster as ex_ba
+    import examples_torch.curve_fitting as ex_curve
+    import examples_torch.denoising as ex_denoise
+    import examples_torch.ellipse_approximation as ex_ellipse
+    import examples_torch.helloworld as ex_hello
+    import examples_torch.more_garbow_hillstrom as ex_mgh
+    import examples_torch.nist as ex_nist
+    import examples_torch.pose_graph_2d as ex_pg2
+    import examples_torch.pose_graph_3d as ex_pg3
+    import examples_torch.powell as ex_powell
+    import examples_torch.robot_pose_mle as ex_robot
+    import examples_torch.rosenbrock as ex_rosen
+    import examples_torch.sampled_function as ex_sampled
+    from skeres_tpu_torch.io.bal import load_bal, parse_bal_text, synthetic_bal, write_bal
+
+    out = run_tool("bundle_adjuster BAL-49", ["skeres_tpu_torch.cli.bundle_adjuster",
+                                               "--num_cameras", "49", "--num_points", "7776",
+                                               "--max_iterations", "30"])
+    final = report_cost(out, "Final")
+    print(f"[tools] bundle_adjuster BAL-49 (float64 on the card): final cost {final!r} (phase 6: "
+          f"{BAL49_FINAL})")
+    check(abs(final / BAL49_FINAL - 1.0) <= 1e-5, f"bundle_adjuster: final cost {final}")
+    out = run_tool("pose_graph_3d sphere2500", ["skeres_tpu_torch.cli.pose_graph_3d",
+                                                "--num_poses", "2500"])
+    chi2 = 2.0 * report_cost(out, "Final")
+    print(f"[tools] pose_graph_3d --num_poses 2500: chi^2 {2.0 * report_cost(out, 'Initial')!r} "
+          f"-> {chi2!r} (phase 24: {SPHERE_CHI2})")
+    check(abs(chi2 - SPHERE_CHI2) <= 0.01, f"pose_graph_3d: chi^2 {chi2}")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        g2o = write_square_g2o(tmp)
+        run_tool("pose_graph_2d square", ["skeres_tpu_torch.cli.pose_graph_2d", "--input", g2o,
+                                          "--output", os.path.join(tmp, "poses.txt")])
+        sol = np.loadtxt(os.path.join(tmp, "poses.txt"))
+        check(np.abs(sol[:, :2] - [[0, 0], [1, 0], [1, 1], [0, 1]]).max() < 1e-6,
+              "pose_graph_2d: the square is not recovered")
+        print(f"[tools] pose_graph_2d recovers the square: {sol.tolist()}")
+        bal49 = synthetic_bal(49, 7776, 4)
+        txt = write_bal(os.path.join(tmp, "bal49.txt"), bal49)
+        t0 = time.perf_counter()
+        load_bal(txt)  # the native parser's g++ build
+        build_s = time.perf_counter() - t0
+        parse_s = {}
+        for name, parse in (("native", load_bal), ("python", parse_bal_text)):
+            t0 = time.perf_counter()
+            got = parse(txt)
+            parse_s[name] = time.perf_counter() - t0
+            check(all(np.array_equal(getattr(got, f), getattr(bal49, f))
+                      for f in ("cameras", "points", "camera_index", "point_index",
+                                "observations")), f"load_bal: the {name} parse differs")
+        print(f"[tools] BAL-49 as a .txt ({os.path.getsize(txt)} bytes) parsed bit for bit: "
+              f"load_bal (native) {parse_s['native']:.4f} s, parse_bal_text "
+              f"{parse_s['python']:.4f} s (host clock; the native build {build_s:.2f} s)")
+        launches = {}
+        results = {}
+        t0 = time.time()
+        reset_launches()
+        s = quiet(ex_ellipse.main, num_points=60, num_segments=10)
+        launches["ellipse example (column probe)"] = launch_counts()
+        check(s.termination_type.name == "CONVERGENCE" and s.final_cost < 0.1 * s.initial_cost
+              and s.schur_complement_path.startswith("column-probe"), "ellipse example")
+        check(launches["ellipse example (column probe)"]["K1"] >= s.num_linear_solves > 0,
+              "ellipse example: K1 not on every damped solve")
+        results["ellipse_approximation"] = (s.initial_cost, s.final_cost)
+        x = quiet(ex_sampled.main)
+        check(abs(x - 4.5) < 1e-3, f"sampled_function: x = {x}")
+        results["sampled_function"] = x
+        dead, mle = quiet(ex_robot.main, [])
+        check(mle < 0.3 * dead, "robot_pose_mle")
+        results["robot_pose_mle"] = (dead, mle)
+        noisy, restored = quiet(ex_denoise.main, ["--side", "32"])
+        check(restored < 0.7 * noisy, "denoising")
+        results["denoising"] = (noisy, restored)
+        s, sol = quiet(ex_rosen.main)
+        check(s.final_cost < 1e-10 and np.abs(sol - 1.0).max() < 1e-4, "rosenbrock")
+        results["rosenbrock"] = sol.tolist()
+        results["more_garbow_hillstrom"] = quiet(ex_mgh.main, ["--problem", "5"])
+        check(results["more_garbow_hillstrom"] == (1, 1), "more_garbow_hillstrom")
+        results["nist"] = quiet(ex_nist.main, ["--difficulty", "lower"])
+        check(results["nist"][0] == results["nist"][1] > 0, "nist")
+        s, x = quiet(ex_hello.main)
+        check(abs(x - 10.0) < 1e-6, "helloworld")
+        results["helloworld"] = x
+        for robust in ([], ["--robustify"]):
+            s, (m, c) = quiet(ex_curve.main, robust)
+            check(abs(m - 0.3) < 0.03 and abs(c - 0.1) < 0.1, f"curve_fitting {robust}")
+            results["curve_fitting" + "".join(robust)] = (m, c)
+        s, xs = quiet(ex_powell.main, [])
+        check(s.final_cost < 1e-12, "powell")
+        results["powell"] = s.final_cost
+        s = quiet(ex_ba.main, ["--num_cameras", "16", "--num_points", "500",
+                               "--max_iterations", "10"])
+        check(s.final_cost < s.initial_cost, "bundle_adjuster shim")
+        results["bundle_adjuster shim"] = s.final_cost
+        s = quiet(ex_pg2.main, ["--input", g2o])
+        check(s.final_cost < 1e-12, "pose_graph_2d shim")
+        s = quiet(ex_pg3.main, ["--num_poses", "200", "--max_iterations", "10"])
+        check(s.final_cost < s.initial_cost, "pose_graph_3d shim")
+        results["pose_graph_3d shim"] = s.final_cost
+    print(f"[tools] the 13 examples on the card (default device) in {time.time() - t0:.1f} s, each "
+          f"with its test's assertion: {json.dumps(results)}")
+    return launches
+
+
 def bound(nbytes: float, flop: float, flops_per_s: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / flops_per_s
@@ -2313,6 +2876,9 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
     torch.cuda.empty_cache()
     big_paths = {**venice_paths, **timed("past cap", phase_past_cap, device)}
     torch.cuda.empty_cache()
+    # phase 30 while the venice scene's host data lives
+    general_paths = timed("split venice", phase_split_venice, device, program, initial)
+    torch.cuda.empty_cache()
     k1_ms, k1_plain = timed("timing", phase_timing, device)
     timed("device loop card vs CPU", phase_device_loop_card_vs_cpu, device)
     timed("device loop explicit", phase_device_loop_explicit, device)
@@ -2328,6 +2894,11 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
     del problem, program, initial, cams, api
     new_paths.update(timed("covariance", phase_covariance, device))
     new_paths.update(timed("scoreboards", phase_scoreboards, device, cpu_scoreboards))
+    # phases 28, 29, 31 and 32: the general Schur structure, the CLIs and the examples
+    general_paths.update(timed("split BAL-49", phase_split_bal49, device))
+    general_paths.update(timed("dubrovnik", phase_dubrovnik, device))
+    general_paths.update(timed("general card vs CPU", phase_general_card_vs_cpu, device))
+    general_paths.update(timed("tools", phase_tools, device))
     k3_err, k3_ms, k3_plain, k3_bytes, k3_flop = venice["k3"]
     k2_ms, k2_plain, k2_library, k2_n = venice["k2"]
     n1 = 9 * 49  # K1's n on the main path: the BAL-49 S
@@ -2350,7 +2921,8 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
                 (k if k.startswith("synthetic") else f"synthetic_bal(16, 500, 4) {k}"): v["K1"]
                 for k, v in solver_paths.items()}, **{
                 f"{k} (panels inside K2)": v["K1"] for k, v in tr_paths.items()},
-                **{k: v["K1"] for k, v in {**new_paths, **cov["launches"]}.items()}},
+                **{k: v["K1"] for k, v in {**new_paths, **cov["launches"]}.items()},
+                **{k: v["K1"] for k, v in general_paths.items()}},
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": k1_plain,
@@ -2368,7 +2940,7 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
                                  **{k: v["K2 update"] for k, v in big_paths.items()},
                                  **{k: v["K2 update"] for k, v in tr_paths.items()},
                                  **{k: v["K2 update"] for k, v in
-                                    {**new_paths, **cov["launches"]}.items()}},
+                                    {**new_paths, **cov["launches"], **general_paths}.items()}},
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain,
@@ -2387,7 +2959,8 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
                                  **{k: v["K3"] for k, v in tr_paths.items()}, **{
                 (k if k.startswith("synthetic") else f"synthetic_bal(16, 500, 4) {k}"): v["K3"]
                 for k, v in solver_paths.items()},
-                **{k: v["K3"] for k, v in {**new_paths, **cov["launches"]}.items()}},
+                **{k: v["K3"] for k, v in
+                   {**new_paths, **cov["launches"], **general_paths}.items()}},
             "max_abs_err": k3_err,
             "ms": k3_ms,
             "cluster_plan_ms": venice["k3_cluster_ms"],

@@ -1,0 +1,7 @@
+#!/usr/bin/env python
+"""Shim: see `python -m skeres_tpu_torch.cli.pose_graph_2d`."""
+
+from skeres_tpu_torch.cli.pose_graph_2d import main
+
+if __name__ == "__main__":
+    main()

@@ -21,8 +21,15 @@ holds every residual's Jacobian against numeric differences, and
 SCHUR_COMPLEMENT). Its ``Problem`` has every manifold of the JAX package,
 constant blocks, bounds, numeric differentiation, block removal and
 ``evaluate``; pose graphs (``models/pose_graph.py``, ``io/g2o.py``), priors,
-cubic interpolation and the MGH and NIST registries come with it. What it
-does not run yet (a mesh) raises ``NotImplementedError``.
+cubic interpolation and the MGH and NIST registries come with it. The Schur
+solvers take the general structure of the JAX package: any number of
+retained groups and of observation batches, each row with one eliminated
+block and any number of retained ones (S by the column probe where the
+bundle-adjustment fast paths do not apply). The command-line tools are in
+``skeres_tpu_torch.cli`` (``bundle_adjuster``, ``pose_graph_2d``,
+``pose_graph_3d``; ``python -m skeres_tpu_torch.cli`` lists them), and a
+plain BAL file loads through the native parser (``native/``). What it does
+not run yet (a mesh) raises ``NotImplementedError``.
 """
 
 from skeres_tpu_torch.ops.loss import (
@@ -53,6 +60,9 @@ def __getattr__(name):
              "EigenQuaternionManifold", "SphereManifold", "LineManifold", "AngleManifold",
              "ProductManifold"),
             "skeres_tpu_torch.models.manifolds"),
+        "EvaluationCallback": "skeres_tpu_torch.core.callbacks",
+        "StateUpdatingCallback": "skeres_tpu_torch.core.callbacks",
+        "LoggingCallback": "skeres_tpu_torch.core.callbacks",
         "SolverOptions": "skeres_tpu_torch.core.options",
         "Summary": "skeres_tpu_torch.core.summary",
         "solve": "skeres_tpu_torch.core.solver",

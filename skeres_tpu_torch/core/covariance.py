@@ -9,8 +9,9 @@ the manifolds' plus-Jacobians as the reference's ``GetCovarianceBlock``.
 
   - DENSE_SVD: the pseudo-inverse of the full (free) J^T J.
   - SCHUR_COMPLEMENT: the block inverse through the reduced camera system
-    S (``core/schur.py``, undamped: K3 builds it on the explicit path);
-    the full J^T J is never formed.
+    S (``core/schur.py``, undamped: K3 builds it on the explicit path,
+    the column probe on the general structure, as ``skeres_tpu``'s
+    ``_dense_s``); the full J^T J is never formed.
 
 The pseudo-inverse: the JAX package calls ``np.linalg.svd(a,
 hermitian=True)`` on the host, which gives s = |eigenvalues| in
@@ -236,9 +237,8 @@ class Covariance:
 
         # the free retained coordinates (a constant camera's rows of S are
         # zero)
-        free_f = torch.as_tensor(
-            np.nonzero(program.free_mask[schur.ret_offset : schur.ret_offset + schur.num_f] > 0.0)[0],
-            device=ev.device)
+        free_f = torch.as_tensor(np.nonzero(program.free_mask[schur.ret_index] > 0.0)[0],
+                                 device=ev.device)
         s_inv_free = self._pinv_spd(s_mat[free_f][:, free_f])
         if s_inv_free is None:
             return False
@@ -256,20 +256,22 @@ class Covariance:
 
     def _point_u(self, p: int):
         """U_p = W_p C_p^-1 (N_f, e) for point p, from its Jacobian rows in
-        the observation batch (selected on the device)."""
+        every observation batch and each retained slot (selected on the
+        device)."""
         schur = self._schur
-        bi = schur.e_batch
-        idx = schur.ev._batch_const[bi][1]
-        rows = torch.nonzero(idx[schur.e_slot] == p).reshape(-1)
-        jac = self._blocks[bi].jac[rows].to(torch.float64)
-        ec = schur.batch_info[bi]["e_col"]
-        E = jac[:, :, ec : ec + schur.e_size]  # (r, m, e)
-        F = jac[:, :, schur.f_col : schur.f_col + schur.f_size]  # (r, m, f)
-        w = torch.einsum("rmt,rme->rte", F, E)
-        u = torch.zeros((schur.num_cams, schur.f_size, schur.e_size), dtype=torch.float64,
-                        device=jac.device)
-        u.index_add_(0, idx[schur.f_slot][rows], w)
-        return u.reshape(schur.num_f, schur.e_size) @ self._cinv[p]
+        u = torch.zeros((schur.num_f, schur.e_size), dtype=torch.float64,
+                        device=self._cinv.device)
+        for bi in schur.e_batches:
+            info = schur.batch_info[bi]
+            idx = schur.ev._batch_const[bi][1]
+            rows = torch.nonzero(info["pidx"] == p).reshape(-1)
+            jac = self._blocks[bi].jac[rows].to(torch.float64)
+            ec = info["e_col"]
+            E = jac[:, :, ec : ec + schur.e_size]  # (r, m, e)
+            for s, gi, c, t in info["ret_slots"]:
+                w = torch.einsum("rmt,rme->rte", jac[:, :, c : c + t], E)
+                schur._ret_view(u, gi).index_add_(0, idx[s][rows], w)
+        return u @ self._cinv[p]
 
     # -- queries ---------------------------------------------------------------
 
@@ -292,16 +294,16 @@ class Covariance:
 
     def _ret_rows(self, block):
         o, t = self._tangent_span(block)
-        r = o - self._schur.ret_offset
-        if not (0 <= r and r + t <= self._schur.num_f):
-            raise ValueError("not a block of the retained (camera) group")
-        return slice(r, r + t)
+        r = self._schur.glob2ret[o : o + t]
+        if (r < 0).any():
+            raise ValueError("not a block of a retained group")
+        return torch.as_tensor(r, device=self._s_inv.device)
 
     def _schur_block(self, b1, b2):
         elim = self._schur.elim_group
         p1, p2 = b1.group_index == elim, b2.group_index == elim
         if not p1 and not p2:  # camera-camera
-            return self._s_inv[self._ret_rows(b1), self._ret_rows(b2)]
+            return self._s_inv[self._ret_rows(b1)][:, self._ret_rows(b2)]
         if not p1 and p2:  # camera-point: -S^-1 W C^-1
             return -(self._s_inv[self._ret_rows(b1)] @ self._point_u(b2.row))
         if p1 and not p2:

@@ -9,22 +9,24 @@ PyTorch counterpart of ``skeres_tpu/core/schur.py`` (reference lineage:
 
   - per-point ``C = E^T E + D_e`` by a segment reduction of the batched
     ``e x e`` outer products, inverted in closed form (3x3 cofactors);
-  - DENSE_SCHUR: S over the retained (camera) coordinates,
-    ``S = blockdiag(F^T F) - sum_p W_p C_p^-1 W_p^T + D_f``, by one of two
+  - DENSE_SCHUR: S over the retained coordinates,
+    ``S = blockdiag(F^T F) - sum_p W_p C_p^-1 W_p^T + D_f``, by one of three
     paths, in the JAX package's priority: from a dense per-point W while
     it stays under its 2 GiB gate (one ``torch.einsum``, a matrix
     product), else by the explicit pair-product plan
     (``core/explicit_schur.py``, K3) while S stays under
-    ``explicit_schur_limit_bytes``. S is equilibrated and factored by K1
+    ``explicit_schur_limit_bytes``, else by the column probe (S applied to
+    blocks of identity columns, ``_dense_s_probe``). The first two take the
+    bundle-adjustment structure only. S is equilibrated and factored by K1
     up to 1024 rows and by K2, the blocked factor over K1 panels, above
     (``ops/cholesky.py``), with the jitter ladder and the capped PCG
     fallback of the JAX package, and, with ``refinement_iterations``,
     mixed-precision refinement that reuses the factor;
   - ITERATIVE_SCHUR: PCG on S with the reference's Q-test, S applied
-    implicitly (``_s_matvec``: five row-level products and two reductions
-    over the observations) or, with ``use_explicit``, as the explicit
+    implicitly (``_s_matvec``: row-level products and reductions over the
+    observations) or, with ``use_explicit``, as the explicit
     matrix; preconditioned by JACOBI / IDENTITY (diagonal scaling),
-    SCHUR_JACOBI (the camera blocks of S), POWER_SERIES_EXPANSION,
+    SCHUR_JACOBI (the diagonal blocks of S), POWER_SERIES_EXPANSION,
     CLUSTER_JACOBI or CLUSTER_TRIDIAGONAL (the cluster-restricted
     pair-product plan, K3 again). It is the only Schur path where S itself
     passes ``explicit_schur_limit_bytes``;
@@ -32,11 +34,15 @@ PyTorch counterpart of ``skeres_tpu/core/schur.py`` (reference lineage:
 
 Structure is declared (or found by ``core/ordering.py``): the parameter
 group with ``schur_group == 0`` is eliminated, everything else is
-retained. The port takes one retained group and one observation batch of
-one point and one camera a row, besides batches on the cameras alone
-(priors). Still to port: the column-probe S (taken by the JAX package when
-neither DENSE_SCHUR path is viable; the port raises there) and the
-camera-padded layout of the observation rows.
+retained, as the JAX package takes it (reference:
+``schur_eliminator_impl.h``, any mix of E and F blocks): any number of
+retained groups, on either side of the eliminated one, and any number of
+observation batches, each with one eliminated slot and any number of
+retained slots, besides batches on retained blocks alone (priors). The
+dense-W, explicit and cluster paths take the bundle-adjustment structure
+(one observation batch, one retained group, one retained slot); the
+general structure takes the column probe and the row-by-row products.
+Still to port: the camera-padded layout of the observation rows.
 
 ``prepare()`` keeps the per-row ``A = F^T E`` blocks (540 MB at
 venice-1778 shape in float32) and the per-camera ``F^T F`` sums for every
@@ -47,6 +53,7 @@ plan the rows are the point grid K3 reads anyway.
 """
 
 from __future__ import annotations
+
 
 import numpy as np
 import torch
@@ -73,6 +80,7 @@ from skeres_tpu_torch.ops.small_inverse import batched_spd_inverse
 __all__ = ["SchurSolver"]
 
 DENSE_W_LIMIT_BYTES = 2 << 30  # the JAX package's gate (as float32 bytes)
+PROBE_CHUNK = 128  # the identity columns the column-probe S applies S to at once
 FALLBACK_CG_ITERATIONS = 32
 
 
@@ -141,72 +149,95 @@ class SchurSolver:
         self.elim_offset = program.tangent_offset[self.elim_group]
         self.elim_span = self.num_points * self.e_size
 
-        # both S paths need ONE retained group (the cameras) and ONE batch
-        # coupling a point block to a camera block per row (the BA case);
-        # the JAX package's column probe takes the rest
-        ret = [gi for gi in range(len(program.groups)) if gi != self.elim_group]
-        e_batches = [
-            bi for bi, b in enumerate(program.batches)
-            if self.elim_group in b.slot_groups and set(b.slot_groups) - {self.elim_group}
-        ]
-        if len(ret) != 1 or len(e_batches) != 1:
-            raise NotImplementedError(
-                "the Schur solvers are ported for one eliminated x retained "
-                "batch and one retained group; the column-probe S "
-                "(core/schur.py:_dense_s) and the products over several such "
-                "batches are not ported yet"
-            )
-        self.ret_group = ret[0]
-        gf = program.groups[self.ret_group]
-        self.num_cams, self.f_size = gf.num_blocks, gf.tangent_size
-        self.ret_offset = program.tangent_offset[self.ret_group]
-        self.num_f = self.num_cams * self.f_size
+        # the retained coordinates: every tangent coordinate outside the
+        # eliminated span, in global order (glob2ret: global -> retained, -1
+        # for an eliminated one); each retained group is one contiguous
+        # (start, n_blocks, t) span of the retained vector
+        n = program.num_tangent
+        mask = np.ones(n, dtype=bool)
+        mask[self.elim_offset : self.elim_offset + self.elim_span] = False
+        self.ret_index = np.nonzero(mask)[0]
+        self.num_f = len(self.ret_index)
+        self.glob2ret = np.full(n, -1, dtype=np.int64)
+        self.glob2ret[self.ret_index] = np.arange(self.num_f)
+        self.ret_blocks = []  # (start in the retained vector, n_blocks, t)
+        self._ret_start = {}  # group -> its start in the retained vector
+        self._ret_group_order = []
+        pos = 0
+        for gi, g in enumerate(program.groups):
+            if gi == self.elim_group:
+                continue
+            self.ret_blocks.append((pos, g.num_blocks, g.tangent_size))
+            self._ret_start[gi] = pos
+            self._ret_group_order.append(gi)
+            pos += g.num_blocks * g.tangent_size
 
-        # per batch: the eliminated slot's first column (or None), and the
-        # retained columns with their retained-space indices (for batches
-        # that add to S outside the observation batch, e.g. camera priors)
+        # per batch: the retained slots (slot, group, first column, width),
+        # the eliminated slot and its first column (or None), its point
+        # index per row, and the retained columns with their retained-space
+        # indices (the scatter of batches that add to S outside the
+        # observation batches, e.g. camera priors)
         self.batch_info = []
-        for b in program.batches:
+        e_batches = []
+        for bi, b in enumerate(program.batches):
             e_slots = [s for s, gi in enumerate(b.slot_groups) if gi == self.elim_group]
             if len(e_slots) > 1:
                 raise NotImplementedError(
                     "residual blocks touching >1 eliminated block are not "
                     "supported (the reference's one-E-block-per-row rule)"
                 )
+            ret_slots = [(s, gi, c, t) for s, (gi, (c, t)) in
+                         enumerate(zip(b.slot_groups, evaluator._slot_cols[bi]))
+                         if gi != self.elim_group]
             col_group = np.concatenate(
                 [np.full(t, gi) for gi, t in zip(b.slot_groups, b.tangent_sizes)]
             )
-            starts = np.cumsum((0,) + b.tangent_sizes)
             f_cols = np.nonzero(col_group != self.elim_group)[0]
+            e_slot = e_slots[0] if e_slots else None
             self.batch_info.append(dict(
-                e_col=int(starts[e_slots[0]]) if e_slots else None,
+                ret_slots=ret_slots,
+                e_slot=e_slot,
+                e_col=None if e_slot is None else evaluator._slot_cols[bi][e_slot][0],
+                pidx=None if e_slot is None else evaluator._batch_const[bi][1][e_slot],
                 f_cols=torch.as_tensor(f_cols).to(device),
-                fidx=torch.as_tensor(b.tangent_index[:, f_cols] - self.ret_offset).to(device),
+                fidx=torch.as_tensor(self.glob2ret[b.tangent_index[:, f_cols]]).to(device),
             ))
+            if e_slots and ret_slots:
+                e_batches.append(bi)
+        # any number of eliminated x retained batches; ``e_batch`` names the
+        # one observation batch where there is exactly one (the candidate of
+        # the dense-W, explicit and cluster paths)
+        self.e_batches = e_batches
+        self.e_batch = e_batches[0] if len(e_batches) == 1 else None
 
-        self.e_batch = bi = e_batches[0]
-        b = program.batches[bi]
-        if len(b.slot_groups) != 2:
-            raise NotImplementedError(
-                "the Schur solvers are ported for two slots per observation "
-                "row, one point and one camera; the column-probe S "
-                "(core/schur.py:_dense_s) is not ported yet"
-            )
-        self.e_slot = b.slot_groups.index(self.elim_group)
-        self.f_slot = 1 - self.e_slot
-        self.f_col = int(np.cumsum((0,) + b.tangent_sizes)[self.f_slot])
-        cam_idx = np.asarray(b.slot_indices[self.f_slot], dtype=np.int64)
-        pt_idx = np.asarray(b.slot_indices[self.e_slot], dtype=np.int64)
+        # the bundle-adjustment structure the fast paths take: one
+        # observation batch, one retained group, one retained slot in it
+        # (the gates of skeres_tpu/core/schur.py:338-347, 381-384, 446-456)
+        self._ba = (self.e_batch is not None and len(self.ret_blocks) == 1
+                    and len(self.batch_info[self.e_batch]["ret_slots"]) == 1)
+        self.num_cams = self.f_size = self.e_slot = self.f_slot = self.f_col = None
+        self.ret_offset = None
+        if self._ba:
+            bi = self.e_batch
+            b = program.batches[bi]
+            self.f_slot, gi, self.f_col, self.f_size = self.batch_info[bi]["ret_slots"][0]
+            self.e_slot = self.batch_info[bi]["e_slot"]
+            self.num_cams = program.groups[gi].num_blocks
+            self.ret_offset = program.tangent_offset[gi]
+            cam_idx = np.asarray(b.slot_indices[self.f_slot], dtype=np.int64)
+            pt_idx = np.asarray(b.slot_indices[self.e_slot], dtype=np.int64)
 
-        # dense-W path (DENSE_SCHUR's first priority): viable while the dense
-        # per-point W = (n_pts, n_cams, f, e) stays under the JAX package's gate
+        # dense-W path (DENSE_SCHUR's first priority): viable on the BA
+        # structure while the dense per-point W = (n_pts, n_cams, f, e) stays
+        # under the JAX package's gate
         self.w_plan = None
-        w_bytes = self.num_points * self.num_cams * self.f_size * self.e_size * 4
-        if not iterative and w_bytes <= DENSE_W_LIMIT_BYTES:
-            # each (point, camera) cell receives at most a few observations
-            self.w_plan = build_reduce_plan(
-                pt_idx * self.num_cams + cam_idx, self.num_points * self.num_cams, device
-            )
+        if self._ba and not iterative:
+            w_bytes = self.num_points * self.num_cams * self.f_size * self.e_size * 4
+            if w_bytes <= DENSE_W_LIMIT_BYTES:
+                # each (point, camera) cell receives at most a few observations
+                self.w_plan = build_reduce_plan(
+                    pt_idx * self.num_cams + cam_idx, self.num_points * self.num_cams, device
+                )
 
         def make_plan(**kw):
             return ExplicitSchurPlan(
@@ -215,12 +246,14 @@ class SchurSolver:
                 pad_waste=pad_waste, pair_cap=pair_cap, device=device, **kw,
             )
 
-        # explicit-S plan (core/explicit_schur.py): for DENSE_SCHUR where dense
-        # W does not fit, for ITERATIVE_SCHUR where the caller asks for it;
-        # while S fits its own gate
+        # explicit-S plan (core/explicit_schur.py), on the BA structure: for
+        # DENSE_SCHUR where dense W does not fit, for ITERATIVE_SCHUR where the
+        # caller asks for it; while S fits its own gate. DENSE_SCHUR past both
+        # takes the column probe (_dense_s_probe).
         self.explicit_plan = None
         self.explicit_reject_reason = None  # why a wanted plan was rejected
-        if (not iterative and self.w_plan is None) or (iterative and use_explicit):
+        want_explicit = not iterative or use_explicit
+        if self._ba and ((not iterative and self.w_plan is None) or (iterative and use_explicit)):
             s_bytes = self.num_f ** 2 * 4
             if s_bytes > explicit_s_limit_bytes:
                 self.explicit_reject_reason = (
@@ -232,24 +265,22 @@ class SchurSolver:
                     self.explicit_plan = make_plan()
                 except ValueError as exc:  # point-degree skew, pair fan-in
                     self.explicit_reject_reason = str(exc)
-        self.use_explicit = use_explicit and self.explicit_plan is not None
-        if not iterative and self.w_plan is None and self.explicit_plan is None:
-            raise NotImplementedError(
-                f"dense W would take {w_bytes >> 20} MiB (gate "
-                f"{DENSE_W_LIMIT_BYTES >> 20} MiB) and the explicit-S plan was "
-                f"rejected ({self.explicit_reject_reason}); the column-probe S "
-                "(core/schur.py:_dense_s) that takes over there is not ported yet"
+        elif not self._ba and want_explicit:
+            self.explicit_reject_reason = (
+                "structure: the explicit plan needs one eliminated batch "
+                "coupling one retained block group via a single slot"
             )
+        self.use_explicit = use_explicit and self.explicit_plan is not None
 
         # CLUSTER_JACOBI / CLUSTER_TRIDIAGONAL plan (reference:
         # visibility_based_preconditioner.cc; the clusters here are
         # contiguous ranges of camera indices, since capture order implies
-        # view locality in BAL data). It has no size cap: the cluster-
-        # restricted unique-pair table stays small however many cameras,
-        # which is the regime past the explicit-S gate.
+        # view locality in BAL data), on the BA structure. It has no size
+        # cap: the cluster-restricted unique-pair table stays small however
+        # many cameras, which is the regime past the explicit-S gate.
         self.cluster_plan = None
         cluster_kinds = (PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL)
-        if iterative and preconditioner in cluster_kinds:
+        if self._ba and iterative and preconditioner in cluster_kinds:
             try:
                 self.cluster_plan = make_plan(
                     cluster_of=np.arange(self.num_cams) // max(cluster_size, 1),
@@ -280,11 +311,15 @@ class SchurSolver:
             self.preconditioner_used = PreconditionerType.SCHUR_JACOBI
         elif preconditioner == PreconditionerType.SUBSET:
             self.preconditioner_used = PreconditionerType.JACOBI
-        # which solves read the camera blocks of S, and so the A rows
-        self._keeps_a = not iterative or self.use_explicit or self.preconditioner_used in (
-            PreconditionerType.SCHUR_JACOBI, *cluster_kinds)
-        self._keeps_ftf = (self._keeps_a or self.preconditioner_used
-                           == PreconditionerType.POWER_SERIES_EXPANSION)
+        # which solves read the camera blocks of S in the BA fast form, and so
+        # the A rows (prepare()); the general structure assembles its blocks
+        # row by row (_schur_jacobi_blocks)
+        self._keeps_a = self._ba and (self.explicit_plan is not None or (
+            iterative and self.preconditioner_used in (PreconditionerType.SCHUR_JACOBI,
+                                                       *cluster_kinds)))
+        self._keeps_ftf = self._keeps_a or (
+            self._ba and iterative
+            and self.preconditioner_used == PreconditionerType.POWER_SERIES_EXPANSION)
 
     @property
     def schur_path(self) -> str:
@@ -296,7 +331,11 @@ class SchurSolver:
             if self.explicit_reject_reason is not None:
                 return f"implicit (gate: {self.explicit_reject_reason})"
             return "implicit"
-        return "dense-W" if self.w_plan is not None else "explicit"
+        if self.w_plan is not None:
+            return "dense-W"
+        if self.explicit_plan is not None:
+            return "explicit"
+        return f"column-probe (gate: {self.explicit_reject_reason})"
 
     # -- solver data / scaling -------------------------------------------------
 
@@ -323,7 +362,36 @@ class SchurSolver:
         )
 
     def _gather_f(self, g):
-        return g[self.ret_offset : self.ret_offset + self.num_f]
+        """The retained coordinates of a global vector: everything outside
+        the eliminated span, in global order (``ret_index``)."""
+        lo, hi = self.elim_offset, self.elim_offset + self.elim_span
+        if lo == 0 or hi == g.shape[0]:
+            return g[hi:] if lo == 0 else g[:lo]
+        return torch.cat((g[:lo], g[hi:]))
+
+    def _scatter_f(self, dx, dx_f):
+        """Write the retained vector ``dx_f`` into its coordinates of ``dx``."""
+        lo, hi = self.elim_offset, self.elim_offset + self.elim_span
+        dx[:lo] = dx_f[:lo]
+        dx[hi:] = dx_f[lo:]
+
+    def _ret_view(self, v_f, gi):
+        """Group ``gi``'s span of a retained vector (or of the rows of a
+        retained block (N_f, k)), as (n_blocks, t) (or (n_blocks, t, k))."""
+        start = self._ret_start[gi]
+        g = self.ev.program.groups[gi]
+        return v_f[start : start + g.num_blocks * g.tangent_size].view(
+            g.num_blocks, g.tangent_size, *v_f.shape[1:])
+
+    def _ret_assemble(self, per_group, like):
+        """Per-group sums (gi -> (n_blocks, t[, k]) or None for a group no
+        batch reached) -> the retained vector (N_f[, k]) shaped as ``like``."""
+        parts = []
+        for (start, nb, t), gi in zip(self.ret_blocks, self._ret_group_order):
+            acc = per_group.get(gi)
+            parts.append(like.new_zeros((nb * t, *like.shape[1:])) if acc is None
+                         else acc.reshape(nb * t, *like.shape[1:]))
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     # -- per-linearization and per-mu assembly -----------------------------------
 
@@ -345,8 +413,10 @@ class SchurSolver:
                 red = self.ev.slot_reduce(bi, s_e, outer).reshape(self.num_points, e, e)
                 ete0 = red if ete0 is None else ete0 + red
             per_batch.append((r, jac, E))
+        if ete0 is None:  # no residual touches the eliminated blocks
+            ete0 = data[0][1].new_zeros((self.num_points, e, e))
         prep = dict(per_batch=per_batch, ete0=ete0)
-        if self.w_plan is not None:
+        if self.w_plan is not None or not self._ba:
             return prep
         nc, f = self.num_cams, self.f_size
         plan = self.explicit_plan or self.cluster_plan
@@ -410,21 +480,41 @@ class SchurSolver:
         return jac[:, :, self.f_col : self.f_col + self.f_size]
 
     def _w_apply(self, asm, v_e):
-        """W v_e (points -> cameras): (n_pt, e) -> (N_f,)."""
-        bi = self.e_batch
-        E = asm["per_batch"][bi][2]
-        pidx = self.ev._batch_const[bi][1][self.e_slot]
-        val = _rows_apply_t(self._f_block(asm), _rows_apply(E, v_e[pidx]))
-        return self.ev.slot_reduce(bi, self.f_slot, val).reshape(-1)
+        """W v_e (points -> retained): (n_pt, e) -> (N_f,), summed over every
+        observation batch and each of its retained slots."""
+        accs = {}
+        for bi in self.e_batches:
+            info = self.batch_info[bi]
+            _, jac, E = asm["per_batch"][bi]
+            Ev = _rows_apply(E, v_e[info["pidx"]])
+            for s, gi, c, t in info["ret_slots"]:
+                red = self.ev.slot_reduce(bi, s, _rows_apply_t(jac[:, :, c : c + t], Ev))
+                accs[gi] = red if gi not in accs else accs[gi] + red
+        return self._ret_assemble(accs, asm["d_f"])
+
+    def _f_rows(self, asm, bi, v_f):
+        """F v_f per row of batch ``bi`` (B, m), summed over its retained
+        slots; with a retained block v_f (N_f, k), F V (B, m, k)."""
+        jac = asm["per_batch"][bi][1]
+        idx = self.ev._batch_const[bi][1]
+        out = None
+        for s, gi, c, t in self.batch_info[bi]["ret_slots"]:
+            vs = self._ret_view(v_f, gi)[idx[s]]
+            part = (_rows_apply(jac[:, :, c : c + t], vs) if v_f.dim() == 1
+                    else torch.bmm(jac[:, :, c : c + t], vs))
+            out = part if out is None else out + part
+        return out
 
     def _wt_apply(self, asm, v_f):
-        """W^T v_f (cameras -> points): (N_f,) -> (n_pt, e)."""
-        bi = self.e_batch
-        E = asm["per_batch"][bi][2]
-        cidx = self.ev._batch_const[bi][1][self.f_slot]
-        vs = v_f.reshape(self.num_cams, self.f_size)[cidx]
-        Fv = _rows_apply(self._f_block(asm), vs)
-        return self.ev.slot_reduce(bi, self.e_slot, _rows_apply_t(E, Fv))
+        """W^T v_f (retained -> points): (N_f,) -> (n_pt, e), summed over
+        every observation batch."""
+        out = None
+        for bi in self.e_batches:
+            E = asm["per_batch"][bi][2]
+            red = self.ev.slot_reduce(bi, self.batch_info[bi]["e_slot"],
+                                      _rows_apply_t(E, self._f_rows(asm, bi, v_f)))
+            out = red if out is None else out + red
+        return out if out is not None else v_f.new_zeros((self.num_points, self.e_size))
 
     def _schur_rhs(self, asm):
         """b_f - W C^-1 b_e with b = -g."""
@@ -480,78 +570,129 @@ class SchurSolver:
         self._add_other_batches(asm, s_mat)
         return s_mat
 
-    def _ret_slots(self, bi):
-        """(slot, first column, width) of batch ``bi``'s retained slots."""
-        batch = self.ev.program.batches[bi]
-        return [(s, *self.ev._slot_cols[bi][s]) for s, gi in enumerate(batch.slot_groups)
-                if gi != self.elim_group]
-
     def _schur_jacobi_blocks(self, asm, include_e_correction=True, only_batch=None):
-        """The camera blocks of S's block diagonal, (nc, f, f), damping
-        included (the SCHUR_JACOBI preconditioner); with
-        ``include_e_correction=False`` the blocks of ``B = F^T F + D_f``
-        instead (POWER_SERIES_EXPANSION's base matrix). The observation
-        batch gives the per-camera ``F^T F`` sums of ``prepare()`` minus the
-        per-row ``Y A^T`` (``A = F^T E``, ``Y = A C_p^-1``) summed by
-        camera, of which only ``Y A^T`` depends on mu; every other batch on
-        the cameras (priors) adds its ``F^T F`` slot by slot unless
-        ``only_batch`` names the observation batch alone. Contributions
-        across two slots of one row are dropped, as in the reference's
-        preconditioner assembly."""
-        nc, f, e = self.num_cams, self.f_size, self.e_size
-        bi = self.e_batch
-        blocks = torch.diag_embed(asm["d_f"].reshape(nc, f)) + asm["explicit_ftf"]
-        if include_e_correction:
-            a = asm["explicit_a"].view(-1, f, e)
-            pidx = self.ev._batch_const[bi][1][self.e_slot]
-            y = torch.einsum("bfe,beg->bfg", a, asm["cinv"][pidx])
-            yat = torch.einsum("bfe,bge->bfg", y, a).reshape(-1, f * f)
-            blocks = blocks - self.ev.slot_reduce(bi, self.f_slot, yat).reshape(nc, f, f)
-        if only_batch is None:
-            for bj, (rb, jacb, Eb) in enumerate(asm["per_batch"]):
-                if bj == bi:
-                    continue
-                for slot, c, t in self._ret_slots(bj):
-                    Fs = jacb[:, :, c : c + t]
-                    ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs).reshape(-1, t * t)
-                    blocks = blocks + self.ev.slot_reduce(bj, slot, ftf).reshape(nc, f, f)
+        """The diagonal blocks of S, one (nb, t, t) tensor per retained group
+        (group order), damping included (the SCHUR_JACOBI preconditioner);
+        with ``include_e_correction=False`` the blocks of
+        ``B = F^T F + D_f`` instead (POWER_SERIES_EXPANSION's base matrix);
+        with ``only_batch`` the contributions of that batch alone.
+        Contributions across two slots of one row are dropped, as in the
+        reference's preconditioner assembly.
+
+        On the BA structure the observation batch gives the per-camera
+        ``F^T F`` sums of ``prepare()`` minus the per-row ``Y A^T``
+        (``A = F^T E``, ``Y = A C_p^-1``) summed by camera, of which only
+        ``Y A^T`` depends on mu; elsewhere every retained slot of every
+        batch adds its ``F^T F - Y A^T`` row by row."""
+        outs = {}
+        if self._ba:
+            nc, f, e = self.num_cams, self.f_size, self.e_size
+            bi = self.e_batch
+            blocks = asm["explicit_ftf"]
+            if include_e_correction:
+                a = asm["explicit_a"].view(-1, f, e)
+                y = torch.einsum("bfe,beg->bfg", a, asm["cinv"][self.batch_info[bi]["pidx"]])
+                yat = torch.einsum("bfe,bge->bfg", y, a).reshape(-1, f * f)
+                blocks = blocks - self.ev.slot_reduce(bi, self.f_slot, yat).reshape(nc, f, f)
+            outs[self.batch_info[bi]["ret_slots"][0][1]] = blocks
+        for bj, (rb, jacb, Eb) in enumerate(asm["per_batch"]):
+            if (self._ba and bj == self.e_batch) or (only_batch is not None and bj != only_batch):
+                continue
+            info = self.batch_info[bj]
+            for slot, gi, c, t in info["ret_slots"]:
+                Fs = jacb[:, :, c : c + t]
+                ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs)
+                if Eb is not None and include_e_correction:
+                    a = torch.einsum("bmf,bme->bfe", Fs, Eb)
+                    y = torch.einsum("bfe,beg->bfg", a, asm["cinv"][info["pidx"]])
+                    ftf = ftf - torch.einsum("bfe,bge->bfg", y, a)
+                red = self.ev.slot_reduce(bj, slot, ftf.reshape(-1, t * t)).view(-1, t, t)
+                outs[gi] = red if gi not in outs else outs[gi] + red
+        d_f = asm["d_f"]
+        blocks = []
+        for (start, nb, t), gi in zip(self.ret_blocks, self._ret_group_order):
+            dd = torch.diag_embed(d_f[start : start + nb * t].view(nb, t))
+            blocks.append(dd if gi not in outs else outs[gi] + dd)
         return blocks
 
     def _ftf_diag(self, asm):
         """diag(F^T F) over the retained coordinates, every batch."""
-        out = torch.zeros_like(asm["d_f"])
+        accs = {}
         for bi, (r, jac, E) in enumerate(asm["per_batch"]):
-            for slot, c, t in self._ret_slots(bi):
+            for slot, gi, c, t in self.batch_info[bi]["ret_slots"]:
                 Fs = jac[:, :, c : c + t]
-                out = out + self.ev.slot_reduce(bi, slot, torch.sum(Fs * Fs, dim=1)).reshape(-1)
-        return out
+                red = self.ev.slot_reduce(bi, slot, torch.sum(Fs * Fs, dim=1))
+                accs[gi] = red if gi not in accs else accs[gi] + red
+        return self._ret_assemble(accs, asm["d_f"])
 
     def _s_matvec(self, asm, v):
         """The implicit Schur-complement product
-        ``S v = (F^T F + D_f) v - W C^-1 W^T v`` over every batch: per row
-        ``F^T (F v - E wc)`` with ``wc = C^-1 W^T v`` gathered by point,
-        summed by camera (reference: ``implicit_schur_complement.cc``
+        ``S v = (F^T F + D_f) v - W C^-1 W^T v`` over every batch and every
+        retained slot: per row ``F^T (F v - E wc)`` with
+        ``wc = C^-1 W^T v`` gathered by point, summed by retained block
+        (reference: ``implicit_schur_complement.cc``
         RightMultiplyAndAccumulate)."""
-        nc, f = self.num_cams, self.f_size
         wc = torch.einsum("pef,pf->pe", asm["cinv"], self._wt_apply(asm, v))
-        vb = v.reshape(nc, f)
-        out = asm["d_f"] * v
+        accs = {}
         for bi, (r, jac, E) in enumerate(asm["per_batch"]):
-            slots = self._ret_slots(bi)
-            if not slots:
+            info = self.batch_info[bi]
+            if not info["ret_slots"]:
                 continue
-            idx = self.ev._batch_const[bi][1]
-            Fv = None
-            for slot, c, t in slots:
-                part = _rows_apply(jac[:, :, c : c + t], vb[idx[slot]])
-                Fv = part if Fv is None else Fv + part
+            Fv = self._f_rows(asm, bi, v)
             if E is not None:
-                s_e = self.ev.program.batches[bi].slot_groups.index(self.elim_group)
-                Fv = Fv - _rows_apply(E, wc[idx[s_e]])
-            for slot, c, t in slots:
-                val = _rows_apply_t(jac[:, :, c : c + t], Fv)
-                out = out + self.ev.slot_reduce(bi, slot, val).reshape(-1)
-        return out
+                Fv = Fv - _rows_apply(E, wc[info["pidx"]])
+            for slot, gi, c, t in info["ret_slots"]:
+                red = self.ev.slot_reduce(bi, slot, _rows_apply_t(jac[:, :, c : c + t], Fv))
+                accs[gi] = red if gi not in accs else accs[gi] + red
+        return asm["d_f"] * v + self._ret_assemble(accs, v)
+
+    def _s_matmat(self, asm, v):
+        """``S V`` for a retained block ``V (N_f, k)``: the product of
+        ``_s_matvec`` on k columns in one pass over the rows (per slot one
+        gather of (B, t, k), batched row products and one segment sum)."""
+        k, e = v.shape[1], self.e_size
+        fv_rows, wtv = {}, None
+        for bi in self.e_batches:
+            E = asm["per_batch"][bi][2]
+            fv_rows[bi] = self._f_rows(asm, bi, v)  # (B, m, k)
+            red = self.ev.slot_reduce(bi, self.batch_info[bi]["e_slot"],
+                                      torch.bmm(E.transpose(1, 2), fv_rows[bi]).view(-1, e * k))
+            wtv = red if wtv is None else wtv + red
+        wc = None if wtv is None else torch.bmm(asm["cinv"], wtv.view(-1, e, k))
+        accs = {}
+        for bi, (r, jac, E) in enumerate(asm["per_batch"]):
+            info = self.batch_info[bi]
+            if not info["ret_slots"]:
+                continue
+            Fv = fv_rows.pop(bi, None)
+            if Fv is None:
+                Fv = self._f_rows(asm, bi, v)
+            if E is not None:
+                Fv = Fv - torch.bmm(E, wc[info["pidx"]])
+            for slot, gi, c, t in info["ret_slots"]:
+                val = torch.bmm(jac[:, :, c : c + t].transpose(1, 2), Fv).view(-1, t * k)
+                red = self.ev.slot_reduce(bi, slot, val)
+                accs[gi] = red if gi not in accs else accs[gi] + red
+            del Fv
+        return asm["d_f"][:, None] * v + self._ret_assemble(accs, v)
+
+    def _dense_s_probe(self, asm):
+        """S by columns (``skeres_tpu/core/schur.py:1379-1388``): the S
+        product applied to blocks of ``k = PROBE_CHUNK`` identity
+        columns, then ``0.5 (S + S^T)``. Structure-agnostic: any number of
+        observation batches, retained groups and retained slots. A Python
+        loop over the ceil(N_f / k) chunks that reads nothing on the host,
+        so a CUDA graph captures it."""
+        n = self.num_f
+        k = min(n, PROBE_CHUNK)
+        d_f = asm["d_f"]
+        s = d_f.new_empty((n, n))
+        for c0 in range(0, n, k):
+            w = min(k, n - c0)
+            eye = d_f.new_zeros((n, w))
+            eye[c0 : c0 + w].diagonal().fill_(1.0)
+            s[:, c0 : c0 + w] = self._s_matmat(asm, eye)
+        return 0.5 * (s + s.T)
 
     def _dense_s_explicit(self, asm):
         """S by the explicit pair-product plan (core/explicit_schur.py):
@@ -572,7 +713,7 @@ class SchurSolver:
         )
         # symmetrize the diagonal blocks' one-ulp asymmetry here (nc*f*f)
         # so the dense matrix needs no full transpose pass
-        diag_blocks = self._schur_jacobi_blocks(asm, only_batch=self.e_batch)
+        diag_blocks = self._schur_jacobi_blocks(asm, only_batch=self.e_batch)[0]
         diag_blocks = 0.5 * (diag_blocks + diag_blocks.transpose(1, 2))
         nc, f = plan.nc, plan.f
         s_mat = plan.dense_s_full(uniq, -diag_blocks.reshape(nc, f * f)).neg_()
@@ -583,10 +724,13 @@ class SchurSolver:
 
     def _dense_s(self, asm):
         """Materialize S (N_f, N_f): dense W while it fits its gate, else
-        the explicit pair-product plan (the JAX package's priority)."""
+        the explicit pair-product plan, else the column probe (the JAX
+        package's priority)."""
         if self.w_plan is not None:
             return self._dense_s_dense_w(asm)
-        return self._dense_s_explicit(asm)
+        if self.explicit_plan is not None:
+            return self._dense_s_explicit(asm)
+        return self._dense_s_probe(asm)
 
     def _factor_solve(self, s, rhs, delta):
         """Solve (S + delta I) x = rhs, ``delta`` a device scalar read by no
@@ -606,16 +750,22 @@ class SchurSolver:
         return solve(rhs), solve
 
     def _block_inverse_apply(self, blocks):
-        """v -> blockdiag(blocks)^-1 v over the retained coordinates."""
-        nc, f = self.num_cams, self.f_size
-        binv = batched_spd_inverse(blocks)
-        return lambda v: torch.einsum("bef,bf->be", binv, v.reshape(nc, f)).reshape(-1)
+        """v -> blockdiag(blocks)^-1 v over the retained coordinates, with
+        ``blocks`` one (nb, t, t) tensor per retained group."""
+        binvs = [batched_spd_inverse(blk) for blk in blocks]
+
+        def apply(v):
+            parts = [torch.einsum("bef,bf->be", binv, v[start : start + nb * t].view(nb, t))
+                     .reshape(-1) for (start, nb, t), binv in zip(self.ret_blocks, binvs)]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        return apply
 
     def _diag_blocks_of(self, s):
-        """The (nc, f, f) camera blocks on the diagonal of dense S."""
-        nc, f = self.num_cams, self.f_size
-        cams = torch.arange(nc, device=s.device)
-        return s.view(nc, f, nc, f)[cams, :, cams, :]
+        """The (nb, t, t) diagonal blocks of dense S with one retained group."""
+        _, nb, t = self.ret_blocks[0]
+        blocks = torch.arange(nb, device=s.device)
+        return s.view(nb, t, nb, t)[blocks, :, blocks, :]
 
     # -- public interface used by the minimizer ------------------------------------
 
@@ -641,7 +791,7 @@ class SchurSolver:
 
         dx_e = self._back_substitute(asm, dx_f)
         dx = torch.empty_like(g)
-        dx[self.ret_offset : self.ret_offset + self.num_f] = dx_f
+        self._scatter_f(dx, dx_f)
         dx[self.elim_offset : self.elim_offset + self.elim_span] = dx_e.reshape(-1)
         return dx, iters, jitter_used
 
@@ -693,9 +843,13 @@ class SchurSolver:
             cond(failed(), fallback)
 
         def fallback():
+            if len(self.ret_blocks) == 1:  # the block-Jacobi preconditioner read off S
+                precond = self._block_inverse_apply([self._diag_blocks_of(s)])
+            else:  # the diagonal of S
+                d_s = torch.clamp(torch.diagonal(s).abs(), min=torch.finfo(s.dtype).tiny)
+                precond = lambda v: v / d_s  # noqa: E731
             x, _ = preconditioned_conjugate_gradients(
-                lambda v: s @ v, rhs_eq, self._block_inverse_apply(self._diag_blocks_of(s)),
-                FALLBACK_CG_ITERATIONS, 1e-8,
+                lambda v: s @ v, rhs_eq, precond, FALLBACK_CG_ITERATIONS, 1e-8,
             )
             dx_f.copy_(x)
             iters.fill_(FALLBACK_CG_ITERATIONS)
@@ -717,9 +871,9 @@ class SchurSolver:
         else:
             s_matvec = lambda v: self._s_matvec(asm, v)  # noqa: E731
 
-        if self.use_explicit and kind == P.SCHUR_JACOBI:
+        if self.use_explicit and kind == P.SCHUR_JACOBI and len(self.ret_blocks) == 1:
             # the block diagonal read off the explicit S
-            precond = self._block_inverse_apply(self._diag_blocks_of(s_explicit))
+            precond = self._block_inverse_apply([self._diag_blocks_of(s_explicit)])
         elif kind == P.CLUSTER_JACOBI:
             precond = self._cluster_jacobi_precond(asm)
         elif kind == P.CLUSTER_TRIDIAGONAL:
@@ -786,7 +940,7 @@ class SchurSolver:
         # the per-camera blocks F^T F - sum_r Y_r A_r^T + D_f into the
         # cluster slots; a padded slot takes the identity, so the factor
         # stays positive definite
-        db = self._schur_jacobi_blocks(asm)
+        db = self._schur_jacobi_blocks(asm)[0]
         db = torch.cat([db, torch.eye(f, dtype=db.dtype, device=db.device)[None]])
         slots = torch.arange(cs, device=db.device)
         m5 = mats.view(ncl, cs, f, cs, f)

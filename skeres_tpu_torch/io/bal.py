@@ -1,6 +1,7 @@
 """BAL (Bundle Adjustment in the Large) dataset IO.
 
-PyTorch counterpart of ``skeres_tpu/io/bal.py``: the BAL text parser, the
+PyTorch counterpart of ``skeres_tpu/io/bal.py``: the BAL text parsers
+(native for a plain file, Python for a compressed one), the
 reference's Normalize()/Perturb() preprocessing, and the synthetic BAL
 scene generator. The generator draws from the same numpy RNG stream in the
 same order as the JAX package's, so one seed gives one scene in both
@@ -15,7 +16,10 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["BalProblem", "load_bal", "synthetic_bal", "build_bal_problem"]
+__all__ = [
+    "BalProblem", "load_bal", "parse_bal_text", "synthetic_bal", "build_bal_problem",
+    "build_split_bal_problem",
+]
 
 
 @dataclasses.dataclass
@@ -78,7 +82,44 @@ class BalProblem:
 
 
 def load_bal(path: str) -> BalProblem:
-    """Parse a BAL text file (.txt, .txt.bz2 or .txt.gz)."""
+    """Parse a BAL text file: a plain ``.txt`` by the native parser
+    (``native/bal_native.py``), a ``.bz2`` or ``.gz`` by the Python parser
+    (:func:`parse_bal_text`). A native build or parse error raises (the
+    JAX package parses in Python instead)."""
+    if path.endswith((".bz2", ".gz")):
+        return parse_bal_text(path)
+    from skeres_tpu_torch.native import bal_native
+
+    return BalProblem(*bal_native.load(path))
+
+
+def write_bal(path, bal: BalProblem) -> str:
+    """Write ``bal`` as BAL text (compressed where ``path`` ends in ``.bz2``
+    or ``.gz``): the header, one observation a line, then one number a line,
+    each float with 17 significant digits, so that parsing it gives the same
+    arrays bit for bit. Returns the path."""
+    path = str(path)
+    lines = [f"{bal.num_cameras} {bal.num_points} {bal.num_observations}"]
+    lines += [f"{c} {p} {o[0]:.16e} {o[1]:.16e}"
+              for c, p, o in zip(bal.camera_index, bal.point_index, bal.observations)]
+    lines += [f"{v:.16e}" for v in np.concatenate([bal.cameras.ravel(), bal.points.ravel()])]
+    if path.endswith(".bz2"):
+        import bz2
+
+        opener = bz2.open
+    elif path.endswith(".gz"):
+        import gzip
+
+        opener = gzip.open
+    else:
+        opener = open
+    with opener(path, "wt") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def parse_bal_text(path: str) -> BalProblem:
+    """Parse a BAL text file (.txt, .txt.bz2 or .txt.gz) in Python."""
     if path.endswith(".bz2"):
         import bz2
 
@@ -199,3 +240,29 @@ def build_bal_problem(bal: BalProblem, loss=None, use_schur_ordering: bool = Tru
         name="snavely",
     )
     return problem, cameras, points
+
+
+def build_split_bal_problem(bal: BalProblem, loss=None):
+    """The problem of :func:`build_bal_problem` with each camera split into
+    a pose block (angle-axis and translation, 6) and an intrinsics block
+    (focal length, k1, k2, 3): each row touches (pose, intrinsics, point),
+    and S has two retained groups. The same least-squares problem, with
+    S's columns permuted. Returns (problem, poses, intrinsics, points)."""
+    from skeres_tpu_torch.core.problem import Problem
+    from skeres_tpu_torch.models.reprojection import snavely_reprojection_error_split
+
+    problem = Problem()
+    poses = problem.add_parameter_block_array(bal.cameras[:, :6], name="poses")
+    intrinsics = problem.add_parameter_block_array(bal.cameras[:, 6:], name="intrinsics")
+    points = problem.add_parameter_block_array(bal.points, name="points")
+    problem.set_schur_elimination_group(points, 0)
+    problem.set_schur_elimination_group(poses, 1)
+    problem.set_schur_elimination_group(intrinsics, 1)
+    problem.add_residual_blocks(
+        snavely_reprojection_error_split,
+        loss,
+        [(poses, bal.camera_index), (intrinsics, bal.camera_index), (points, bal.point_index)],
+        data=bal.observations,
+        name="snavely_split",
+    )
+    return problem, poses, intrinsics, points

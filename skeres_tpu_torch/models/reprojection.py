@@ -14,7 +14,8 @@ import torch
 
 from skeres_tpu_torch.ops import rotation as rot
 
-__all__ = ["snavely_reprojection_error", "snavely_reprojection_error_fixed_k"]
+__all__ = ["snavely_reprojection_error", "snavely_reprojection_error_fixed_k",
+           "snavely_reprojection_error_split"]
 
 
 def snavely_reprojection_error(params, observation):
@@ -49,3 +50,12 @@ def snavely_reprojection_error_fixed_k(params, observation):
     return torch.stack(
         [f * distortion * xp - observation[0], f * distortion * yp - observation[1]]
     )
+
+
+def snavely_reprojection_error_split(params, observation):
+    """The Snavely residual with the camera split in two blocks:
+    params = (pose (6,): angle-axis and translation, intrinsics (3,): focal
+    length, k1, k2, point (3,)). The same function of the same 12
+    parameters as :func:`snavely_reprojection_error`."""
+    pose, intrinsics, point = params
+    return snavely_reprojection_error((torch.cat([pose, intrinsics]), point), observation)

@@ -535,3 +535,82 @@ def test_covariance_on_card_matches_cpu(cuda, algorithm):
             (cams[0], cams[2]))])
     for x, y in zip(*blocks):
         np.testing.assert_allclose(x, y, rtol=1e-7, atol=1e-12)
+
+
+def _probe_s(bal, device):
+    """The equilibrated, damped S of the split ``bal`` (each camera a pose
+    and an intrinsics block) by the column probe, float64 on ``device``,
+    at the initial point with a unit LM diagonal."""
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.schur import SchurSolver
+    from skeres_tpu_torch.io.bal import build_split_bal_problem
+
+    program = build_split_bal_problem(bal)[0].compile()
+    ev = Evaluator(program, device=device, dtype=torch.float64)
+    schur = SchurSolver(ev)
+    assert schur.schur_path.startswith("column-probe")
+    _, blocks = ev.blocks(program.initial_state(device, torch.float64))
+    d = torch.ones(program.num_tangent, dtype=torch.float64, device=device)
+    s = schur._dense_s(schur._assemble(schur.prepare(schur.solver_data(blocks)), 0 * d, d))
+    d_eq = torch.sqrt(torch.diagonal(s))
+    return s / d_eq[:, None] / d_eq[None, :]
+
+
+def _split_solves(bal, cuda, steps):
+    from skeres_tpu_torch.io.bal import build_split_bal_problem
+
+    runs = []
+    for device in (cuda, "cpu"):
+        problem = build_split_bal_problem(bal)[0]
+        runs.append(stt.solve(stt.SolverOptions(
+            linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=steps,
+            run_full_iteration_budget=True, initial_trust_region_radius=1.0,
+            dtype=torch.float64, device=device,
+        ), problem))
+    return runs
+
+
+@pytest.mark.gpu
+def test_probe_s_into_k1_on_card(cuda):
+    """synthetic_bal(16, 500, 4) split: S of 144 rows by the column probe on
+    the card equals the CPU's (rtol 1e-10); K1 on it against its plain
+    version (1e-10 of max|reference|); a 5-step DENSE_SCHUR solve on the
+    card against the CPU (costs to rtol 1e-8), K1 launched once a damped
+    solve at least."""
+    bal = synthetic_bal(16, 500, 4)
+    s = _probe_s(bal, cuda)
+    s_cpu = _probe_s(bal, "cpu")
+    assert s.shape == (144, 144)
+    assert float((s.cpu() - s_cpu).abs().max()) <= 1e-10 * float(s_cpu.abs().max())
+    l, linv = k1.cholesky_both(s)
+    l_ref, linv_ref = k1.cholesky_both_reference(s)
+    for x, ref in ((l, l_ref), (linv, linv_ref)):
+        assert float((x - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
+    before = k1.cholesky_both.launches
+    card, cpu = _split_solves(bal, cuda, 5)
+    assert k1.cholesky_both.launches >= before + card.num_linear_solves > before
+    assert card.schur_complement_path.startswith("column-probe")
+    np.testing.assert_allclose([it.cost for it in card.iterations],
+                               [it.cost for it in cpu.iterations], rtol=1e-8)
+
+
+@pytest.mark.gpu
+def test_probe_s_into_k2_on_card(cuda):
+    """synthetic_bal(120, 2000, 4) split: S of 1080 rows by the column
+    probe, past K1's 1024, so K2 factors it (K1 panels and the trailing
+    update): against cuSOLVER's factor (1e-10 of max|reference|); a 3-step
+    solve on the card against the CPU (costs to rtol 1e-8), the update
+    launched on every damped solve."""
+    bal = synthetic_bal(120, 2000, 4)
+    s = _probe_s(bal, cuda)
+    assert s.shape == (1080, 1080)
+    updates = k1.trailing_update_.launches
+    fac = k1.blocked_cholesky_factor(s)
+    assert k1.trailing_update_.launches > updates
+    l_ref = k1.blocked_cholesky_factor_reference(s)
+    assert float((fac.l - l_ref).abs().max()) <= 1e-10 * float(l_ref.abs().max())
+    updates = k1.trailing_update_.launches
+    card, cpu = _split_solves(bal, cuda, 3)
+    assert k1.trailing_update_.launches >= updates + card.num_linear_solves > updates
+    np.testing.assert_allclose([it.cost for it in card.iterations],
+                               [it.cost for it in cpu.iterations], rtol=1e-8)

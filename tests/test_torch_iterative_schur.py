@@ -138,7 +138,7 @@ def test_blocks_diagonal_and_jtj_matvec_match_jax(which, request):
     jasm, tasm = sc.asm(jschur, jdata, tschur, tdata)
     for corr in (True, False):
         jb = jax.jit(lambda a: jschur._schur_jacobi_blocks(a, include_e_correction=corr)[0])(jasm)
-        tb = tschur._schur_jacobi_blocks(tasm, include_e_correction=corr)
+        tb = tschur._schur_jacobi_blocks(tasm, include_e_correction=corr)[0]
         np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=1e-10,
                                    atol=1e-12 * float(tb.abs().max()))
     np.testing.assert_allclose(tschur._ftf_diag(tasm).numpy(),
@@ -150,7 +150,7 @@ def test_blocks_diagonal_and_jtj_matvec_match_jax(which, request):
     # the block diagonal is the diagonal of dense S
     dense, ddata = sc.port()
     s = dense._dense_s(dense._assemble(ddata, sc.tg, lm_diagonal(sc.tdiag, MU, 1e-6, 1e32)))
-    np.testing.assert_allclose(tschur._schur_jacobi_blocks(tasm).numpy(),
+    np.testing.assert_allclose(tschur._schur_jacobi_blocks(tasm)[0].numpy(),
                                tschur._diag_blocks_of(s).numpy(), rtol=1e-10,
                                atol=1e-12 * float(s.abs().max()))
 

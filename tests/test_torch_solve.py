@@ -377,22 +377,32 @@ def test_write_back_and_report():
 
 def test_package_imports_neither_jax_nor_skeres_tpu():
     """In a fresh interpreter, with jax and skeres_tpu made unimportable,
-    every module of the port (and chip_smoke.py) still imports: the line
-    search, GradientProblem, covariance, the gradient checker, the pose
-    graphs, priors, MGH, interpolation, g2o and the NIST data among them."""
+    every module of the port, of examples_torch (and chip_smoke.py) still
+    imports: the line search, GradientProblem, covariance, the gradient
+    checker, the pose graphs, priors, MGH, interpolation, g2o, the NIST
+    data, the CLIs and the native loader among them."""
     code = (
         "import sys, pkgutil, importlib\n"
         "pre = set(sys.modules)\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['skeres_tpu'] = None\n"
-        "import skeres_tpu_torch\n"
-        "for m in pkgutil.walk_packages(skeres_tpu_torch.__path__, 'skeres_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "import skeres_tpu_torch, examples_torch\n"
+        "for pkg in (skeres_tpu_torch, examples_torch):\n"
+        "    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "        if not m.name.endswith('__main__'):\n"
+        "            importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('core.line_search', 'core.gradient_problem', 'core.covariance',\n"
         "          'core.gradient_checker', 'models.pose_graph', 'models.priors',\n"
-        "          'models.mgh', 'ops.interpolation', 'io.g2o', 'io.nist_strd'):\n"
+        "          'models.mgh', 'ops.interpolation', 'io.g2o', 'io.nist_strd',\n"
+        "          'cli.bundle_adjuster', 'cli.pose_graph_2d', 'cli.pose_graph_3d',\n"
+        "          'native', 'native.bal_native'):\n"
         "    assert sys.modules['skeres_tpu_torch.' + m], m\n"
+        "for m in ('helloworld', 'curve_fitting', 'powell', 'rosenbrock', 'sampled_function',\n"
+        "          'ellipse_approximation', 'robot_pose_mle', 'denoising',\n"
+        "          'more_garbow_hillstrom', 'nist', 'bundle_adjuster', 'pose_graph_2d',\n"
+        "          'pose_graph_3d'):\n"
+        "    assert sys.modules['examples_torch.' + m], m\n"
         "new = set(sys.modules) - pre\n"
         "bad = [m for m in new if m.startswith(('jax', 'skeres_tpu.')) and sys.modules[m]]\n"
         "assert not bad, bad\n"
@@ -403,6 +413,23 @@ def test_package_imports_neither_jax_nor_skeres_tpu():
         cwd=str(pathlib.Path(__file__).resolve().parents[1]),
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_every_public_name_of_the_jax_package_resolves():
+    """Each public name of ``skeres_tpu/__init__.py``, its eager imports
+    (the losses and manifolds) and its lazy table (the callbacks among
+    them), resolves in ``skeres_tpu_torch`` to the port's own object."""
+    import skeres_tpu.__init__ as jinit
+
+    table = [line.split('"')[1] for line in pathlib.Path(jinit.__file__).read_text().splitlines()
+             if line.strip().startswith('"') and '": "skeres_tpu.' in line]
+    eager = [n for n in dir(st) if not n.startswith("_") and n[0].isupper()]
+    assert {"EvaluationCallback", "StateUpdatingCallback", "LoggingCallback"} <= set(table)
+    assert {"HuberLoss", "QuaternionManifold"} <= set(eager)
+    for name in table + eager:
+        obj = getattr(stt, name)
+        assert obj.__module__.startswith("skeres_tpu_torch."), name
+        assert obj.__name__ == name
 
 
 # -- the explicit-S path (K3) with K2's blocked factor ---------------------------
@@ -442,9 +469,12 @@ def test_schur_path_is_dense_w_at_bal49_size():
 @pytest.mark.parametrize(
     "limit,reason", [(0, "S too large"), (2 << 30, "point-degree skew too high")]
 )
-def test_rejected_explicit_plan_raises_naming_the_reason(monkeypatch, limit, reason):
-    """With dense W past its gate and the explicit plan rejected, the
-    port raises where the JAX package would take the column probe."""
+def test_rejected_explicit_plan_takes_column_probe_naming_the_reason(monkeypatch, limit, reason):
+    """With dense W past its gate and the explicit plan rejected, the port
+    takes the column probe, as the JAX package does there, and its path
+    names the gate's reason (it raised here before the probe was ported).
+    The trajectory equals the JAX package's (dense W, whose gate is not
+    lowered there), 5 steps, costs to rtol 1e-8."""
     monkeypatch.setattr(schur_mod, "DENSE_W_LIMIT_BYTES", 0)
     bal = tbal.synthetic_bal(4, 24, 3)
     if "skew" in reason:  # one point seen 12 times, the others once
@@ -452,9 +482,11 @@ def test_rejected_explicit_plan_raises_naming_the_reason(monkeypatch, limit, rea
         bal.camera_index = np.concatenate([np.arange(12) % 4, bal.camera_index[keep[12:]]])
         bal.point_index = np.concatenate([np.zeros(12, np.int32), bal.point_index[keep[12:]]])
         bal.observations = bal.observations[keep]
-    problem, _, _ = tbal.build_bal_problem(bal)
-    options = SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
-                            explicit_schur_limit_bytes=limit, device="cpu")
-    with pytest.raises(NotImplementedError, match="column-probe") as err:
-        stt.solve(options, problem)
-    assert reason in str(err.value)
+    (js, _, _), (ts, _, _) = _solve_both(bal, max_num_iterations=5, run_full_iteration_budget=True,
+                                         explicit_schur_limit_bytes=limit)
+    assert ts.schur_complement_path.startswith("column-probe (gate: ")
+    assert reason in ts.schur_complement_path
+    assert len(ts.iterations) == len(js.iterations) == 6
+    for a, b in zip(ts.iterations, js.iterations):
+        assert a.step_is_successful == b.step_is_successful
+        np.testing.assert_allclose(a.cost, b.cost, rtol=1e-8)
