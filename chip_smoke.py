@@ -213,6 +213,41 @@ non-zero and prints no result line):
                ``examples_torch`` script's ``main()`` on the card by default,
                each with the assertion of its test.
 
+ 33. DENSE_QR device loop — float64, DENSE_QR under ``use_device_loop``
+               (its step by the corrected seminormal equations, captured in
+               the step's IF node) against the host loop's Householder QR on
+               the card: synthetic_bal(6, 60, 4) (10 steps at radius 1) and
+               the MGH cases bard, osborne1 and watson_n6 (up to 100 steps):
+               the same decisions, costs to rtol 1e-8, MGH certified.
+ 34. mesh, BAL-49 — the ``obs`` mesh (``skeres_tpu_torch.parallel``) on 3
+               gloo ranks sharing the card, each a process of this script
+               (``--mesh-rank``; NCCL refuses two ranks on one card):
+               BAL-49 in float64, DENSE_SCHUR on the sharded explicit path,
+               against the unsharded (dense-W) card solve to 1e-10 a step,
+               every rank's costs, decisions and factor bit for bit equal;
+               on every rank K3 against its plain version on its grid and
+               the straddle grid, K1 on the replicated S against its plain
+               version; n_straddle printed. Then ``dryrun_multichip(3,
+               "cuda:0")`` (parallel/dryrun.py: the JAX entry's scene, one
+               step, K3 on grid and fixup, K2 on S of 1,800 rows) against
+               the unsharded step to 1e-10.
+ 35. mesh, venice shape — synthetic_bal(1778, 1_000_000, 5) with cameras 0
+               and 1 constant, 3 gloo ranks on the card, DENSE_SCHUR on the
+               explicit path, 5 LM steps on the host loop: float64 against
+               the unsharded card solve to 1e-8 a step with the same
+               decisions; then float32 (the unsharded solve's own final cost
+               moves by ~2e-3 between two runs): per rank K3 on its grid
+               timed and held to its plain version, K2 on the replicated S
+               held to ``cholesky_ex`` (backward error on rank 0), the
+               collectives of a LM step (count, bytes, ms, timed one by one),
+               LM steps/s and peak memory; n_straddle > 0.
+ 36. mesh, NCCL device loop — one NCCL rank (a child process): the device
+               loop under the mesh, its all_reduces captured in the step's
+               conditional nodes, against the unsharded device loop, both on
+               the explicit path with cameras 0 and 1 constant: BAL-49 30
+               steps (float64 to 1e-10 a step; float32 LM steps/s in turns)
+               and the venice shape 5 steps (float64 to 1e-10, LM steps/s).
+
 The line before the last is a JSON object describing each kernel (its
 time, its launches on the main path, its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the peak for their type,
@@ -1027,7 +1062,8 @@ def phase_venice_solve(device, problem, program) -> tuple[int, int, float, float
     check(k3 >= s.num_linear_solves > 0 and k2 >= panels * s.num_linear_solves
           and up >= (panels - 1) * s.num_linear_solves and up == k2 - k2 // panels,
           "venice solve: K3 or K2 did not launch on every damped solve")
-    return up, k3, dict(rate=steps / s.minimizer_time_in_seconds, cost=s.final_cost, peak=peak)
+    return up, k3, dict(rate=steps / s.minimizer_time_in_seconds, cost=s.final_cost, peak=peak,
+                        accepted=[it.step_is_successful for it in s.iterations])
 
 
 # -- the device loop: one captured CUDA graph per LM step ----------------------
@@ -1762,7 +1798,8 @@ def check_no_launches(label: str) -> dict:
     return n
 
 
-def same_trajectory(label: str, card, cpu, rtol: float, bound_name: str = "") -> float:
+def same_trajectory(label: str, card, cpu, rtol: float, bound_name: str = "",
+                    names=("the card", "the CPU")) -> float:
     """The card's and the CPU's Summaries: the same decisions (and, for a
     line search, the same step-search evaluations) and iteration count,
     costs to ``rtol`` (relative to each CPU cost, or to 1e-10 of the
@@ -1776,12 +1813,13 @@ def same_trajectory(label: str, card, cpu, rtol: float, bound_name: str = "") ->
     b = np.array([it.cost for it in cpu.iterations])
     rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-10 * abs(b[0])))) \
         if len(a) == len(b) else math.inf
-    print(f"[{label}] {len(a) - 1} iterations on the card, {len(b) - 1} on the CPU; "
+    print(f"[{label}] {len(a) - 1} iterations on {names[0]}, {len(b) - 1} on {names[1]}; "
           f"termination {card.termination_type.value} / {cpu.termination_type.value}; max "
           f"relative cost difference {rel:.3e}" + (f" ({bound_name})" if bound_name else ""))
-    check(seq == seq_cpu, f"{label}: the card's decisions differ from the CPU's")
+    check(seq == seq_cpu, f"{label}: the decisions on {names[0]} differ from {names[1]}'s")
     check(card.termination_type == cpu.termination_type, f"{label}: terminations differ")
-    check(rel <= rtol, f"{label}: card and CPU costs differ by {rel:.3e} > {rtol:.0e}")
+    check(rel <= rtol, f"{label}: costs on {names[0]} and {names[1]} differ by {rel:.3e} > "
+                       f"{rtol:.0e}")
     return rel
 
 
@@ -2808,6 +2846,507 @@ def phase_tools(device) -> dict:
     return launches
 
 
+# -- DENSE_QR under the device loop; the obs mesh on torch.distributed -----------------
+
+MGH_QR = (8, 17, 201)  # bard, osborne1, watson_n6: minima above zero
+BAL49 = dict(num_cameras=49, num_points=7776, observations_per_point=4)
+MESH_RANKS = 3  # gloo ranks sharing cuda:0: NCCL refuses two ranks on one card
+MESH_TIMEOUT = 600  # seconds a phase's ranks may take
+
+
+def phase_dense_qr_device_loop(device) -> dict:
+    """33: DENSE_QR under the device loop (its step by the corrected
+    seminormal equations, captured in the step's IF node) against the host
+    loop's Householder QR, float64, on a small BAL scene and three MGH
+    cases."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.types import LinearSolverType
+    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
+    from skeres_tpu_torch.models.mgh import PROBLEMS
+
+    def solve(build, loop, **kw):
+        s = stt.solve(stt.SolverOptions(
+            linear_solver_type=LinearSolverType.DENSE_QR, use_device_loop=loop,
+            device_loop_chunk_iterations=10, dtype=torch.float64, device=device, **kw), build())
+        check(not loop or device != "cuda" or s.device_loop_capture_time_in_seconds > 0,
+              "DENSE_QR device loop: no graph captured")
+        return s
+
+    def mgh(p):
+        def build():
+            problem = stt.Problem()
+            x = problem.add_parameter_block(np.asarray(p.x0, dtype=np.float64))
+            problem.add_residual_block(lambda params, data: p.residual(params[0]), None, [x])
+            return problem
+        return build
+
+    reset_launches()
+    cases = [("synthetic_bal(6, 60, 4)", lambda: build_bal_problem(synthetic_bal(6, 60, 4))[0],
+              dict(max_num_iterations=10, initial_trust_region_radius=1.0), None)]
+    cases += [(PROBLEMS[n].name, mgh(PROBLEMS[n]), dict(max_num_iterations=100), PROBLEMS[n])
+              for n in MGH_QR]
+    for label, build, kw, p in cases:
+        loop, host = solve(build, True, **kw), solve(build, False, **kw)
+        same_trajectory(f"dense-qr-loop {label}", loop, host, 1e-8,
+                        names=("the device loop", "the host loop"))
+        check(p is None or p.certified(2.0 * loop.final_cost),
+              f"DENSE_QR device loop: {label} not certified")
+    return {"DENSE_QR device loop (BAL, MGH)": check_no_launches("dense-qr-loop")}
+
+
+def mesh_ranks(case: str, world: int, device: str = "cuda") -> list:
+    """Run ``case`` on ``world`` ranks, each a process of this script
+    (``--mesh-rank``) on ``device`` (gloo for several ranks on one card,
+    NCCL for one): every rank's report, in rank order. A rank that fails,
+    or outlasts ``MESH_TIMEOUT``, fails the phase."""
+    from skeres_tpu_torch.parallel.dryrun import run_ranks
+
+    outs = run_ranks(lambda store, r: [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                                       str(r), str(world), store, case, device],
+                     world, MESH_TIMEOUT)
+    reports = []
+    for r, out in enumerate(outs):
+        lines = out.splitlines()
+        for line in lines[:-1]:
+            print(f"[{case} rank {r}] {line}")
+        reports.append(json.loads(lines[-1]))
+    return reports
+
+
+def sync(device) -> None:
+    """Wait for the card (nothing on the CPU, where a rehearsal runs)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_ms(fn, reps: int = 3, calls: int = 1) -> float:
+    """``cuda_ms``'s counterpart on the host clock, for a CPU rehearsal."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append(1e3 * (time.perf_counter() - t0) / calls)
+    return statistics.median(times)
+
+
+def mesh_kernel_checks(schur, mesh, rank: int, world: int) -> dict:
+    """On one rank, at the problem's current values: K3 on the rank's grid
+    and on the straddle grid against its plain version (judged on the
+    reduced tables), timed on the rank's grid (the ranks in turns); the
+    factor of the replicated, equilibrated S of a damped solve by K1 (n <=
+    1024) or K2 against its plain version, and a digest of its outputs,
+    which every rank must share."""
+    import hashlib
+
+    import torch.distributed as dist
+    from skeres_tpu_torch.core.explicit_schur import _apply_hierarchical_sum
+    from skeres_tpu_torch.ops.cholesky import (
+        MAX_CHOLESKY_N,
+        blocked_cholesky_factor,
+        blocked_cholesky_factor_reference,
+        cholesky_both,
+        cholesky_both_reference,
+    )
+    from skeres_tpu_torch.ops.pair_product import pair_products_reference
+
+    ev, plan = schur.ev, schur.explicit_plan
+    program = ev.program
+    # the first linearization's Jacobi-scaled system, as ``linearize``
+    cost, blocks = ev.blocks(program.initial_state(ev.device, ev.dtype))
+    g, diag = ev.gradient_and_diag(blocks)
+    scale = 1.0 / (1.0 + torch.sqrt(diag))
+    prep = schur.prepare(schur.scale_data(schur.solver_data(blocks), scale))
+    del blocks
+    asm = first_assembly(schur, prep, g * scale, diag * scale * scale)
+    cinv = asm["cinv"].reshape(-1, schur.e_size ** 2)
+    out = {}
+    grids = [("grid", prep["explicit_grid"]["grid"], plan.local_pt, plan.swap_mask,
+              plan.pair_valid, plan.levels)]
+    if plan.n_straddle:
+        grids.append(("fixup", prep["explicit_grid"]["fix"], plan.fix_pt, plan.fix_swap,
+                      plan.fix_valid, plan.fix_levels))
+    for label, grid, pts, swap, valid, levels in grids:
+        args = (grid.contiguous(), cinv[pts].contiguous(), swap, valid)
+        kern = _apply_hierarchical_sum(levels, plan._pair_values(*args))
+        plain = _apply_hierarchical_sum(levels, pair_products_reference(
+            *args, plan.pair_kl, plan.f, plan.e, plan.chunk_points))
+        sync(ev.device)
+        out[f"k3_{label}_err"] = rel_err(kern, plain)[0] if kern.numel() else 0.0
+        out[f"k3_{label}_rel"] = rel_err(kern, plain)[1] if kern.numel() else 0.0
+    args = (prep["explicit_grid"]["grid"].contiguous(), cinv[plan.local_pt].contiguous(),
+            plan.swap_mask, plan.pair_valid)
+    timer = cuda_ms if ev.device.type == "cuda" else host_ms
+    for r in range(world):  # one rank at a time on the shared card
+        dist.barrier()
+        if r == rank:
+            out["k3_ms"] = timer(lambda: plan._pair_values(*args), reps=5, calls=5)
+            out["k3_plain_ms"] = timer(lambda: pair_products_reference(
+                *args, plan.pair_kl, plan.f, plan.e, plan.chunk_points), reps=3, calls=1)
+    dist.barrier()
+    s = schur._dense_s(asm)
+    del prep, asm
+    d_eq = torch.sqrt(torch.clamp(torch.diagonal(s), min=torch.finfo(s.dtype).tiny))
+    s.div_(d_eq[:, None]).div_(d_eq[None, :])
+    digest = hashlib.sha256()
+    if s.shape[0] <= MAX_CHOLESKY_N:
+        outs = cholesky_both(s)
+        refs = cholesky_both_reference(s)
+        out["factor"] = "K1"
+    else:
+        fac = blocked_cholesky_factor(s)
+        outs, refs = (fac.l, *fac.dinv), (blocked_cholesky_factor_reference(s),)
+        out["factor"] = "K2"
+        if rank == 0:  # the backward error in float64, on one rank
+            l64 = fac.l.double()
+            out["k2_backward"] = float(torch.linalg.norm(l64 @ l64.T - s.double())
+                                       / torch.linalg.norm(s.double()))
+            del l64
+    sync(ev.device)
+    out["factor_err"], out["factor_rel"] = rel_err(outs[0], refs[0])
+    for t in outs:
+        digest.update(t.contiguous().cpu().numpy().tobytes())
+    out["factor_digest"] = digest.hexdigest()
+    out["s_rows"] = s.shape[0]
+    return out
+
+
+def gauged_bal(scene: dict):
+    """The BAL scene ``scene`` with cameras 0 and 1 held constant (the
+    7-dof gauge fixed, as phase 23 does): float32 decisions on the
+    gauge-free scene turn on rounding (a jitter rung, or a plain factor
+    that rounding lets through), so two runs that sum in other orders, or
+    one run twice with ``index_add_``'s float32 sums, may part. Returns
+    (problem, program)."""
+    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
+
+    problem, cams, _ = build_bal_problem(synthetic_bal(**scene))
+    problem.set_parameter_block_constant(cams[0])
+    problem.set_parameter_block_constant(cams[1])
+    return problem, problem.compile()
+
+
+def mesh_case(case: str, mesh, rank: int, world: int, device: str) -> dict:
+    """One rank's share of phase 34 (``bal49``), 35 (``venice``) or 36
+    (``nccl``); its report."""
+    import skeres_tpu_torch as stt
+    import skeres_tpu_torch.core.solver as solver_mod
+    import torch.distributed as dist
+    from skeres_tpu_torch.core import schur as schur_mod
+    from skeres_tpu_torch.core.types import LinearSolverType
+    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
+    from skeres_tpu_torch.parallel.mesh import all_reduce_sum
+
+    made = []  # the solves' Schur solvers, for their plans
+
+    class Recorded(schur_mod.SchurSolver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    solver_mod.SchurSolver = Recorded
+
+    def lm(problem, dtype, steps, m, program=None, **kw):
+        return stt.solve(stt.SolverOptions(
+            linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=steps,
+            dtype=dtype, device=device, mesh=m, **kw), problem, program)
+
+    def rows(s):
+        return dict(costs=[it.cost for it in s.iterations],
+                    accepted=[it.step_is_successful for it in s.iterations],
+                    path=s.schur_complement_path, devices=s.num_devices,
+                    rate=(len(s.iterations) - 1) / s.minimizer_time_in_seconds,
+                    capture=s.device_loop_capture_time_in_seconds)
+
+    if case == "nccl":  # 36: one NCCL rank, the device loop against the unsharded one
+        report = {}
+        schur_mod.DENSE_W_LIMIT_BYTES = 0  # the explicit path on both sides
+        # the trajectory in float64 (float32 runs part by index_add_'s sums);
+        # BAL-49's rates in float32, in turns
+        scenes = [("BAL-49", BAL49, 30, dict(device_loop_chunk_iterations=30),
+                   [(torch.float64, "one"), (torch.float64, "mesh"), (torch.float32, "one"),
+                    (torch.float32, "mesh"), (torch.float32, "mesh"), (torch.float32, "one")]),
+                  ("venice", VENICE, VENICE_STEPS, {},
+                   [(torch.float64, "one"), (torch.float64, "mesh")])]
+        for label, scene, steps, kw, order in scenes:
+            runs = {}
+            for dtype, which in order:
+                problem, _ = gauged_bal(scene)
+                reset_launches()
+                s = lm(problem, dtype, steps, mesh if which == "mesh" else None,
+                       use_device_loop=True, run_full_iteration_budget=True, **kw)
+                runs.setdefault(f"{which} {str(dtype)[6:]}", []).append(
+                    dict(rows(s), launches=launch_counts()))
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+            report[label] = runs
+        return report
+
+    report = {}
+    if case == "bal49":
+        problem = build_bal_problem(synthetic_bal(**BAL49))[0]
+        program = problem.compile()
+        dtype, steps, kw = torch.float64, 30, {}
+    else:  # the float64 trajectory first, then the instrumented float32 solve
+        problem, program = gauged_bal(VENICE)
+        s = lm(problem, torch.float64, VENICE_STEPS, mesh, program,
+               run_full_iteration_budget=True)
+        report["costs64"] = [it.cost for it in s.iterations]
+        report["accepted64"] = [it.step_is_successful for it in s.iterations]
+        problem, program = gauged_bal(VENICE)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        dtype, steps, kw = torch.float32, VENICE_STEPS, dict(run_full_iteration_budget=True)
+    initial = [g.values.copy() for g in program.groups]
+    coll = dict(calls=0, bytes=0, ms=0.0)
+    plain_all_reduce = dist.all_reduce
+
+    def timed_all_reduce(t, *a, **k):  # the collectives of the solve, timed one by one
+        sync(device)
+        t0 = time.perf_counter()
+        work = plain_all_reduce(t, *a, **k)
+        sync(device)
+        coll["ms"] += 1e3 * (time.perf_counter() - t0)
+        coll["calls"] += 1
+        coll["bytes"] += t.numel() * t.element_size()
+        return work
+
+    dist.all_reduce = timed_all_reduce
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    s = lm(problem, dtype, steps, mesh, program, **kw)
+    dist.all_reduce = plain_all_reduce
+    for g, v in zip(program.groups, initial):  # the checks below start where the solve did
+        g.values = v
+    schur = made[-1]
+    plan = schur.explicit_plan
+    report.update(rows(s), launches=launch_counts(), rank=rank,
+                  rows=list(schur.ev.row_range[0]), points=int(plan.local_pt.numel()),
+                  n_straddle=plan.n_straddle, k3_fixup_launches=plan.fix_products,
+                  damped_solves=s.num_linear_solves, lm_steps=len(s.iterations) - 1,
+                  collectives=coll, peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                             if device == "cuda" else 0.0),
+                  reduce_calls=all_reduce_sum.calls)
+    check(plan.mesh is not None and s.schur_complement_path == "explicit",
+          f"{case}: the explicit plan is not sharded")
+    report.update(mesh_kernel_checks(schur, mesh, rank, world))
+    return report
+
+
+def mesh_rank_main(rank: int, world: int, store: str, case: str, device: str) -> None:
+    import torch.distributed as dist
+    from skeres_tpu_torch.parallel.mesh import initialize_distributed, make_obs_mesh
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(f"file://{store}", world, rank, device_type=device)
+    mesh = make_obs_mesh(device_type=device)
+    report = mesh_case(case, mesh, rank, world, device)
+    print(json.dumps(report), flush=True)
+    dist.destroy_process_group()
+
+
+def check_ranks_agree(label: str, reports: list, keys) -> None:
+    """Every rank's ``keys`` equal rank 0's, bit for bit."""
+    for r, rep in enumerate(reports[1:], 1):
+        for k in keys:
+            check(rep[k] == reports[0][k], f"{label}: rank {r}'s {k} differs from rank 0's")
+
+
+def phase_mesh_bal49(device) -> dict:
+    """34: BAL-49 and the dryrun scene sharded over 3 gloo ranks on the
+    card, float64, against the unsharded card solve and step."""
+    from skeres_tpu_torch.core import schur as schur_mod
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.minimizer import TrustRegionMinimizer
+    from skeres_tpu_torch.core.schur import SchurSolver
+    from skeres_tpu_torch.core.summary import Summary
+    from skeres_tpu_torch.core.types import LinearSolverType
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
+    from skeres_tpu_torch.parallel.dryrun import SCENE, dryrun_multichip
+
+    one = stt.solve(stt.SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
+                                      max_num_iterations=30, dtype=torch.float64,
+                                      device=device), build_bal_problem(synthetic_bal(**BAL49))[0])
+    reports = mesh_ranks("bal49", MESH_RANKS, device)
+    check_ranks_agree("mesh BAL-49", reports, ("costs", "accepted", "factor_digest", "n_straddle"))
+    rep = reports[0]
+    a, b = np.array(rep["costs"]), np.array([it.cost for it in one.iterations])
+    check(len(a) == len(b) and rep["accepted"] == [it.step_is_successful for it in one.iterations],
+          "mesh BAL-49: the sharded decisions differ from the unsharded card solve's")
+    gap = float(np.max(np.abs(a - b) / b))
+    for r in reports:
+        print(f"[mesh-bal49] rank {r['rank']}: rows {r['rows']}, {r['points']} whole points, "
+              f"K3 {r['k3_grid_err']:.3e} (rel {r['k3_grid_rel']:.3e}) on its grid, "
+              f"{r.get('k3_fixup_err', 0.0):.3e} on the fixup grid; {r['factor']} on S "
+              f"({r['s_rows']} rows) {r['factor_err']:.3e} (rel {r['factor_rel']:.3e}); "
+              f"launches in the solve {json.dumps(r['launches'])}, fixup K3 "
+              f"{r['k3_fixup_launches']}; {r['collectives']['calls']} all_reduces "
+              f"({r['collectives']['bytes']} bytes, {r['collectives']['ms']:.2f} ms) over "
+              f"{r['lm_steps']} LM steps; peak {r['peak_gib']:.3f} GiB")
+    print(f"[mesh-bal49] {MESH_RANKS} gloo ranks on one card, float64: n_straddle "
+          f"{rep['n_straddle']}, {len(a) - 1} steps, final cost {a[-1]!r} against the unsharded "
+          f"{b[-1]!r} (dense-W path); max relative cost gap a step {gap:.3e}; every rank equal")
+    check(gap <= 1e-10, f"mesh BAL-49: {gap:.3e} > 1e-10 from the unsharded solve")
+    for r in reports:
+        check(r["factor"] == "K1" and r["factor_rel"] <= K1_RTOL[torch.float64],
+              f"mesh BAL-49: K1 on S, rank {r['rank']}: rel error {r['factor_rel']:.3e}")
+        check(max(r["k3_grid_rel"], r.get("k3_fixup_rel", 0.0)) <= K3_RTOL[torch.float64],
+              f"mesh BAL-49: K3 against its plain version, rank {r['rank']}")
+        # 31,104 rows split 3 ways end on whole points: no fixup grid here
+        fixups = r["damped_solves"] * (r["n_straddle"] > 0)
+        check(r["launches"]["K1"] >= r["damped_solves"] > 0
+              and r["launches"]["K3"] == r["damped_solves"] + fixups
+              and r["k3_fixup_launches"] == fixups,
+              f"mesh BAL-49: K1 or K3 (grid, fixup) missing from a damped solve, rank "
+              f"{r['rank']}")
+
+    # the dryrun scene: one sharded explicit-S step, K2 on S (1,800 rows)
+    dry = dryrun_multichip(MESH_RANKS, f"{device}:0" if device == "cuda" else device)
+    check_ranks_agree("dryrun", dry, ("cost", "new_cost", "n_straddle"))
+    schur_mod.DENSE_W_LIMIT_BYTES, limit = 0, schur_mod.DENSE_W_LIMIT_BYTES
+    try:
+        program = build_bal_problem(synthetic_bal(**SCENE))[0].compile()
+        ev = Evaluator(program, device, torch.float64)
+        m = TrustRegionMinimizer(ev, stt.SolverOptions(
+            linear_solver_type=LinearSolverType.DENSE_SCHUR, device=device), Summary(),
+            LinearSolverType.DENSE_SCHUR, schur_solver=SchurSolver(ev))
+        state = program.initial_state(device, torch.float64)
+        cost, g, diag, data, scale, _, _ = m.linearize(state)
+        new = m.solve_step(state, data, g, diag, scale, 1e4,
+                           torch.zeros((), dtype=torch.float64, device=device))[0]
+        ref = float(m.try_step(new)[0])
+    finally:
+        schur_mod.DENSE_W_LIMIT_BYTES = limit
+    dgap = abs(dry[0]["new_cost"] - ref) / ref
+    print(f"[mesh-dryrun] {MESH_RANKS} gloo ranks: n_straddle {dry[0]['n_straddle']}, cost "
+          f"{dry[0]['cost']!r} -> {dry[0]['new_cost']!r} (unsharded {ref!r}, gap {dgap:.3e}); "
+          f"per rank K3 {[d['k3_launches'] for d in dry]} (fixup "
+          f"{[d['k3_fixup_launches'] for d in dry]}), K1 panels {[d['k1_launches'] for d in dry]}, "
+          f"K2 updates {[d['k2_update_launches'] for d in dry]}, all_reduces "
+          f"{[d['all_reduces'] for d in dry]}")
+    check(dry[0]["n_straddle"] > 0 and dry[0]["new_cost"] < dry[0]["cost"], "dryrun: no step")
+    check(dgap <= 1e-10, f"dryrun: {dgap:.3e} > 1e-10 from the unsharded step")
+    check(all(d["k3_launches"] == 2 and d["k2_update_launches"] > 0 for d in dry),
+          "dryrun: K3 or K2 did not launch")
+    sum_ = lambda key: sum(r["launches"][key] for r in reports)  # noqa: E731
+    return {
+        f"BAL-49 on {MESH_RANKS} gloo ranks, float64 (K3: grid + fixup)": dict(
+            K1=sum_("K1"), **{"K2 update": sum_("K2 update")}, K3=sum_("K3")),
+        f"dryrun scene on {MESH_RANKS} gloo ranks, one step (K3: grid + fixup)": {
+            "K1": sum(d["k1_launches"] for d in dry),
+            "K2 update": sum(d["k2_update_launches"] for d in dry),
+            "K3": sum(d["k3_launches"] for d in dry)},
+    }
+
+
+def phase_mesh_venice(device) -> dict:
+    """35: the venice shape at full width over 3 gloo ranks on the card,
+    DENSE_SCHUR on the explicit path, 5 LM steps on the host loop, cameras
+    0 and 1 constant (``gauged_bal``): in float64 against the unsharded card
+    solve step by step, then in float32 (the rates, the collectives, K3 on
+    each rank's grid, K2) against the unsharded float32 solve, whose own
+    final cost moves by ~2e-3 from run to run (``index_add_``'s float32
+    sums and the jitter rungs they decide)."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.types import LinearSolverType
+
+    refs = {}
+    for dtype in (torch.float64, torch.float32):
+        problem, program = gauged_bal(VENICE)
+        one = stt.solve(stt.SolverOptions(
+            linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=VENICE_STEPS,
+            run_full_iteration_budget=True, dtype=dtype, device=device,
+            evaluation_chunk_size=VENICE_CHUNK), problem, program)
+        refs[dtype] = dict(costs=[it.cost for it in one.iterations],
+                           accepted=[it.step_is_successful for it in one.iterations],
+                           rate=(len(one.iterations) - 1) / one.minimizer_time_in_seconds)
+        del problem, program, one
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    reports = mesh_ranks("venice", MESH_RANKS, device)
+    check_ranks_agree("mesh venice", reports, ("costs", "accepted", "factor_digest", "n_straddle",
+                                               "costs64", "accepted64"))
+    rep = reports[0]
+    ref64 = refs[torch.float64]
+    a, b = np.array(rep["costs64"]), np.array(ref64["costs"])
+    gap64 = float(np.max(np.abs(a - b) / b)) if len(a) == len(b) else math.inf
+    print(f"[mesh-venice] float64: costs {rep['costs64']} against the unsharded "
+          f"{ref64['costs']}: max relative gap a step {gap64:.3e}; decisions {rep['accepted64']}")
+    check(rep["accepted64"] == ref64["accepted"], "mesh venice float64: decisions differ")
+    check(gap64 <= 1e-8, f"mesh venice float64: {gap64:.3e} > 1e-8 from the unsharded solve")
+    lm = dict(refs[torch.float32], cost=refs[torch.float32]["costs"][-1])
+    gap = abs(rep["costs"][-1] - lm["cost"]) / lm["cost"]
+    for r in reports:
+        c = r["collectives"]
+        print(f"[mesh-venice] rank {r['rank']}: rows {r['rows']}, {r['points']} whole points; "
+              f"K3 on its grid {r['k3_ms']:.4f} ms (plain {r['k3_plain_ms']:.4f}; ranks in turns "
+              f"on one card), err {r['k3_grid_err']:.3e} (rel {r['k3_grid_rel']:.3e}), fixup "
+              f"{r.get('k3_fixup_err', 0.0):.3e}; K2 on S ({r['s_rows']} rows) against "
+              f"cholesky_ex {r['factor_err']:.3e} (rel {r['factor_rel']:.3e})"
+              + (f", backward {r['k2_backward']:.3e}" if "k2_backward" in r else "")
+              + f"; a LM step: {c['calls'] / r['lm_steps']:.1f} all_reduces, "
+              f"{c['bytes'] / r['lm_steps'] / 2**20:.2f} MiB, {c['ms'] / r['lm_steps']:.2f} ms "
+              f"(gloo through the host, timed one by one); {r['rate']:.4f} LM steps/s; launches "
+              f"{json.dumps(r['launches'])}; peak {r['peak_gib']:.3f} GiB")
+    print(f"[mesh-venice] {MESH_RANKS} gloo ranks on one card (a gloo-on-one-card rate, not a "
+          f"multi-GPU one): n_straddle {rep['n_straddle']}, final cost {rep['costs'][-1]!r} "
+          f"against the unsharded {lm['cost']!r} (gap {gap:.3e}; unsharded host loop "
+          f"{lm['rate']:.4f} LM steps/s); decisions {rep['accepted']}")
+    check(rep["n_straddle"] > 0, "mesh venice: no straddling point")
+    # float32: the unsharded solve parts from itself by ~2e-3 between runs
+    check(gap <= 1e-2, f"mesh venice float32: final cost {gap:.3e} > 1e-2 from the unsharded")
+    for r in reports:
+        check(r["factor"] == "K2" and ("k2_backward" not in r
+                                       or r["k2_backward"] <= K2_VENICE_BACKWARD),
+              f"mesh venice: K2 on S, rank {r['rank']}")
+        check(max(r["k3_grid_rel"], r.get("k3_fixup_rel", 0.0)) <= K3_RTOL[torch.float32],
+              f"mesh venice: K3 against its plain version, rank {r['rank']}")
+        check(r["launches"]["K3"] == 2 * r["damped_solves"]
+              and r["launches"]["K2 update"] > 0, f"mesh venice: K3 or K2, rank {r['rank']}")
+    sum_ = lambda key: sum(r["launches"][key] for r in reports)  # noqa: E731
+    return {f"venice on {MESH_RANKS} gloo ranks, float32 (K3: grid + fixup)": {
+        "K1": sum_("K1"), "K2 update": sum_("K2 update"), "K3": sum_("K3")}}
+
+
+def phase_mesh_nccl(device) -> dict:
+    """36: the device loop under a 1-rank NCCL mesh (the collectives in the
+    graph's conditional bodies) against the unsharded device loop, float32:
+    BAL-49 30 steps and the venice shape 5 steps, both on the explicit
+    path."""
+    (rep,) = mesh_ranks("nccl", 1, device)
+    out = {}
+    for label, runs in rep.items():
+        every = [r for v in runs.values() for r in v]
+        check(device != "cuda" or all(r["capture"] > 0 for r in every),
+              f"NCCL mesh {label}: no graph captured")
+        check(all(r["path"] == "explicit" and r["launches"]["K3"] > 0 for r in every),
+              f"NCCL mesh {label}: not the explicit path, or K3 not captured")
+        for dtype in ("float64", "float32"):
+            if f"mesh {dtype}" not in runs:
+                continue
+            one, mesh = runs[f"one {dtype}"], runs[f"mesh {dtype}"]
+            a, b = np.array(mesh[0]["costs"]), np.array(one[0]["costs"])
+            check(len(a) == len(b), f"NCCL mesh {label}: step counts differ")
+            gap = float(np.max(np.abs(a - b) / b))  # a decision that parts moves the costs
+            check(dtype == "float32" or gap <= 1e-10,
+                  f"NCCL mesh {label} float64: {gap:.3e} > 1e-10 from the unsharded loop")
+            print(f"[mesh-nccl] {label} {dtype}: device loop LM steps/s, one NCCL rank "
+                  f"{[round(r['rate'], 4) for r in mesh]} against unsharded "
+                  f"{[round(r['rate'], 4) for r in one]} (in turns); capture "
+                  f"{[round(r['capture'], 3) for r in mesh]} s against "
+                  f"{[round(r['capture'], 3) for r in one]}; max relative cost gap {gap:.3e}; "
+                  f"{sum(x == y for x, y in zip(mesh[0]['accepted'], one[0]['accepted']))} of "
+                  f"{len(a)} decisions agree; final {a[-1]!r}; launches (captures, not "
+                  f"replays) {json.dumps(mesh[0]['launches'])}")
+        key = "mesh float32" if "mesh float32" in runs else "mesh float64"
+        out[f"{label} device loop, 1 NCCL rank, {key[5:]} (captures)"] = runs[key][0]["launches"]
+    return out
+
+
 def bound(nbytes: float, flop: float, flops_per_s: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / flops_per_s
@@ -2821,6 +3360,10 @@ def main() -> int:
     if sys.argv[1:] == ["--scoreboards-cpu"]:
         torch.set_num_threads(1)
         print(json.dumps(scoreboards("cpu")))
+        return 0
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        rank, world, store, case, device = sys.argv[2:7]
+        mesh_rank_main(int(rank), int(world), store, case, device)
         return 0
     t_start = time.time()
     phase_device()
@@ -2899,6 +3442,12 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
     general_paths.update(timed("dubrovnik", phase_dubrovnik, device))
     general_paths.update(timed("general card vs CPU", phase_general_card_vs_cpu, device))
     general_paths.update(timed("tools", phase_tools, device))
+    # phases 33-36: DENSE_QR under the device loop, the obs mesh
+    mesh_paths = timed("DENSE_QR device loop", phase_dense_qr_device_loop, device)
+    torch.cuda.empty_cache()
+    mesh_paths.update(timed("mesh BAL-49", phase_mesh_bal49, device))
+    mesh_paths.update(timed("mesh venice", phase_mesh_venice, device))
+    mesh_paths.update(timed("mesh NCCL device loop", phase_mesh_nccl, device))
     k3_err, k3_ms, k3_plain, k3_bytes, k3_flop = venice["k3"]
     k2_ms, k2_plain, k2_library, k2_n = venice["k2"]
     n1 = 9 * 49  # K1's n on the main path: the BAL-49 S
@@ -2922,7 +3471,7 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
                 for k, v in solver_paths.items()}, **{
                 f"{k} (panels inside K2)": v["K1"] for k, v in tr_paths.items()},
                 **{k: v["K1"] for k, v in {**new_paths, **cov["launches"]}.items()},
-                **{k: v["K1"] for k, v in general_paths.items()}},
+                **{k: v["K1"] for k, v in {**general_paths, **mesh_paths}.items()}},
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": k1_plain,
@@ -2940,7 +3489,8 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
                                  **{k: v["K2 update"] for k, v in big_paths.items()},
                                  **{k: v["K2 update"] for k, v in tr_paths.items()},
                                  **{k: v["K2 update"] for k, v in
-                                    {**new_paths, **cov["launches"], **general_paths}.items()}},
+                                    {**new_paths, **cov["launches"], **general_paths,
+                                     **mesh_paths}.items()}},
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain,
@@ -2960,7 +3510,7 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
                 (k if k.startswith("synthetic") else f"synthetic_bal(16, 500, 4) {k}"): v["K3"]
                 for k, v in solver_paths.items()},
                 **{k: v["K3"] for k, v in
-                   {**new_paths, **cov["launches"], **general_paths}.items()}},
+                   {**new_paths, **cov["launches"], **general_paths, **mesh_paths}.items()}},
             "max_abs_err": k3_err,
             "ms": k3_ms,
             "cluster_plan_ms": venice["k3_cluster_ms"],

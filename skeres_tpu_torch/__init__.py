@@ -28,8 +28,9 @@ block and any number of retained ones (S by the column probe where the
 bundle-adjustment fast paths do not apply). The command-line tools are in
 ``skeres_tpu_torch.cli`` (``bundle_adjuster``, ``pose_graph_2d``,
 ``pose_graph_3d``; ``python -m skeres_tpu_torch.cli`` lists them), and a
-plain BAL file loads through the native parser (``native/``). What it does
-not run yet (a mesh) raises ``NotImplementedError``.
+plain BAL file loads through the native parser (``native/``). A solve
+shards its residual rows over the ranks of a ``torch.distributed`` mesh
+with ``SolverOptions.mesh`` (``skeres_tpu_torch.parallel``).
 """
 
 from skeres_tpu_torch.ops.loss import (

@@ -32,9 +32,18 @@ the CPU tests hold the port's device loop against the JAX package's.
 Limits, as in the JAX package: Levenberg-Marquardt only, monotonic steps
 only, no callbacks and no checkpoints inside the loop. Unlike the JAX
 form, the last chunk stops at ``max_num_iterations`` exactly. Every linear
-solver runs under it but DENSE_QR on the card: ``torch.linalg.qr`` cannot
-be captured inside a conditional node (cudaErrorInvalidValue when the
-capture ends; torch 2.11, CUDA 12.8), so that combination raises.
+solver runs under it. DENSE_QR takes its step by the corrected seminormal
+equations (``core/linear_solvers.py:solve_dense_qr_seminormal``:
+``cholesky_ex``, two ``solve_triangular``, one refinement) on every device:
+``torch.linalg.qr`` cannot be captured inside a conditional node
+(cudaErrorInvalidValue when the capture ends; torch 2.11, CUDA 12.8).
+
+Under a mesh (``parallel/mesh.py``) the captured step holds the
+collectives of every reduction, NCCL's in the graph: the communicator is
+warmed by one ``all_reduce`` before the capture, and nothing is read on
+the host under it. A gloo group cannot be captured, so
+``use_device_loop`` with a gloo mesh on the card raises ``ValueError``;
+on the CPU the step runs eagerly with any backend.
 """
 
 from __future__ import annotations
@@ -45,13 +54,14 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from skeres_tpu_torch.core.graph import CapturedStep, cond
+from skeres_tpu_torch.core.linear_solvers import solve_dense_qr_seminormal
 from skeres_tpu_torch.core.minimizer import TrustRegionMinimizer
 from skeres_tpu_torch.core.summary import IterationSummary
 from skeres_tpu_torch.core.types import (
-    LinearSolverType,
     TerminationType,
     TrustRegionStrategyType,
 )
@@ -131,12 +141,15 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
         super().__init__(*args, **kwargs)
         if self.options.trust_region_strategy_type != TrustRegionStrategyType.LEVENBERG_MARQUARDT:
             raise NotImplementedError("device loop supports LEVENBERG_MARQUARDT only")
-        if self.solver_type == LinearSolverType.DENSE_QR and self.ev.device.type == "cuda":
-            raise NotImplementedError(
-                "use_device_loop with DENSE_QR on a CUDA device: torch.linalg.qr cannot be "
-                "captured inside a conditional node of a CUDA graph (the LM step's IF node); "
-                "use the host loop, or DENSE_NORMAL_CHOLESKY, which captures"
-            )
+        if self.ev.mesh is not None and self.ev.device.type == "cuda":
+            backend = dist.get_backend(self.ev.mesh.get_group(0))
+            if backend != "nccl":
+                raise ValueError(
+                    f"use_device_loop on a CUDA device with a {backend} mesh: a CUDA graph "
+                    "captures NCCL collectives only; use the host loop, or one rank a card "
+                    "under NCCL")
+        # torch.linalg.qr cannot be captured inside a conditional node
+        self._dense_qr = solve_dense_qr_seminormal
         self.chunk_iterations = int(chunk_iterations)
         o, dtype = self.options, self.ev.dtype
         min_radius = o.min_trust_region_radius
@@ -175,6 +188,8 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
         inside the preprocessor's clock). Nothing to do on the CPU."""
         if self.ev.device.type != "cuda":
             return
+        # the communicator's first collective sets it up: never under capture
+        self.ev.all_reduce(torch.zeros(1, dtype=self.ev.dtype, device=self.ev.device))
         self._carry = self._new_carry(state, self.linearize(state))
         self._step.capture()
         # a graph's first replay uploads it to the device; make it here, as

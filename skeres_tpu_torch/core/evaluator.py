@@ -20,6 +20,15 @@ package multiplies each batch by a (B, T) copy of the mask; here each slot
 whose group holds a constant block multiplies its columns by its rows'
 (B,) block flags, which is the same product and no (B, T) array (180 MB at
 venice shape). ``project_bounds`` clamps a state into the bounds box.
+
+Under a mesh (``mesh=``, ``parallel/mesh.py``) the evaluator holds this
+rank's contiguous range of every batch's rows (``row_range``, the JAX
+package's shard convention) and ignores ``chunk_size``, as the JAX package
+does (``skeres_tpu/core/evaluator.py:84-87``): a shard is already a chunk.
+Every reduction over rows is local, then one ``all_reduce``: ``cost``, the
+cost of ``blocks``, every ``slot_reduce`` (and so ``gradient_and_diag`` and
+``jtj_matvec``), ``jtj_dense``; ``jacobian_dense`` gathers the ranks' rows
+in rank order. ``blocks`` returns the rank's rows only.
 """
 
 from __future__ import annotations
@@ -33,7 +42,13 @@ from torch.utils import _pytree as pytree
 from skeres_tpu_torch.core.gradient_checker import numeric_jacobian, ridders_jacobian
 from skeres_tpu_torch.core.problem import CompiledBatch, Program
 from skeres_tpu_torch.ops.corrector import apply_loss
-from skeres_tpu_torch.ops.segment_reduce import apply_reduce_plan, build_reduce_plan
+from skeres_tpu_torch.ops.segment_reduce import (
+    apply_reduce_plan,
+    apply_sharded_reduce_plan,
+    build_reduce_plan,
+    build_sharded_reduce_plan,
+)
+from skeres_tpu_torch.parallel.mesh import all_reduce_sum, check_obs_mesh, shard_rows
 
 __all__ = ["Evaluator", "BatchBlocks"]
 
@@ -57,7 +72,8 @@ def _row_data(batch: CompiledBatch, data_row):
 
 
 class Evaluator:
-    """Evaluation functions over a compiled Program, on one device."""
+    """Evaluation functions over a compiled Program, on one device, or
+    with ``mesh`` over this rank's share of the rows."""
 
     def __init__(
         self,
@@ -67,12 +83,21 @@ class Evaluator:
         chunk_size: Optional[int] = None,
         diff_mode: str = "auto",
         apply_loss_function: bool = True,
+        mesh=None,
     ):
         if diff_mode not in ("auto", "forward", "reverse"):
             raise ValueError(f"jacobian_diff_mode {diff_mode!r}")
         self.program = program
         self.device = torch.device(device)
         self.dtype = dtype
+        self.mesh = mesh
+        self.n_shards, self.rank = 1, 0
+        if mesh is not None:
+            check_obs_mesh(mesh)
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for a solve on {self.device}")
+            self.n_shards, self.rank = mesh.size(), mesh.get_local_rank()
+            chunk_size = None  # a shard is already a chunk
         self.chunk_size = chunk_size
         self.diff_mode = diff_mode
         # False: evaluate without the robustifier (Problem.evaluate's
@@ -92,20 +117,25 @@ class Evaluator:
         self._bounds = program.bounds_arrays(self.device, dtype) if program.has_bounds else None
 
         # per batch: (data, per-slot block indices, (B, T) tangent indices)
+        # of the rows [lo, hi) this rank holds (every row without a mesh)
+        self.row_range = []
         self._batch_const = []
         self._slot_plans = []
         self._slot_cols = []
         for b in program.batches:
+            lo, hi = shard_rows(b.num_blocks, self.n_shards, self.rank)
+            self.row_range.append((lo, hi))
             # a batch without constants carries an empty tuple, which vmap
             # maps over as no input and the residual function receives as None
             data = () if b.data is None else pytree.tree_map(
-                lambda a: _to_device(a, self.device, dtype), b.data)
-            idx = tuple(torch.as_tensor(ix).to(self.device) for ix in b.slot_indices)
-            tidx = torch.as_tensor(b.tangent_index).to(self.device)
+                lambda a: _to_device(np.asarray(a)[lo:hi], self.device, dtype), b.data)
+            idx = tuple(torch.as_tensor(ix[lo:hi]).to(self.device) for ix in b.slot_indices)
+            tidx = torch.as_tensor(b.tangent_index[lo:hi]).to(self.device)
             self._batch_const.append((data, idx, tidx))
+            build = build_reduce_plan if mesh is None else build_sharded_reduce_plan
             self._slot_plans.append(
                 tuple(
-                    build_reduce_plan(ix, program.groups[gi].num_blocks, self.device)
+                    build(ix[lo:hi], program.groups[gi].num_blocks, self.device)
                     for gi, ix in zip(b.slot_groups, b.slot_indices)
                 )
             )
@@ -119,8 +149,16 @@ class Evaluator:
 
     def slot_reduce(self, bi: int, s: int, values):
         """Sum per-row contributions ``values (B, D)`` into the slot's
-        destination blocks -> ``(n_blocks, D)``."""
+        destination blocks -> ``(n_blocks, D)`` (under a mesh, over every
+        rank's rows)."""
+        if self.mesh is not None:
+            return apply_sharded_reduce_plan(self._slot_plans[bi][s], values, self.mesh)
         return apply_reduce_plan(self._slot_plans[bi][s], values)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum a rank's partial ``t`` over the mesh, in place (nothing
+        without a mesh); returns ``t``."""
+        return t if self.mesh is None else all_reduce_sum(t, self.mesh)
 
     def assemble_tangent(self, per_group):
         """Concatenate per-group ``(n_blocks, t)`` arrays into the global
@@ -130,7 +168,8 @@ class Evaluator:
     def _row_slices(self, bi: int) -> List[slice]:
         """Row chunks of batch bi: one slice unless chunked evaluation is on
         and the batch is longer than a chunk."""
-        B = self.program.batches[bi].num_blocks
+        lo, hi = self.row_range[bi]
+        B = hi - lo
         c = self.chunk_size
         if not c or B <= c:
             return [slice(None)]
@@ -209,7 +248,7 @@ class Evaluator:
             for rows in self._row_slices(bi):
                 data, idx = self._chunk_args(bi, rows)
                 total = total + torch.sum(self._rows_residuals(batch, data, idx, state))
-        return total
+        return self.all_reduce(total)
 
     def blocks(self, state) -> Tuple[torch.Tensor, List[BatchBlocks]]:
         """Full evaluation: (cost, per-batch corrected blocks). With
@@ -225,7 +264,7 @@ class Evaluator:
             cost, r, jac = (torch.cat(p) for p in zip(*parts))
             total = total + torch.sum(cost)
             out.append(BatchBlocks(r, jac, self._batch_const[bi][2]))
-        return total, out
+        return self.all_reduce(total), out
 
     def gradient_and_diag(self, blocks: Sequence[BatchBlocks]):
         """g = J^T r and diag(J^T J), by per-(batch, slot) segment
@@ -261,7 +300,7 @@ class Evaluator:
                 (b.idx[:, :, None].expand_as(hb), b.idx[:, None, :].expand_as(hb)),
                 hb, accumulate=True,
             )
-        return h
+        return self.all_reduce(h)
 
     def jacobian_dense(self, blocks: Sequence[BatchBlocks]):
         """The dense Jacobian (M, N) and the residual vector (M,), rows in
@@ -270,18 +309,24 @@ class Evaluator:
         parameter block in two slots adds both), whose sum order is not
         fixed on the card."""
         n = self.num_tangent
-        m_total = sum(b.r.numel() for b in blocks)
+        batches = self.program.batches
+        m_total = sum(b.num_blocks * b.residual_dim for b in batches)
         jd = torch.zeros((m_total, n), dtype=self.dtype, device=self.device)
-        rd = torch.cat([b.r.reshape(-1) for b in blocks])
+        rd = torch.zeros((m_total,), dtype=self.dtype, device=self.device)
         row0 = 0
-        for b in blocks:
-            bsz, m = b.r.shape
-            rows = row0 + torch.arange(bsz * m, device=self.device).reshape(bsz, m)
+        for batch, b, (lo, hi) in zip(batches, blocks, self.row_range):
+            m = batch.residual_dim
+            first = row0 + lo * m  # this rank's rows of the batch, in row order
+            rows = first + torch.arange((hi - lo) * m, device=self.device).reshape(hi - lo, m)
             jd.index_put_(
                 (rows[:, :, None].expand_as(b.jac), b.idx[:, None, :].expand_as(b.jac)),
                 b.jac, accumulate=True,
             )
-            row0 += bsz * m
+            rd[first : first + (hi - lo) * m] = b.r.reshape(-1)
+            row0 += batch.num_blocks * m
+        if self.mesh is not None:  # the ranks' rows in rank order
+            self.all_reduce(jd)
+            self.all_reduce(rd)
         return jd, rd
 
     def jtj_matvec(self, blocks: Sequence[BatchBlocks], v):

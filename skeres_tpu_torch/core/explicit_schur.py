@@ -27,8 +27,30 @@ unique-pair table stays small however many cameras, and
 batched per-cluster matrices. K3 computes the pair products of either
 plan; on a cluster plan most pairs are invalid and come out as zero rows.
 
-All index arrays are problem structure, built once on the host. Still to
-port: the mesh (SPMD) plan (ROADMAP item 10); ``solve()`` refuses a mesh.
+All index arrays are problem structure, built once on the host.
+
+Under a mesh (``mesh=``, the counterpart of ``_plan_sharded``,
+``skeres_tpu/core/explicit_schur.py:469-606``) the observation rows are
+split over the ranks by the JAX package's convention
+(``parallel/mesh.py``), so the pair products are local to a rank for
+every point whose rows all lie on it. Every rank plans on the host from
+the whole problem, so that all take the same decisions: the points that
+straddle a shard boundary (at most ``max(4 ns, 64)``, or the plan is
+rejected), each shard's list of whole points, and the same two
+``ValueError`` gates (too many straddlers, shard imbalance) as the JAX
+package, plus its level-0 waste gate checked for every shard. At run time
+a rank builds the grid of its own whole points from its rows, runs K3 and
+its own hierarchical sum on it, places the local unique-pair sums into
+the global unique-pair table and runs one ``all_reduce`` over it; the
+straddling points' rows are collected by a zero-filled ``all_reduce``
+(each rank contributes the rows it owns) into a small replicated fixup
+grid, whose K3 products and sum every rank adds after the reduce.
+The JAX package's ``_uniformize_shard_levels`` exists only because one SPMD
+program needs the same level shapes on every shard; each rank here runs
+its own levels, so it has no counterpart. Unlike the JAX package's
+sharded plan, which drops them, the band pairs of a CLUSTER_TRIDIAGONAL
+plan are kept on every shard and in the fixup (``_pair_metadata``'s
+``cluster_band``), so the sharded band equals the single-device one.
 """
 
 from __future__ import annotations
@@ -39,6 +61,7 @@ import numpy as np
 import torch
 
 from skeres_tpu_torch.ops.pair_product import pair_products
+from skeres_tpu_torch.parallel.mesh import all_reduce_sum, shard_rows
 
 __all__ = ["ExplicitSchurPlan"]
 
@@ -164,9 +187,19 @@ def _transpose_blocks(flat: torch.Tensor, f: int) -> torch.Tensor:
     return flat.view(-1, f, f).transpose(1, 2).reshape(-1, f * f)
 
 
+def _level0_rows(ids: np.ndarray, cap: int) -> int:
+    """The padded rows of level 0 of a fixed-cap hierarchical sum over
+    ``ids``: what ``_check_level0_waste`` reads, without the plan."""
+    if len(ids) == 0:
+        return 0
+    _, counts = np.unique(ids, return_counts=True)
+    return int(((counts + cap - 1) // cap).sum()) * cap
+
+
 class ExplicitSchurPlan:
     """Static plan for explicit-S assembly of ONE observation batch with a
-    single retained slot (the bundle-adjustment case), on one device."""
+    single retained slot (the bundle-adjustment case), on one device, or
+    with ``mesh`` over this rank's share of the rows."""
 
     def __init__(
         self,
@@ -186,8 +219,12 @@ class ExplicitSchurPlan:
         # build the (c, c+1) band maps (CLUSTER_TRIDIAGONAL)
         *,
         device,
+        mesh=None,
     ):
         B = len(cam_idx)  # the port's batches have no pad rows
+        self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        self.n_shards = 1 if self.mesh is None else mesh.size()
+        self.rank = 0 if self.mesh is None else mesh.get_local_rank()
         self.nc = num_cameras
         self.np_ = num_points
         self.f = f_size
@@ -223,21 +260,29 @@ class ExplicitSchurPlan:
         uniq = np.unique(pair_id_g[pair_id_g >= 0])
         self.n_uniq = n_uniq = len(uniq)
 
-        # uniform point-sorted rows: the grid is the identity reshape of the rows
-        self.grid_is_reshape = bool(
-            num_points * kp == B and (counts == kp).all() and (grid_src == np.arange(B)).all()
-        )
-        self.grid_src = None if self.grid_is_reshape else torch.as_tensor(grid_src).to(device)
-        self.swap_mask = torch.as_tensor(swap_g).to(device)
-        self.pair_valid = torch.as_tensor(valid_g).to(device)
-        rows = np.nonzero(pair_id_g >= 0)[0]
-        self.n_pair_rows = len(pair_id_g)
-        levels, uniq_l = _hierarchical_sum_plan(
-            pair_id_g[rows], rows, self.n_pair_rows, cap=pair_cap, adaptive=True,
-        )
-        assert len(uniq_l) == n_uniq
-        _check_level0_waste(levels, self.n_pair_rows)
-        self.levels = _freeze_levels(levels, device)
+        self.n_straddle = 0  # points whose rows straddle a shard boundary
+        if self.mesh is None:
+            # uniform point-sorted rows: the grid is the identity reshape of the rows
+            self.grid_is_reshape = bool(
+                num_points * kp == B and (counts == kp).all()
+                and (grid_src == np.arange(B)).all()
+            )
+            self.grid_src = None if self.grid_is_reshape else torch.as_tensor(grid_src).to(device)
+            self.swap_mask = torch.as_tensor(swap_g).to(device)
+            self.pair_valid = torch.as_tensor(valid_g).to(device)
+            rows = np.nonzero(pair_id_g >= 0)[0]
+            self.n_pair_rows = len(pair_id_g)
+            levels, uniq_l = _hierarchical_sum_plan(
+                pair_id_g[rows], rows, self.n_pair_rows, cap=pair_cap, adaptive=True,
+            )
+            assert len(uniq_l) == n_uniq
+            _check_level0_waste(levels, self.n_pair_rows)
+            self.levels = _freeze_levels(levels, device)
+        else:
+            self.grid_is_reshape = False
+            self._plan_sharded(B, pt_idx, grid_src.reshape(num_points, kp), swap_g, valid_g,
+                               pair_id_g.reshape(num_points, npairs), uniq, pad_waste,
+                               pair_cap, device)
 
         # -- dense-S gather map: block position (ci, cj) -> table row ------
         # SAME-CAMERA pairs (a point observed twice by one camera) store a
@@ -292,14 +337,101 @@ class ExplicitSchurPlan:
             if self.cluster_band and ncl > 1:
                 self.band_map_u, self.band_map_l = block_maps(cam_of[:-1], cam_of[1:])
 
+    # -- the sharded plan (skeres_tpu/core/explicit_schur.py:469-606) --------
+
+    def _plan_sharded(self, B, pt_idx, grid_src, swap_g, valid_g, pair_id_g, uniq,
+                      pad_waste, cap, device):
+        """This rank's grid of whole points, its hierarchical sum ending in a
+        placement onto the global unique-pair table, and the replicated
+        straddle fixup. ``grid_src``, ``swap_g``, ``valid_g`` and
+        ``pair_id_g`` are the whole problem's point grid, one row a point
+        (rows of a point in row order, as the JAX package's per-shard
+        grids take them)."""
+        ns, kp, npairs = self.n_shards, self.kp, self.npairs
+        bs = -(-B // ns)
+        lo, hi = shard_rows(B, ns, self.rank)
+        b_local = hi - lo
+
+        # straddle detection: per point, the shards of its first and last rows
+        pt_v = np.asarray(pt_idx, dtype=np.int64)
+        order = np.argsort(pt_v, kind="stable")
+        sp = pt_v[order]
+        sh = order // bs
+        starts = np.searchsorted(sp, np.arange(self.np_))
+        ends = np.append(starts[1:], B)
+        nonempty = ends > starts
+        first_sh = np.full(self.np_, -1, dtype=np.int64)
+        last_sh = np.full(self.np_, -1, dtype=np.int64)
+        first_sh[nonempty] = sh[starts[nonempty]]
+        last_sh[nonempty] = sh[ends[nonempty] - 1]
+        straddle = np.nonzero(nonempty & (first_sh != last_sh))[0]
+        if len(straddle) > max(4 * ns, 64):
+            # rows not point-clustered: per-shard pair locality is gone
+            raise ValueError("too many shard-straddling points for sharded explicit S")
+        whole = nonempty & (first_sh == last_sh)
+        # per-shard whole point lists (straddlers excluded), as the JAX plan
+        self.shard_points = [np.nonzero(whole & (first_sh == s))[0] for s in range(ns)]
+        p_max = max(1, max(len(p) for p in self.shard_points))
+        if ns * p_max * kp > 1.5 * pad_waste * 2.0 * max(B, 1):
+            raise ValueError("shard point imbalance too high for explicit S")
+        # every shard's level-0 waste, at the JAX plan's uniform p_max grid,
+        # so that every rank takes the same decision
+        n_rows0 = p_max * npairs
+        for pts in self.shard_points:
+            ids = pair_id_g[pts].reshape(-1)
+            n0 = _level0_rows(ids[ids >= 0], cap)
+            if n0 >= (1 << 20) and n0 > 3.0 * max(n_rows0, 1):
+                raise ValueError(
+                    "unique-pair fan-in too low for the hierarchical padded "
+                    f"sum ({n0} padded rows vs {n_rows0} pair rows)"
+                )
+
+        def local_src(rows):
+            """Global row ids (sentinel ``B``) -> this rank's row ids, the
+            sentinel ``b_local`` (a zero row) for a row another rank holds."""
+            mine = (rows >= lo) & (rows < hi)
+            return torch.as_tensor(np.where(mine, rows - lo, b_local).reshape(-1)).to(device)
+
+        def sum_plan(pts):
+            """The hierarchical sum over the points ``pts``' pair rows and
+            its placement onto the global unique-pair table."""
+            ids = pair_id_g[pts].reshape(-1)
+            rows = np.nonzero(ids >= 0)[0]
+            levels, uniq_s = _hierarchical_sum_plan(ids[rows], rows, len(pts) * npairs, cap=cap)
+            place = torch.as_tensor(np.searchsorted(uniq, uniq_s)).to(device)
+            return _freeze_levels(levels, device), place
+
+        pts = self.shard_points[self.rank]
+        self.local_pt = torch.as_tensor(pts).to(device)
+        self.grid_src = local_src(grid_src[pts])
+        self.swap_mask = torch.as_tensor(swap_g[pts]).to(device)
+        self.pair_valid = torch.as_tensor(valid_g[pts]).to(device)
+        self.levels, self.place = sum_plan(pts)
+
+        self.n_straddle = len(straddle)
+        self.fix_pt = torch.as_tensor(straddle).to(device)
+        self.fix_src = local_src(grid_src[straddle])
+        self.fix_swap = torch.as_tensor(swap_g[straddle]).to(device)
+        self.fix_valid = torch.as_tensor(valid_g[straddle]).to(device)
+        self.fix_levels, self.fix_place = sum_plan(straddle)
+        # K3 launches on the fixup grid (the wrapper counts every launch)
+        self.fix_products = 0
+
     # -- runtime -----------------------------------------------------------
 
     def build_grid(self, a_flat: torch.Tensor) -> dict:
         """mu-independent prep: lay the per-row A = F^T E rows (B, f*e) onto
         the point grid (P, kp*f*e). Hoisted to once per linearization
         (SchurSolver.prepare); rejected-step re-solves then pay only the
-        C^-1-dependent pair products."""
+        C^-1-dependent pair products. Under a mesh ``a_flat`` holds this
+        rank's rows; the grid is that of its whole points, and ``"fix"``
+        the replicated straddle grid, collected by one ``all_reduce``."""
         d = a_flat.shape[1]
+        if self.mesh is not None:
+            padded = torch.cat([a_flat, a_flat.new_zeros((1, d))])
+            grid = padded[self.grid_src].reshape(-1, self.kp * d)
+            fix = all_reduce_sum(padded[self.fix_src], self.mesh)
+            return {"grid": grid, "fix": fix.reshape(self.n_straddle, self.kp * d)}
         if self.grid_is_reshape:
             grid = a_flat.reshape(self.np_, self.kp * d)
         else:
@@ -322,10 +454,33 @@ class ExplicitSchurPlan:
         """
         if self.n_uniq == 0 or self.npairs == 0:
             return cinv_flat.new_zeros((self.n_uniq, self.f * self.f))
+        if self.mesh is not None:
+            return self._correction_offdiag_sharded(grid, cinv_flat)
         vals = self._pair_values(
             grid["grid"].contiguous(), cinv_flat.contiguous(), self.swap_mask, self.pair_valid
         )
         return _apply_hierarchical_sum(self.levels, vals)
+
+    def _correction_offdiag_sharded(self, grid, cinv_flat):
+        """K3 on this rank's grid, its own levels, the placement into the
+        global table and one ``all_reduce``; then K3 on the replicated
+        fixup grid, added after the reduce
+        (``skeres_tpu/core/explicit_schur.py:735-801``)."""
+        uniq = cinv_flat.new_zeros((self.n_uniq, self.f * self.f))
+        if self.place.numel():  # a valid pair on this rank's whole points
+            vals = self._pair_values(grid["grid"].contiguous(),
+                                     cinv_flat[self.local_pt].contiguous(),
+                                     self.swap_mask, self.pair_valid)
+            uniq[self.place] = _apply_hierarchical_sum(self.levels, vals)
+        all_reduce_sum(uniq, self.mesh)
+        if self.fix_place.numel():
+            vals = self._pair_values(grid["fix"].contiguous(),
+                                     cinv_flat[self.fix_pt].contiguous(),
+                                     self.fix_swap, self.fix_valid)
+            if vals.is_cuda:
+                self.fix_products += 1
+            uniq[self.fix_place] += _apply_hierarchical_sum(self.fix_levels, vals)
+        return uniq
 
     def dense_s_full(self, uniq_flat, diag_flat):
         """The full (nc*f, nc*f) correction-plus-diagonal matrix in one

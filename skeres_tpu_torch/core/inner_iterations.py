@@ -21,7 +21,9 @@ With ``tolerance > 0`` the sweeps stop once a sweep's relative cost
 decrease falls below it: a :func:`while_loop` on a device-side cost, so a
 captured LM step holds it as a WHILE node and the host reads nothing. The
 independent group is the one declared with
-``set_schur_elimination_group(arr, 0)``.
+``set_schur_elimination_group(arr, 0)``. Under a mesh the per-block
+normal equations are summed over the rank's rows and reduced over the
+ranks (one ``all_reduce`` each), and the solves are replicated.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ class InnerIterationRefiner:
         self._eye = torch.eye(self.t, dtype=dtype, device=dev)
         # per batch: None, or the group's tangent columns and each row's block
         self.batch_cols = []
-        for b in program.batches:
+        for bi, b in enumerate(program.batches):
             slots = [s for s, gi in enumerate(b.slot_groups) if gi == self.group]
             if not slots:
                 self.batch_cols.append(None)
@@ -71,8 +73,9 @@ class InnerIterationRefiner:
                     "parameter blocks"
                 )
             c0 = sum(b.tangent_sizes[: slots[0]])
+            lo, hi = evaluator.row_range[bi]  # the rows the evaluator holds
             self.batch_cols.append((slice(c0, c0 + self.t),
-                                    torch.as_tensor(b.slot_indices[slots[0]]).to(dev)))
+                                    torch.as_tensor(b.slot_indices[slots[0]][lo:hi]).to(dev)))
 
     def _sweep(self, state):
         """One Gauss-Newton sweep over the group: its new (n, size) values."""
@@ -87,6 +90,8 @@ class InnerIterationRefiner:
             jac = b.jac[:, :, cols]  # (B, m, t)
             h.index_add_(0, pidx, (jac[:, :, :, None] * jac[:, :, None, :]).sum(1))
             rhs.index_add_(0, pidx, -(jac * b.r[:, :, None]).sum(1))
+        ev.all_reduce(h)  # under a mesh, over every rank's rows
+        ev.all_reduce(rhs)
         h = h + self.damping * self._eye
         chol = cholesky_nan(h)
         y = torch.linalg.solve_triangular(chol, rhs[:, :, None], upper=False)

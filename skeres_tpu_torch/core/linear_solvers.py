@@ -34,6 +34,7 @@ __all__ = [
     "solve_cgnr",
     "solve_dense_normal_cholesky",
     "solve_dense_qr",
+    "solve_dense_qr_seminormal",
 ]
 
 
@@ -94,6 +95,27 @@ def solve_dense_qr(j_dense, r_dense, diag, mu, min_diagonal, max_diagonal):
     b = torch.cat([-r_dense, r_dense.new_zeros(n)])
     q, rr = torch.linalg.qr(a)
     step = torch.linalg.solve_triangular(rr, (q.T @ b)[:, None], upper=True)[:, 0]
+    return step, _one(r_dense.device)
+
+
+def solve_dense_qr_seminormal(j_dense, r_dense, diag, mu, min_diagonal, max_diagonal):
+    """DENSE_QR's step by the corrected seminormal equations, for the
+    device loop on the card, where ``torch.linalg.qr`` cannot be captured
+    inside a conditional node (cudaErrorInvalidValue when the capture
+    ends; torch 2.11, CUDA 12.8). With ``A = [J; sqrt(D)]`` and
+    ``b = [-r; 0]``: the triangle of A's QR up to signs, ``R = L^T`` with
+    ``L L^T = A^T A = J^T J + D`` (``cholesky_ex``), the seminormal solve
+    ``R^T R x = A^T b`` (two ``solve_triangular``), then one refinement on
+    the residual of the row-appended system, ``x += (R^T R)^-1 A^T (b - A
+    x)``, which brings the step to QR's accuracy while ``cond(A)`` stays
+    well below ``eps^-1/2`` (Bjorck 1987). A failed factor gives a NaN
+    step, as the Cholesky solvers do."""
+    d = lm_diagonal(diag, mu, min_diagonal, max_diagonal)
+    l = cholesky_nan(j_dense.T @ j_dense + torch.diag(d))
+    b = -r_dense
+    step = cho_solve(l, j_dense.T @ b)
+    # A^T (b - A x) = J^T (b - J x) + sqrt(D) (0 - sqrt(D) x)
+    step = step + cho_solve(l, j_dense.T @ (b - j_dense @ step) - d * step)
     return step, _one(r_dense.device)
 
 

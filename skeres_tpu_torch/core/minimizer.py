@@ -160,6 +160,7 @@ class TrustRegionMinimizer:
         self.initial_radius_override = None
         self.initial_iteration = 0
         self._cb_arity_cache = {}  # id(callback) -> takes the state too
+        self._dense_qr = solve_dense_qr  # DENSE_QR's step (the device loop's differs)
         self._subset_masks = self._build_subset_masks()
 
     def _build_subset_masks(self):
@@ -189,13 +190,13 @@ class TrustRegionMinimizer:
             return None
         wanted = {getattr(rb, "_rid", rb) for rb in o.residual_blocks_for_subset_preconditioner}
         masks, any_hit = [], False
-        for batch in self.ev.program.batches:
+        for batch, (lo, hi) in zip(self.ev.program.batches, self.ev.row_range):
             m = torch.zeros(batch.num_blocks, dtype=self.ev.dtype)
             if batch.row_ids is not None:
                 m = torch.tensor([1.0 if rid in wanted else 0.0 for rid in batch.row_ids],
                                  dtype=self.ev.dtype)
                 any_hit = any_hit or bool(m.any())
-            masks.append(m.to(self.ev.device))
+            masks.append(m[lo:hi].to(self.ev.device))  # the rows the evaluator holds
         if not any_hit:
             log.warning("SUBSET preconditioner downgraded to JACOBI: none of the tagged "
                         "residual blocks resolve to solver rows")
@@ -267,7 +268,7 @@ class TrustRegionMinimizer:
             return y, it, jitter
         if st == LinearSolverType.DENSE_QR:
             j_dense, r_dense = data
-            y, it = solve_dense_qr(j_dense, r_dense, diag, mu, o.min_lm_diagonal,
+            y, it = self._dense_qr(j_dense, r_dense, diag, mu, o.min_lm_diagonal,
                                    o.max_lm_diagonal)
             return y, it, jitter
         if st == LinearSolverType.CGNR:
@@ -813,9 +814,10 @@ class TrustRegionMinimizer:
         ``torch.utils._pytree`` order. Those leaves follow the port's data,
         not the JAX package's: no pad rows, and for the Schur solvers the
         port's prepared dict (its keys sorted), not the JAX pytree, so their
-        number, order and shapes differ. CONSOLE prints shapes and norms."""
+        number, order and shapes differ. CONSOLE prints shapes and norms.
+        Under a mesh only rank 0 dumps (its solver data: its own rows)."""
         o = self.options
-        if iteration not in o.trust_region_minimizer_iterations_to_dump:
+        if iteration not in o.trust_region_minimizer_iterations_to_dump or self.ev.rank != 0:
             return
         host = lambda t: t.detach().to("cpu").numpy()  # noqa: E731
         leaves = [x for x in pytree.tree_leaves(data) if isinstance(x, torch.Tensor)]

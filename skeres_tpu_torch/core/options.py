@@ -1,9 +1,8 @@
 """Solver options (reference lineage: ``include/ceres/solver.h`` —
 ``Solver::Options``). Same field names and defaults as
 ``skeres_tpu/core/options.py``, plus ``device``; ``dtype`` names a torch
-dtype. Fields the port does not run yet keep their names so that a user's
-options carry over; ``solve()`` raises ``NotImplementedError`` when one of
-them is set away from its default (``core/solver.py``).
+dtype, and ``mesh`` a 1-D ``torch.distributed`` ``DeviceMesh``
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -124,6 +123,8 @@ class SolverOptions:
     dtype: torch.dtype = torch.float64
     # device the solve runs on: "cuda[:k]" (the card), or "cpu" when asked for
     device: Any = "cuda"
+    # shard the residual rows over this 1-D ("obs",) DeviceMesh
+    # (parallel.make_obs_mesh); None = one device
     mesh: Any = None
     # rows per streamed evaluation chunk; None = one pass per batch
     evaluation_chunk_size: Optional[int] = None

@@ -44,6 +44,18 @@ dense-W, explicit and cluster paths take the bundle-adjustment structure
 general structure takes the column probe and the row-by-row products.
 Still to port: the camera-padded layout of the observation rows.
 
+Under a mesh (the evaluator's ``mesh``, ``parallel/mesh.py``) every row
+term is this rank's rows and every ``slot_reduce`` returns the table
+reduced over the ranks, so the point-side and camera-side gathers index
+replicated vectors and every product above runs unchanged. DENSE_SCHUR
+takes the explicit path whenever a plan exists, as the JAX package does
+(``skeres_tpu/core/schur.py:1370-1373``): the plan shards itself
+(``core/explicit_schur.py``). Where it is rejected, the dense-W path runs
+with W reduced over the ranks before ``W C^-1 W^T`` (W is not linear in
+the shards' products), and the column probe with each chunk's reductions
+reduced; the rows of other batches (priors) that add to S are summed into
+a zero matrix and reduced once.
+
 ``prepare()`` keeps the per-row ``A = F^T E`` blocks (540 MB at
 venice-1778 shape in float32) and the per-camera ``F^T F`` sums for every
 solver that reads the camera blocks of S (DENSE_SCHUR's explicit path,
@@ -74,7 +86,12 @@ from skeres_tpu_torch.ops.cholesky import (
     chol_solve,
     cholesky_inverse_factor,
 )
-from skeres_tpu_torch.ops.segment_reduce import apply_reduce_plan, build_reduce_plan
+from skeres_tpu_torch.ops.segment_reduce import (
+    apply_reduce_plan,
+    apply_sharded_reduce_plan,
+    build_reduce_plan,
+    build_sharded_reduce_plan,
+)
 from skeres_tpu_torch.ops.small_inverse import batched_spd_inverse
 
 __all__ = ["SchurSolver"]
@@ -200,7 +217,8 @@ class SchurSolver:
                 e_col=None if e_slot is None else evaluator._slot_cols[bi][e_slot][0],
                 pidx=None if e_slot is None else evaluator._batch_const[bi][1][e_slot],
                 f_cols=torch.as_tensor(f_cols).to(device),
-                fidx=torch.as_tensor(self.glob2ret[b.tangent_index[:, f_cols]]).to(device),
+                fidx=torch.as_tensor(self.glob2ret[b.tangent_index[slice(
+                    *evaluator.row_range[bi])][:, f_cols]]).to(device),
             ))
             if e_slots and ret_slots:
                 e_batches.append(bi)
@@ -227,23 +245,32 @@ class SchurSolver:
             cam_idx = np.asarray(b.slot_indices[self.f_slot], dtype=np.int64)
             pt_idx = np.asarray(b.slot_indices[self.e_slot], dtype=np.int64)
 
-        # dense-W path (DENSE_SCHUR's first priority): viable on the BA
-        # structure while the dense per-point W = (n_pts, n_cams, f, e) stays
-        # under the JAX package's gate
+        # dense-W path (DENSE_SCHUR's first priority; under a mesh, only where
+        # the explicit plan is rejected): viable on the BA structure while the
+        # dense per-point W = (n_pts, n_cams, f, e) stays under the JAX
+        # package's gate
+        mesh = evaluator.mesh
         self.w_plan = None
-        if self._ba and not iterative:
-            w_bytes = self.num_points * self.num_cams * self.f_size * self.e_size * 4
-            if w_bytes <= DENSE_W_LIMIT_BYTES:
-                # each (point, camera) cell receives at most a few observations
-                self.w_plan = build_reduce_plan(
-                    pt_idx * self.num_cams + cam_idx, self.num_points * self.num_cams, device
-                )
+        w_fits = self._ba and not iterative and (
+            self.num_points * self.num_cams * self.f_size * self.e_size * 4
+            <= DENSE_W_LIMIT_BYTES)
+
+        def make_w_plan():
+            # each (point, camera) cell receives at most a few observations
+            lin = pt_idx * self.num_cams + cam_idx
+            if mesh is None:
+                return build_reduce_plan(lin, self.num_points * self.num_cams, device)
+            return build_sharded_reduce_plan(lin[slice(*evaluator.row_range[self.e_batch])],
+                                             self.num_points * self.num_cams, device)
+
+        if w_fits and mesh is None:
+            self.w_plan = make_w_plan()
 
         def make_plan(**kw):
             return ExplicitSchurPlan(
                 cam_idx=cam_idx, pt_idx=pt_idx, num_cameras=self.num_cams,
                 num_points=self.num_points, f_size=self.f_size, e_size=self.e_size,
-                pad_waste=pad_waste, pair_cap=pair_cap, device=device, **kw,
+                pad_waste=pad_waste, pair_cap=pair_cap, device=device, mesh=mesh, **kw,
             )
 
         # explicit-S plan (core/explicit_schur.py), on the BA structure: for
@@ -271,6 +298,8 @@ class SchurSolver:
                 "coupling one retained block group via a single slot"
             )
         self.use_explicit = use_explicit and self.explicit_plan is not None
+        if w_fits and mesh is not None and self.explicit_plan is None:
+            self.w_plan = make_w_plan()
 
         # CLUSTER_JACOBI / CLUSTER_TRIDIAGONAL plan (reference:
         # visibility_based_preconditioner.cc; the clusters here are
@@ -425,10 +454,10 @@ class SchurSolver:
                 # uniform point-grouped rows: write the grid rows directly
                 grid = self._explicit_a_grid(per_batch, plan.kp, plan.np_ * plan.kp)
                 a_rows = grid.view(-1, f * self.e_size)
+                prep["explicit_grid"] = {"grid": grid}
             else:
                 a_rows = self._explicit_a_flat(per_batch)
-                grid = plan.build_grid(a_rows)["grid"]
-            prep["explicit_grid"] = {"grid": grid}
+                prep["explicit_grid"] = plan.build_grid(a_rows)
             prep["explicit_a"] = a_rows
         elif self._keeps_a:
             prep["explicit_a"] = self._explicit_a_flat(per_batch)
@@ -529,20 +558,22 @@ class SchurSolver:
         """Add ``F^T F`` of every batch other than the observation batch
         that touches retained coordinates (e.g. camera priors) into S, in
         place. Returns whether there was one."""
-        extra = False
-        for bj, (rb, jacb, Eb) in enumerate(asm["per_batch"]):
+        extra = [bj for bj in range(len(asm["per_batch"]))
+                 if bj != self.e_batch and len(self.batch_info[bj]["f_cols"])]
+        # under a mesh, this rank's rows into a zero matrix, reduced once
+        dst = s_mat if self.ev.mesh is None or not extra else torch.zeros_like(s_mat)
+        for bj in extra:
             infob = self.batch_info[bj]
-            if bj == self.e_batch or len(infob["f_cols"]) == 0:
-                continue
-            extra = True
-            Fb = jacb[:, :, infob["f_cols"]]
+            Fb = asm["per_batch"][bj][1][:, :, infob["f_cols"]]
             ftfb = torch.einsum("bmf,bmg->bfg", Fb, Fb)
             fidx = infob["fidx"]
-            s_mat.index_put_(
+            dst.index_put_(
                 (fidx[:, :, None].expand_as(ftfb), fidx[:, None, :].expand_as(ftfb)),
                 ftfb, accumulate=True,
             )
-        return extra
+        if dst is not s_mat:
+            s_mat.add_(self.ev.all_reduce(dst))
+        return bool(extra)
 
     def _dense_s_dense_w(self, asm):
         """S = blockdiag(F^T F) - sum_p W_p C_p^-1 W_p^T + diag(d_f), with W
@@ -556,9 +587,11 @@ class SchurSolver:
         diag_blocks = self.ev.slot_reduce(bi, self.f_slot, ftf.reshape(-1, f * f)).reshape(nc, f, f)
 
         a = torch.einsum("bmf,bme->bfe", Fs, E)
-        w = apply_reduce_plan(self.w_plan, a.reshape(-1, f * e)).reshape(
-            self.num_points, nc, f, e
-        )
+        if self.ev.mesh is None:
+            w = apply_reduce_plan(self.w_plan, a.reshape(-1, f * e))
+        else:  # W reduced over the ranks before W C^-1 W^T
+            w = apply_sharded_reduce_plan(self.w_plan, a.reshape(-1, f * e), self.ev.mesh)
+        w = w.reshape(self.num_points, nc, f, e)
         y = torch.einsum("pcfe,peg->pcfg", w, asm["cinv"])
         corr = torch.einsum("pcfe,pdge->cfdg", y, w)  # (nc, f, nc, f)
 
@@ -1062,7 +1095,7 @@ class SchurSolver:
         for bi, (r, jac) in enumerate(pairs):
             jv = torch.einsum("bmi,bi->bm", jac, self.ev.v_rows(bi, v))
             total = total + torch.sum(jv * jv)
-        return total
+        return self.ev.all_reduce(total)
 
     def jtj_matvec(self, data, v):
         """Full-space (J^T J) v from the resident blocks; ``data`` is a

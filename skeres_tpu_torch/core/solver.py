@@ -22,9 +22,11 @@ or print the linear system. ``MinimizerType.LINE_SEARCH`` runs the
 line-search minimizer (``core/line_search.py``; ``use_device_loop`` does
 not apply to it, as in the JAX package), and ``check_gradients`` checks
 every batch's Jacobian against numeric differences before the solve
-(``core/gradient_checker.py``). The one option it does not run yet
-(``mesh``) raises ``NotImplementedError``; none falls back to something
-else.
+(``core/gradient_checker.py``). With ``mesh`` (a 1-D ``DeviceMesh``
+from ``parallel.make_obs_mesh``) every rank of the mesh calls ``solve``
+on the same problem; the evaluator holds the rank's share of the rows and
+reduces over the ranks (``parallel/mesh.py``), and every rank returns the
+same Summary and solution. No option falls back to something else.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from skeres_tpu_torch.core.types import (
     PreconditionerType,
     TerminationType,
 )
+from skeres_tpu_torch.parallel.mesh import check_obs_mesh
 from skeres_tpu_torch.utils.checkpoint import load_checkpoint
 
 __all__ = ["TRACE_FILE", "solve"]
@@ -60,21 +63,6 @@ __all__ = ["TRACE_FILE", "solve"]
 # written under SolverOptions.trace_dir: a torch.profiler (Chrome) trace of
 # the minimizer, kernels on the card included
 TRACE_FILE = "minimize_trace.json"
-
-_DEFAULTS = SolverOptions()
-
-# options that select code the port does not have yet: any value other
-# than the default raises
-_UNPORTED = {
-    "mesh": "multi-device sharding (parallel/mesh.py)",
-}
-
-
-def _check_ported(options: SolverOptions) -> None:
-    for name, what in _UNPORTED.items():
-        if getattr(options, name) != getattr(_DEFAULTS, name):
-            raise NotImplementedError(f"SolverOptions.{name}: {what} is not ported yet")
-
 
 def _select_linear_solver(options: SolverOptions, program: Program) -> LinearSolverType:
     """The reference preprocessor's solver choice. SPARSE_NORMAL_CHOLESKY
@@ -111,7 +99,8 @@ def solve(
         summary.termination_type = TerminationType.FAILURE
         summary.message = msg
         return summary
-    _check_ported(options)
+    if options.mesh is not None:
+        check_obs_mesh(options.mesh)
     device = torch.device(options.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -158,7 +147,9 @@ def solve(
         dtype=options.dtype,
         chunk_size=options.evaluation_chunk_size,
         diff_mode=options.jacobian_diff_mode,
+        mesh=options.mesh,
     )
+    summary.num_devices = evaluator.n_shards
     schur_solver = None
     if solver_type in (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR):
         log = logging.getLogger("skeres_tpu_torch")
@@ -236,8 +227,12 @@ def solve(
             minimizer.initial_iteration = iteration
 
     if options.check_gradients:
+        # under a mesh every rank checks every row, so that all agree
+        checker = evaluator if options.mesh is None else Evaluator(
+            program, device=device, dtype=options.dtype,
+            chunk_size=options.evaluation_chunk_size, diff_mode=options.jacobian_diff_mode)
         ok, msg = check_program_gradients(
-            program, evaluator, relative_precision=options.gradient_check_relative_precision,
+            program, checker, relative_precision=options.gradient_check_relative_precision,
             step_size=options.gradient_check_numeric_derivative_relative_step_size)
         if not ok:
             summary.termination_type = TerminationType.FAILURE

@@ -155,6 +155,8 @@ def test_explicit_path_device_loop_matches_jax(monkeypatch):
         ("CGNR", "JACOBI", {}, 1e-5),
         ("DENSE_NORMAL_CHOLESKY", "JACOBI", {}, 1e-8),
         ("DENSE_QR", "JACOBI", {}, 1e-8),
+        # the seminormal step on the unscaled Jacobian (columns 1e4 apart)
+        ("DENSE_QR", "JACOBI", dict(jacobi_scaling=False), 1e-8),
     ],
 )
 def test_device_loop_of_each_solver_matches_jax_device_loop(solver, precond, kw, rtol):
@@ -187,6 +189,31 @@ def test_device_loop_of_each_solver_matches_jax_device_loop(solver, precond, kw,
     np.testing.assert_allclose(tc, jc, rtol=100 * rtol, atol=1e-9)
     np.testing.assert_allclose(tp, jp, rtol=100 * rtol, atol=1e-9)
     np.testing.assert_allclose(tc, hc, rtol=100 * rtol, atol=1e-9)
+
+
+@pytest.mark.parametrize("mu", [1e-8, 1e-3, 1.0, 1e3])
+@pytest.mark.parametrize("scaled", [True, False])
+def test_seminormal_dense_qr_step_matches_qr(mu, scaled):
+    """The device loop's DENSE_QR step (the corrected seminormal equations,
+    which a CUDA graph captures) against ``solve_dense_qr`` (Householder QR
+    by ``torch.linalg.qr``) on the same damped system: 1e-10 relative in
+    the step, from nearly undamped to heavily damped, on the Jacobi-scaled
+    and on the raw Jacobian."""
+    from skeres_tpu_torch.core.linear_solvers import solve_dense_qr, solve_dense_qr_seminormal
+
+    program = tbal.build_bal_problem(tbal.synthetic_bal(6, 60, 4))[0].compile()
+    ev = Evaluator(program, "cpu", torch.float64)
+    _, blocks = ev.blocks(program.initial_state("cpu", torch.float64))
+    _, diag = ev.gradient_and_diag(blocks)
+    jd, rd = ev.jacobian_dense(blocks)
+    if scaled:
+        scale = 1.0 / (1.0 + torch.sqrt(diag))
+        jd, diag = jd * scale, diag * scale * scale
+    ref, _ = solve_dense_qr(jd, rd, diag, mu, 1e-6, 1e32)
+    step, iters = solve_dense_qr_seminormal(jd, rd, diag, mu, 1e-6, 1e32)
+    assert int(iters) == 1
+    np.testing.assert_allclose(step.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-10 * float(torch.linalg.norm(ref)))
 
 
 # -- while_loop, the cond form of the damped solve and the sync-free PCG ---------------------

@@ -362,22 +362,26 @@ def test_iterative_device_loop_on_card_matches_cpu(cuda, solver, precond, kw, rt
 def test_dense_solvers_under_the_device_loop_on_card(cuda):
     """DENSE_NORMAL_CHOLESKY captures (its factor and triangular solves are
     library calls that a conditional body takes) and equals the CPU;
-    DENSE_QR raises, naming ``torch.linalg.qr``, and does not fall back to
-    the host loop."""
-    def solve(solver, device):
+    DENSE_QR captures too (its step by the corrected seminormal equations:
+    ``torch.linalg.qr`` cannot be captured in a conditional node) and
+    equals the CPU's device loop and the card's host loop (Householder QR)."""
+    def solve(solver, device, device_loop=True):
         problem, _, _ = build_bal_problem(synthetic_bal(16, 500, 4))
         return stt.solve(stt.SolverOptions(
             linear_solver_type=LinearSolverType[solver], max_num_iterations=8,
             run_full_iteration_budget=True, initial_trust_region_radius=1.0,
-            use_device_loop=True, device_loop_chunk_iterations=4, dtype=torch.float64,
+            use_device_loop=device_loop, device_loop_chunk_iterations=4, dtype=torch.float64,
             device=device), problem)
 
-    card, cpu = solve("DENSE_NORMAL_CHOLESKY", cuda), solve("DENSE_NORMAL_CHOLESKY", "cpu")
-    assert card.device_loop_capture_time_in_seconds > 0.0
-    np.testing.assert_allclose([it.cost for it in card.iterations],
-                               [it.cost for it in cpu.iterations], rtol=1e-8)
-    with pytest.raises(NotImplementedError, match="torch.linalg.qr"):
-        solve("DENSE_QR", cuda)
+    for solver in ("DENSE_NORMAL_CHOLESKY", "DENSE_QR"):
+        card, cpu = solve(solver, cuda), solve(solver, "cpu")
+        assert card.device_loop_capture_time_in_seconds > 0.0
+        runs = [cpu] + ([solve(solver, cuda, device_loop=False)] if solver == "DENSE_QR" else [])
+        for other in runs:
+            assert [it.step_is_successful for it in card.iterations] == [
+                it.step_is_successful for it in other.iterations]
+            np.testing.assert_allclose([it.cost for it in card.iterations],
+                                       [it.cost for it in other.iterations], rtol=1e-8)
 
 
 # -- dogleg, inner iterations and the Problem API on the card ----------------------
@@ -614,3 +618,44 @@ def test_probe_s_into_k2_on_card(cuda):
     assert k1.trailing_update_.launches >= updates + card.num_linear_solves > updates
     np.testing.assert_allclose([it.cost for it in card.iterations],
                                [it.cost for it in cpu.iterations], rtol=1e-8)
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_one_card(cuda):
+    """The sharded explicit-S LM step (``parallel/dryrun.py``) on 2 gloo
+    ranks sharing ``cuda:0`` (NCCL refuses two ranks on one card): the plan
+    is sharded with straddling points, K3 runs on each rank's grid and on
+    the fixup grid, and both ranks report the same costs."""
+    from skeres_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    reports = dryrun_multichip(2, "cuda:0")
+    for r in reports:
+        assert r["n_straddle"] > 0 and r["path"] == "explicit"
+        assert r["k3_launches"] == 2 and r["k3_fixup_launches"] == 1
+        assert (r["cost"], r["new_cost"]) == (reports[0]["cost"], reports[0]["new_cost"])
+        assert r["new_cost"] < r["cost"]
+
+
+@pytest.mark.gpu
+def test_device_loop_under_a_gloo_mesh_on_the_card_raises(cuda):
+    """A CUDA graph captures NCCL collectives only: the device loop under a
+    gloo mesh on the card raises ValueError naming the backend (the host
+    loop runs such a mesh)."""
+    import torch.distributed as dist
+
+    from skeres_tpu_torch.parallel import initialize_distributed, make_obs_mesh
+
+    initialize_distributed(world_size=1, backend="gloo", device_type="cuda")
+    try:
+        mesh = make_obs_mesh(device_type="cuda")
+        problem, _, _ = build_bal_problem(synthetic_bal(6, 60, 4))
+        with pytest.raises(ValueError, match="gloo mesh"):
+            stt.solve(stt.SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
+                                        max_num_iterations=2, use_device_loop=True,
+                                        dtype=torch.float64, device=cuda, mesh=mesh), problem)
+        host = stt.solve(stt.SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
+                                           max_num_iterations=2, dtype=torch.float64,
+                                           device=cuda, mesh=mesh), problem)
+        assert host.num_devices == 1 and host.final_cost < host.initial_cost
+    finally:
+        dist.destroy_process_group()

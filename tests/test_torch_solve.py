@@ -151,12 +151,15 @@ def test_min_lm_diagonal_affects_step():
         dict(mesh="obs"),
     ],
 )
-def test_unported_options_raise(option):
+def test_mesh_that_is_not_a_1d_device_mesh_raises(option):
+    """``SolverOptions.mesh`` takes a 1-D torch.distributed DeviceMesh
+    (``parallel.make_obs_mesh``); anything else is a TypeError before the
+    solve starts (tests/test_torch_mesh.py runs real meshes)."""
     bal = tbal.synthetic_bal(4, 24, 3)
     problem, _, _ = tbal.build_bal_problem(bal)
     options = SolverOptions(**{"linear_solver_type": LinearSolverType.DENSE_SCHUR, "device": "cpu",
                                **option})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(TypeError, match="1-D torch.distributed DeviceMesh"):
         stt.solve(options, problem)
 
 
