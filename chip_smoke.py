@@ -248,6 +248,24 @@ non-zero and prints no result line):
                steps (float64 to 1e-10 a step; float32 LM steps/s in turns)
                and the venice shape 5 steps (float64 to 1e-10, LM steps/s).
 
+ 37. venice, the camera-padded layout — run right after phase 30, while the
+               venice scene lives: the layout's plan (nc, K, the waste, the
+               placed copy's bytes, the plan's set-up seconds); the padded S
+               product on the minimizer's path (unscaled placed rows, the
+               Jacobi scale conjugated) against the generic one, float64
+               within 1e-12, both timed in float32 (CUDA events, median of 20,
+               in turns), with g and diag (the placement gather against the
+               ``index_add_`` camera sums) and one whole linearization; the
+               float64 trajectories of DENSE_SCHUR and ITERATIVE_SCHUR
+               (SCHUR_JACOBI) with cameras 0 and 1 constant from initial
+               radius 1, layout against ``jacobian_sort_threshold=10**12``,
+               5 steps: the same decisions, within 1e-8 a step; float32 DENSE_SCHUR LM steps/s
+               of both forms on the host loop and the device loop (medians of
+               3, in turns) and each form's gap between identical runs.
+               The layout is on by default past 100,000 rows, so phases
+               10-11, 16, 18-22, 26, 29 (its unsplit reference) and 34-36
+               take it; phase 18 times the generic S product.
+
 The line before the last is a JSON object describing each kernel (its
 time, its launches on the main path, its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the peak for their type,
@@ -1109,14 +1127,15 @@ def trace_dir_for(label: str) -> str:
     return os.path.join(ROOT, "build", "chip_smoke_traces", label)
 
 
-def venice_options(device, solver="DENSE_SCHUR", precond="JACOBI", steps=VENICE_STEPS, **kw):
+def venice_options(device, solver="DENSE_SCHUR", precond="JACOBI", steps=VENICE_STEPS,
+                   dtype=torch.float32, **kw):
     import skeres_tpu_torch as stt
     from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType
 
     return stt.SolverOptions(
         linear_solver_type=LinearSolverType[solver],
         preconditioner_type=PreconditionerType[precond], max_num_iterations=steps,
-        run_full_iteration_budget=True, dtype=torch.float32, device=device,
+        run_full_iteration_budget=True, dtype=dtype, device=device,
         evaluation_chunk_size=VENICE_CHUNK, **kw)
 
 
@@ -1405,14 +1424,16 @@ def time_s_product(device, program) -> None:
     multiply-and-sum the port uses."""
     from skeres_tpu_torch.core.types import PreconditionerType
 
+    # the generic product (phase 37 times it beside the camera-padded one)
     schur, data, g, diag = linearize(program, device, torch.float32, VENICE_CHUNK, iterative=True,
-                                     preconditioner=PreconditionerType.SCHUR_JACOBI)
+                                     preconditioner=PreconditionerType.SCHUR_JACOBI,
+                                     sort_threshold=10**12)
     asm = first_assembly(schur, data, g, diag)
     v = torch.randn(schur.num_f, device=device, dtype=torch.float32,
                     generator=torch.Generator(device=device).manual_seed(1))
     ms = cuda_ms(lambda: schur._s_matvec(asm, v), calls=3)
-    print(f"[timing] one implicit S product at venice shape (5 row products, 2 gathers, 2 segment "
-          f"sums over {asm['per_batch'][schur.e_batch][1].shape[0]} rows): {ms:.4f} ms "
+    print(f"[timing] one generic implicit S product at venice shape (5 row products, 2 gathers, "
+          f"2 segment sums over {asm['per_batch'][schur.e_batch][1].shape[0]} rows): {ms:.4f} ms "
           "(median of 20 runs)")
     F, E = schur._f_block(asm), asm["per_batch"][schur.e_batch][2]
     rows = F.shape[0]
@@ -2573,6 +2594,200 @@ def phase_split_venice(device, program, initial) -> dict:
     return launches
 
 
+# -- the camera-padded layout (phase 37) -------------------------------------------
+
+LAYOUT_RUNS = 3  # LM steps/s of each form and loop: medians of 3, in turns
+GENERIC = 10**12  # jacobian_sort_threshold of the generic path
+
+
+def layout_forms(program, device, dtype):
+    """The minimizer's linearization of ITERATIVE_SCHUR (SCHUR_JACOBI) in
+    both forms on one evaluator: {form: (schur, minimizer)}, the padded
+    layout at the default gates and the generic path."""
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.minimizer import TrustRegionMinimizer
+    from skeres_tpu_torch.core.schur import SchurSolver
+    from skeres_tpu_torch.core.summary import Summary
+    from skeres_tpu_torch.core.types import LinearSolverType, PreconditionerType
+
+    ev = Evaluator(program, device, dtype, chunk_size=VENICE_CHUNK)
+    options = stt.SolverOptions(linear_solver_type=LinearSolverType.ITERATIVE_SCHUR,
+                                device=device, dtype=dtype, evaluation_chunk_size=VENICE_CHUNK)
+    forms = {}
+    for form, kw in (("padded", {}), ("generic", dict(sort_threshold=GENERIC))):
+        schur = SchurSolver(ev, iterative=True, preconditioner=PreconditionerType.SCHUR_JACOBI,
+                            **kw)
+        forms[form] = (schur, TrustRegionMinimizer(ev, options, Summary(),
+                                                   LinearSolverType.ITERATIVE_SCHUR,
+                                                   schur_solver=schur))
+    return ev, forms
+
+
+def layout_products(forms, state):
+    """Each form's linearization at ``state``, its first damped solve's
+    assembly (mu 1e-4) and S product on one random vector: {form: (asm,
+    S v, v)}."""
+    from skeres_tpu_torch.core.linear_solvers import lm_diagonal
+
+    out = {}
+    for form, (schur, m) in forms.items():
+        _, g, diag, data, scale, _, _ = m.linearize(state)
+        asm = schur._assemble(data, g * scale, lm_diagonal(diag * scale**2, 1e-4, 1e-6, 1e32))
+        gen = torch.Generator(device=g.device).manual_seed(1)
+        v = torch.randn(schur.num_f, dtype=g.dtype, device=g.device, generator=gen)
+        out[form] = (asm, schur._s_matvec(asm, v), v)
+    return out
+
+
+def phase_venice_layout(device, problem, program, cams, initial) -> dict:
+    """37: the camera-padded layout at venice shape. The plan; the padded S
+    product on the minimizer's path (unscaled placed rows, the Jacobi scale
+    conjugated) against the generic one, float64 to 1e-12, both timed in
+    float32, with one linearization and its g/diag pass in each form; the
+    float64 trajectories of DENSE_SCHUR and ITERATIVE_SCHUR (SCHUR_JACOBI)
+    with cameras 0 and 1 constant from initial radius 1, layout against
+    generic, within 1e-8 a step with the same decisions; float32 DENSE_SCHUR LM steps/s of both
+    forms on both loops (medians of 3, in turns) and the gap between
+    identical runs of each form. Returns the launches by path."""
+    import skeres_tpu_torch as stt
+
+    def restore():
+        for grp, v in zip(program.groups, initial):
+            grp.values = v.copy()
+
+    restore()
+    state = program.initial_state(device, torch.float32)
+    ev, forms = layout_forms(program, device, torch.float32)
+    schur = forms["padded"][0]
+    check(list(schur.sorted_info) == [0] and not forms["generic"][0].sorted_info,
+          f"layout: not engaged at venice shape ({schur.camera_padded_layout})")
+    info = schur.sorted_info[0]
+    n_rows = program.batches[0].num_blocks
+    m, T = program.batches[0].residual_dim, program.batches[0].block_tangent_size
+    placed = info["nc"] * info["K"] * m * (T + 1) * 4
+    print(f"[layout] plan: {schur.camera_padded_layout}; nc {info['nc']}, K {info['K']}, waste "
+          f"nc K / B = {info['nc'] * info['K'] / n_rows:.6f} over {n_rows} rows; the placed "
+          f"(jac | r) copy {placed} bytes in float32 ({placed / 2**20:.1f} MiB); the plan "
+          f"{schur.layout_seconds:.4f} s of set-up (host)")
+
+    # the S product on the minimizer's path, and one linearization, float32
+    prods = layout_products(forms, state)
+    (asm_p, sv_p, v), (asm_g, sv_g, _) = prods["padded"], prods["generic"]
+    err32, rel32 = rel_err(sv_p, sv_g)
+    check(asm_p["cam_scale"] is not None, "layout: the padded rows are not the unscaled copy")
+    t = [cuda_ms(lambda: forms["generic"][0]._s_matvec(asm_g, v), calls=3),
+         cuda_ms(lambda: schur._s_matvec(asm_p, v), calls=3),
+         cuda_ms(lambda: schur._s_matvec(asm_p, v), calls=3),
+         cuda_ms(lambda: forms["generic"][0]._s_matvec(asm_g, v), calls=3)]
+    print(f"[layout] one implicit S product float32 (CUDA events, median of 20, in turns): "
+          f"generic {t[0]:.4f}/{t[3]:.4f} ms, padded {t[1]:.4f}/{t[2]:.4f} ms; padded against "
+          f"generic {err32:.3e} (rel {rel32:.3e})")
+    del prods, asm_p, asm_g, sv_p, sv_g
+    torch.cuda.empty_cache()
+    _, blocks = ev.blocks(state)
+    gd = {"generic": lambda: ev.gradient_and_diag(blocks),
+          "padded": lambda: schur.gradient_and_diag_padded(blocks)}
+    lin = {f: (lambda mm=mm: mm.linearize(state)) for f, (_, mm) in forms.items()}
+    order = ("generic", "padded", "padded", "generic")
+    t_gd = [cuda_ms(gd[f], reps=5, calls=1) for f in order]
+    del blocks
+    torch.cuda.empty_cache()
+    t_lin = [cuda_ms(lin[f], reps=3, calls=1) for f in order]
+    print(f"[layout] g and diag float32 (CUDA events, median of 5, in turns): generic "
+          f"(index_add_ camera sums) {t_gd[0]:.4f}/{t_gd[3]:.4f} ms, padded (the placement "
+          f"gather and reshape sums) {t_gd[1]:.4f}/{t_gd[2]:.4f} ms; one whole linearization "
+          f"(evaluation, g and diag, scaling, prepare; median of 3): generic "
+          f"{t_lin[0]:.4f}/{t_lin[3]:.4f} ms, padded {t_lin[1]:.4f}/{t_lin[2]:.4f} ms")
+    del ev, forms, schur, gd, lin, state
+    torch.cuda.empty_cache()
+
+    # the S product on the minimizer's path in float64: the gate
+    ev, forms = layout_forms(program, device, torch.float64)
+    prods = layout_products(forms, program.initial_state(device, torch.float64))
+    err64, rel64 = rel_err(prods["padded"][1], prods["generic"][1])
+    print(f"[layout] S product float64, the minimizer's path (cam_scale set): padded against "
+          f"generic {err64:.3e} (rel {rel64:.3e})")
+    check(rel64 <= 1e-12, f"layout: padded S product {rel64:.3e} > 1e-12 from the generic one")
+    del ev, forms, prods
+    torch.cuda.empty_cache()
+
+    launches = {}
+    # float64 trajectories on the gauged scene (a well-posed trajectory)
+    problem.set_parameter_block_constant(cams[0])
+    problem.set_parameter_block_constant(cams[1])
+    try:
+        gauged = problem.compile()
+        for solver, precond in (("DENSE_SCHUR", "JACOBI"), ("ITERATIVE_SCHUR", "SCHUR_JACOBI")):
+            runs = {}
+            for form, thresh in (("padded", 100_000), ("generic", GENERIC)):
+                restore()
+                torch.cuda.empty_cache()
+                reset_launches()
+                # initial radius 1, as phases 17, 23 and 31: every decision on
+                # a cost change far above rounding (at the default radius
+                # ITERATIVE_SCHUR's rejected candidates reach a cost of 8.5e17,
+                # whose value moves by 1.4e-7 between the two forms)
+                s = stt.solve(venice_options(device, solver, precond, dtype=torch.float64,
+                                             jacobian_sort_threshold=thresh,
+                                             initial_trust_region_radius=1.0), problem, gauged)
+                runs[form] = s
+                n = launches[f"venice layout float64 {solver} {form}"] = launch_counts()
+                if solver == "DENSE_SCHUR":
+                    check(n["K3"] >= s.num_linear_solves > 0 and n["K2 update"] > 0,
+                          f"layout float64 DENSE_SCHUR {form}: K3 or K2 did not launch")
+            p, g = runs["padded"], runs["generic"]
+            a = np.array([it.cost for it in p.iterations])
+            b = np.array([it.cost for it in g.iterations])
+            same = ([(it.step_is_successful, it.linear_solver_iterations) for it in p.iterations]
+                    == [(it.step_is_successful, it.linear_solver_iterations)
+                        for it in g.iterations])
+            gap = float(np.max(np.abs(a - b) / b)) if len(a) == len(b) else math.inf
+            print(f"[layout] float64 {solver} {precond}, cameras 0 and 1 constant, initial "
+                  f"radius 1, {VENICE_STEPS} steps ({p.total_time_in_seconds:.2f} s and "
+                  f"{g.total_time_in_seconds:.2f} s): "
+                  f"padded ({p.camera_padded_layout}) costs {json.dumps(list(a))} against generic "
+                  f"{json.dumps(list(b))}: max relative gap a step {gap:.3e}; the same decisions "
+                  f"and linear solver iterations: {same}; path {p.schur_complement_path}")
+            check(same and p.schur_complement_path == g.schur_complement_path,
+                  f"layout float64 {solver}: the decisions differ")
+            check(gap <= 1e-8, f"layout float64 {solver}: {gap:.3e} > 1e-8 a step")
+            check(p.camera_padded_layout.startswith(f"batch 0: {VENICE['num_cameras']} x ")
+                  and g.camera_padded_layout.startswith("batch 0: off (gate: "),
+                  f"layout float64 {solver}: the forms did not take their paths")
+    finally:
+        problem.set_parameter_block_variable(cams[0])
+        problem.set_parameter_block_variable(cams[1])
+        restore()
+
+    # float32 LM steps/s of both forms on both loops, in turns; the gap
+    # between identical runs of one form
+    for loop in ("host", "device"):
+        kw = dict(use_device_loop=True, device_loop_chunk_iterations=VENICE_STEPS) \
+            if loop == "device" else {}
+        runs = {"padded": [], "generic": []}
+        for form in ("padded", "generic", "generic", "padded", "padded", "generic"):
+            restore()
+            torch.cuda.empty_cache()
+            reset_launches()
+            s = stt.solve(venice_options(device, jacobian_sort_threshold=(
+                100_000 if form == "padded" else GENERIC), **kw), problem, program)
+            check(all(math.isfinite(it.cost) for it in s.iterations)
+                  and s.final_cost < s.initial_cost, f"layout float32 {loop} {form}: no descent")
+            runs[form].append(((len(s.iterations) - 1) / s.minimizer_time_in_seconds,
+                               s.final_cost, launch_counts()))
+        for form, rs in runs.items():
+            rates, finals = [r[0] for r in rs], [r[1] for r in rs]
+            gap = (max(finals) - min(finals)) / min(finals)
+            print(f"[layout] float32 DENSE_SCHUR {loop} loop, {form}: LM steps/s median "
+                  f"{statistics.median(rates):.4f} ({spread(rates)}); final costs "
+                  f"{json.dumps(finals)}: gap between identical runs {gap:.3e}")
+            launches[f"venice layout float32 DENSE_SCHUR {loop} loop {form} (3 runs)"] = {
+                k: sum(r[2][k] for r in rs) for k in rs[0][2]}
+    restore()
+    return launches
+
+
 def general_problem(between=False, priors=False):
     """The three-signature problem of tests/test_schur_general.py (3 poses
     of 4, 3 intrinsics of 2, 12 points of 3, eliminated; batches (pose,
@@ -3127,7 +3342,7 @@ def mesh_case(case: str, mesh, rank: int, world: int, device: str) -> dict:
                   damped_solves=s.num_linear_solves, lm_steps=len(s.iterations) - 1,
                   collectives=coll, peak_gib=(torch.cuda.max_memory_allocated() / 2**30
                                              if device == "cuda" else 0.0),
-                  reduce_calls=all_reduce_sum.calls)
+                  reduce_calls=all_reduce_sum.calls, layout=s.camera_padded_layout)
     check(plan.mesh is not None and s.schur_complement_path == "explicit",
           f"{case}: the explicit plan is not sharded")
     report.update(mesh_kernel_checks(schur, mesh, rank, world))
@@ -3228,6 +3443,9 @@ def phase_mesh_bal49(device) -> dict:
           f"{[d['k3_fixup_launches'] for d in dry]}), K1 panels {[d['k1_launches'] for d in dry]}, "
           f"K2 updates {[d['k2_update_launches'] for d in dry]}, all_reduces "
           f"{[d['all_reduces'] for d in dry]}")
+    print(f"[mesh-dryrun] camera-padded layout: {dry[0]['layout']}")
+    check(all(f"sharded, {MESH_RANKS} shards" in d["layout"] for d in dry),
+          "dryrun: the sharded camera-padded layout did not engage")
     check(dry[0]["n_straddle"] > 0 and dry[0]["new_cost"] < dry[0]["cost"], "dryrun: no step")
     check(dgap <= 1e-10, f"dryrun: {dgap:.3e} > 1e-10 from the unsharded step")
     check(all(d["k3_launches"] == 2 and d["k2_update_launches"] > 0 for d in dry),
@@ -3296,7 +3514,15 @@ def phase_mesh_venice(device) -> dict:
           f"multi-GPU one): n_straddle {rep['n_straddle']}, final cost {rep['costs'][-1]!r} "
           f"against the unsharded {lm['cost']!r} (gap {gap:.3e}; unsharded host loop "
           f"{lm['rate']:.4f} LM steps/s); decisions {rep['accepted']}")
+    c = rep["collectives"]
+    print(f"[mesh-venice] camera-padded layout: {rep['layout']}; a LM step on rank 0: "
+          f"{c['calls'] / rep['lm_steps']:.2f} all_reduces, "
+          f"{c['bytes'] / rep['lm_steps'] / 2**20:.2f} MiB with {sum(rep['accepted'][1:])} of "
+          f"{rep['lm_steps']} steps accepted (the generic path, an earlier run on an H100: 12 and "
+          f"72.15 MiB with 4 of 5)")
     check(rep["n_straddle"] > 0, "mesh venice: no straddling point")
+    check(f"sharded, {MESH_RANKS} shards" in rep["layout"],
+          "mesh venice: the sharded camera-padded layout did not engage")
     # float32: the unsharded solve parts from itself by ~2e-3 between runs
     check(gap <= 1e-2, f"mesh venice float32: final cost {gap:.3e} > 1e-2 from the unsharded")
     for r in reports:
@@ -3421,6 +3647,10 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
     torch.cuda.empty_cache()
     # phase 30 while the venice scene's host data lives
     general_paths = timed("split venice", phase_split_venice, device, program, initial)
+    torch.cuda.empty_cache()
+    # phase 37 while the venice scene's host data lives, after phase 16's graph
+    general_paths.update(timed("venice layout", phase_venice_layout, device, problem, program,
+                               cams, initial))
     torch.cuda.empty_cache()
     k1_ms, k1_plain = timed("timing", phase_timing, device)
     timed("device loop card vs CPU", phase_device_loop_card_vs_cpu, device)

@@ -238,13 +238,16 @@ class TrustRegionMinimizer:
             return self.schur_solver.scale_data(data, scale)
         raise NotImplementedError(st)
 
-    def _prep_data(self, blocks, scale):
+    def _prep_data(self, blocks, scale, cam_raw=None):
         """The Schur solvers scale and prepare once per linearization, and
-        every re-solve after a rejected step reuses it; the others keep
-        their data unscaled and scale at solve time (cheap for them)."""
+        every re-solve after a rejected step reuses it (with ``cam_raw``,
+        the unscaled placed rows of ``gradient_and_diag_padded``); the
+        others keep their data unscaled and scale at solve time (cheap for
+        them)."""
         data = self._solver_data(blocks)
         if self.schur_solver is not None:
-            return self.schur_solver.prepare(self._scale_data(data, scale))
+            return self.schur_solver.prepare(self._scale_data(data, scale), cam_raw=cam_raw,
+                                             scale=scale)
         return data
 
     def _solve_damped(self, data, g, diag, radius, jitter):
@@ -340,14 +343,21 @@ class TrustRegionMinimizer:
         pins it (refresh_jacobi_scaling=False)."""
         ev = self.ev
         cost, blocks = ev.blocks(state)
-        g, diag = ev.gradient_and_diag(blocks)
+        cam_raw = None
+        if self.schur_solver is not None and self.schur_solver.sorted_info:
+            # the camera sums on the padded layout, whose placed rows
+            # prepare() reuses (skeres_tpu/core/minimizer.py:431-457)
+            g, diag, cam_raw = self.schur_solver.gradient_and_diag_padded(blocks)
+        else:
+            g, diag = ev.gradient_and_diag(blocks)
         if not self.options.jacobi_scaling:
             scale = torch.ones_like(diag)
         elif scale_prev is None:
             scale = 1.0 / (1.0 + torch.sqrt(torch.clamp(diag, min=0.0)))
         else:
             scale = scale_prev
-        data = self._prep_data(blocks, scale)
+        data = self._prep_data(blocks, scale, cam_raw)
+        del blocks, cam_raw  # the unscaled rows: not held through a dogleg solve below
         out = (cost, g, diag, data, scale, self.gradient_max_norm(state, g),
                torch.sqrt(torch.sum(g * g)))
         if not self.dogleg:

@@ -131,6 +131,11 @@ class SolverOptions:
     # "auto" | "forward" | "reverse": per-block Jacobians from T tangent
     # jvps or m cotangent vjps; auto picks reverse when 2*m < T
     jacobian_diff_mode: str = "auto"
+    # the Schur solvers' camera-padded layout: an observation batch of at
+    # least jacobian_sort_threshold rows is placed into a (cameras, K) grid
+    # of rows while cameras x K <= jacobian_pad_waste x rows (under a mesh,
+    # x shards, K the most of one camera on one shard); 10**12 keeps every
+    # batch in row order (Summary.camera_padded_layout says which)
     jacobian_sort_threshold: int = 100_000
     jacobian_pad_waste: float = 1.5
     explicit_schur_limit_bytes: int = 2 << 30

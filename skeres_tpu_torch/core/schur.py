@@ -42,7 +42,22 @@ retained slots, besides batches on retained blocks alone (priors). The
 dense-W, explicit and cluster paths take the bundle-adjustment structure
 (one observation batch, one retained group, one retained slot); the
 general structure takes the column probe and the row-by-row products.
-Still to port: the camera-padded layout of the observation rows.
+
+The camera-padded layout (``sort_threshold``, ``pad_waste``; the JAX
+package's, ``skeres_tpu/core/schur.py:237-332``): an observation batch of
+at least ``sort_threshold`` rows with one retained slot, whose cameras see
+at most K rows each with ``nc K <= pad_waste B``, is placed once a
+linearization into a dense (nc, K) grid of rows (one ``index_select`` of
+``(jac | r)``, a zero row in every unused slot). Every camera-side sum on
+it is then ``reshape(nc, K, D).sum(1)``, whose order is fixed, where the
+generic path sums by ``index_add_``, whose float32 order on the card is
+not; a camera's vector reaches its rows as a broadcast, not a gather.
+``gradient_and_diag_padded`` places the unscaled rows and ``prepare``
+reuses them, so every padded product conjugates with the Jacobi scale
+(``_cam_conj``); the S product too, which the JAX package's does not
+(``_s_matvec``). Under a mesh each rank places its own rows into a grid
+of its own, with the K of the widest shard, and each camera sum is the
+rank's reshape-and-sum, then one ``all_reduce``.
 
 Under a mesh (the evaluator's ``mesh``, ``parallel/mesh.py``) every row
 term is this rank's rows and every ``slot_reduce`` returns the table
@@ -66,6 +81,8 @@ plan the rows are the point grid K3 reads anyway.
 
 from __future__ import annotations
 
+
+import time
 
 import numpy as np
 import torch
@@ -93,12 +110,61 @@ from skeres_tpu_torch.ops.segment_reduce import (
     build_sharded_reduce_plan,
 )
 from skeres_tpu_torch.ops.small_inverse import batched_spd_inverse
+from skeres_tpu_torch.parallel.mesh import shard_rows
 
-__all__ = ["SchurSolver"]
+__all__ = ["SchurSolver", "padded_plan"]
 
 DENSE_W_LIMIT_BYTES = 2 << 30  # the JAX package's gate (as float32 bytes)
 PROBE_CHUNK = 128  # the identity columns the column-probe S applies S to at once
 FALLBACK_CG_ITERATIONS = 32
+
+
+def _cam_padded_src(idx_np, nc: int, K: int, n_valid=None, sentinel=None) -> np.ndarray:
+    """The row placement of the camera-padded layout
+    (``skeres_tpu/core/schur.py:55``): ``src`` (nc*K,) with
+    ``src[cam*K + j]`` the row of camera ``cam``'s j-th observation (in
+    row order), and ``sentinel`` (a zero row the caller appends; default
+    ``len(idx_np)``) in the unused slots. Only the first ``n_valid`` rows
+    are placed (default all)."""
+    idx_np = np.asarray(idx_np, dtype=np.int64)
+    b = len(idx_np)
+    sentinel = b if sentinel is None else sentinel
+    n_valid = b if n_valid is None else n_valid
+    idx_v = idx_np[:n_valid]
+    order = np.argsort(idx_v, kind="stable")
+    sorted_cam = idx_v[order]
+    starts = np.searchsorted(sorted_cam, np.arange(nc))
+    pos = np.arange(n_valid) - starts[sorted_cam]
+    src = np.full(nc * K, sentinel, dtype=np.int64)
+    src[sorted_cam * K + pos] = order
+    return src
+
+
+def padded_plan(cam_idx, pt_idx, nc: int, n_shards: int, rank: int, sort_threshold: int,
+                pad_waste: float):
+    """The gates and the placement of the camera-padded layout of one
+    observation batch (``skeres_tpu/core/schur.py:251-332``), rows
+    ``cam_idx`` / ``pt_idx`` (B,) split over ``n_shards`` as the evaluator
+    splits them (``shard_rows``). It engages for B >= ``sort_threshold``
+    and ``n_shards nc K <= pad_waste B``, K the most rows of one camera on
+    one shard (the JAX package's local form where ``n_shards`` is 1).
+    Returns ``(K, (src, pidx_pad))`` for shard ``rank``: its rows' placement
+    (sentinel: its row count) and the point of each placed row (point 0 for
+    the sentinel's zero row); or ``(None, reason)``."""
+    cam_idx = np.asarray(cam_idx, dtype=np.int64)
+    n_rows = len(cam_idx)
+    if n_rows < sort_threshold:
+        return None, f"{n_rows} rows < jacobian_sort_threshold {sort_threshold}"
+    bounds = [shard_rows(n_rows, n_shards, k) for k in range(n_shards)]
+    K = max(int(np.bincount(cam_idx[lo:hi], minlength=nc).max()) if hi > lo else 0
+            for lo, hi in bounds)
+    if K == 0 or n_shards * nc * K > pad_waste * n_rows:
+        return None, (f"waste {n_shards * nc * K / max(n_rows, 1):.3f} > "
+                      f"jacobian_pad_waste {pad_waste}")
+    lo, hi = bounds[rank]
+    src = _cam_padded_src(cam_idx[lo:hi], nc, K)
+    pidx_pad = np.concatenate([np.asarray(pt_idx, dtype=np.int64)[lo:hi], [0]])[src]
+    return K, (src, pidx_pad)
 
 
 def _rows_apply(mat, v):
@@ -130,6 +196,7 @@ class SchurSolver:
         refinement_iterations: int = 0,
         max_power_series_terms: int = 5,
         spse_tolerance: float = 0.1,
+        sort_threshold: int = 100_000,
         pad_waste: float = 1.5,
         use_explicit: bool = False,
         explicit_s_limit_bytes: int = 2 << 30,
@@ -350,6 +417,57 @@ class SchurSolver:
             self._ba and iterative
             and self.preconditioner_used == PreconditionerType.POWER_SERIES_EXPANSION)
 
+        # the camera-padded layout, per observation batch; where it holds
+        # the observation batch, the camera blocks come from the placed rows
+        # and neither the A rows nor the F^T F sums are kept
+        t0 = time.perf_counter()
+        self.sorted_info = {}
+        self._layout_notes = []
+        for bi in e_batches:
+            self._plan_padded(bi, sort_threshold, pad_waste)
+        self.layout_seconds = time.perf_counter() - t0
+        if self.e_batch in self.sorted_info:
+            self._keeps_a = self._keeps_ftf = False
+
+    def _plan_padded(self, bi, sort_threshold, pad_waste):
+        """The camera-padded layout of batch ``bi`` where its gates hold
+        (one retained slot, then ``padded_plan``): ``sorted_info[bi]`` with
+        the rank's placement ``src``, the point of each placed row
+        ``pidx_pad``, nc and K; else the refusing gate in
+        ``_layout_notes``."""
+        ev = self.ev
+        program = ev.program
+        b = program.batches[bi]
+        info = self.batch_info[bi]
+        if len(info["ret_slots"]) != 1:
+            self._layout_notes.append(f"batch {bi}: off (structure: "
+                                      f"{len(info['ret_slots'])} retained slots a row)")
+            return
+        s, gi, _, _ = info["ret_slots"][0]
+        nc = program.groups[gi].num_blocks
+        K, plan = padded_plan(b.slot_indices[s], b.slot_indices[info["e_slot"]], nc,
+                              ev.n_shards, ev.rank, sort_threshold, pad_waste)
+        if K is None:
+            self._layout_notes.append(f"batch {bi}: off (gate: {plan})")
+            return
+        src, pidx_pad = plan
+        kind = "local" if ev.mesh is None else "sharded"
+        self.sorted_info[bi] = dict(kind=kind, nc=nc, K=K, src=torch.as_tensor(src).to(ev.device),
+                                    pidx_pad=torch.as_tensor(pidx_pad).to(ev.device))
+        m, T = b.residual_dim, b.block_tangent_size
+        placed = nc * K * m * (T + 1) * torch.finfo(ev.dtype).bits // 8
+        shards = "" if ev.mesh is None else f", {ev.n_shards} shards"
+        self._layout_notes.append(
+            f"batch {bi}: {nc} x {K} ({kind}{shards}), waste "
+            f"{ev.n_shards * nc * K / b.num_blocks:.4f}, placed {placed / 2**20:.1f} MiB a rank")
+
+    @property
+    def camera_padded_layout(self) -> str:
+        """Where each observation batch took the camera-padded layout (nc x
+        K, the waste ns nc K / B, the placed copy's size), or the gate
+        that refused it (``Summary.camera_padded_layout``)."""
+        return "; ".join(self._layout_notes)
+
     @property
     def schur_path(self) -> str:
         """The S path the damped solves take, with the gate's reason where a
@@ -422,21 +540,145 @@ class SchurSolver:
                          else acc.reshape(nb * t, *like.shape[1:]))
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
+    # -- the camera-padded layout -----------------------------------------------
+
+    def _place_rows(self, bi, *parts):
+        """Place the rank's rows of batch ``bi``, the column blocks
+        ``parts`` (each (B, w_i)) side by side, into the camera-padded order:
+        (nc*K, sum w_i), one ``index_select`` over the rows and a zero row
+        that every unused slot reads."""
+        sinfo = self.sorted_info[bi]
+        n = parts[0].shape[0]
+        rows = parts[0].new_empty((n + 1, sum(p.shape[1] for p in parts)))
+        c = 0
+        for p in parts:
+            rows[:n, c : c + p.shape[1]] = p
+            c += p.shape[1]
+        rows[n].zero_()
+        return rows.index_select(0, sinfo["src"])
+
+    def _cam_fe(self, asm, bi):
+        """The placed rows of padded batch ``bi``: (its retained group, their
+        F columns (nc*K, m, t), their E columns (nc*K, m, e), the point of
+        each row (nc*K,))."""
+        info = self.batch_info[bi]
+        _, gi, c, t = info["ret_slots"][0]
+        rows = asm["cam"][bi].unflatten(1, (self.ev.program.batches[bi].residual_dim, -1))
+        ec = info["e_col"]
+        return (gi, rows[:, :, c : c + t], rows[:, :, ec : ec + self.e_size],
+                self.sorted_info[bi]["pidx_pad"])
+
+    def _cam_reduce(self, bi, vals):
+        """Sum the placed rows' values ``vals (nc*K, ...)`` by camera ->
+        ``(nc, ...)``: a reshape and a sum, in a fixed order; under a mesh
+        the rank's sums, then one ``all_reduce`` of the table. (The JAX
+        package's ``_cam_reduce`` also takes the row function and its
+        operands, for ``shard_map``; here the caller computes the rows.)"""
+        sinfo = self.sorted_info[bi]
+        red = vals.reshape(sinfo["nc"], sinfo["K"], *vals.shape[1:]).sum(1)
+        return self.ev.all_reduce(red)
+
+    def _cam_bcast(self, bi, rows, v_cam):
+        """The per-row product ``rows (nc*K, m, t) @ v_cam[camera of the
+        row]`` (nc*K, m), with each camera's vector ``v_cam (nc, t)``
+        broadcast over its K slots, no gather."""
+        sinfo = self.sorted_info[bi]
+        nc, K = sinfo["nc"], sinfo["K"]
+        m, t = rows.shape[1:]
+        return (rows.view(nc, K, m, t) * v_cam[:, None, None, :]).sum(-1).view(nc * K, m)
+
+    def _cam_conj(self, asm, bi):
+        """The Jacobi scale of a padded batch whose placed rows are
+        unscaled (``prepare`` reused them): (s_ret (N_f,), s_f (nc, t) of
+        its retained group, s_e (n_pts, e)); None where the rows were
+        placed scaled. The scaling is diagonal, J_s = J S, so every padded
+        product takes the scale on its inputs and outputs instead of a pass
+        over the placed rows."""
+        scale = asm.get("cam_scale")
+        if scale is None:
+            return None
+        gi = self.batch_info[bi]["ret_slots"][0][1]
+        s_ret = self._gather_f(scale)
+        return s_ret, self._ret_view(s_ret, gi), self._gather_ge(scale)
+
+    def gradient_and_diag_padded(self, blocks):
+        """g = J^T r and diag(J^T J) as ``Evaluator.gradient_and_diag``
+        gives them, with the camera sums of every padded batch taken on its
+        placed rows, and the placed copies for ``prepare`` to reuse
+        (``skeres_tpu/core/schur.py:579-687``). Returns (g, diag, cam_raw):
+        ``cam_raw[bi]`` the unscaled placed Jacobian rows (nc*K, m*T) of
+        batch bi (one placement of ``(jac | r)``), and ``cam_raw[-1]`` the
+        undamped E^T E (n_pts, e*e), which rides the point-side reduction
+        of g and diag. Point-side sums and the other batches take the
+        evaluator's reductions."""
+        ev = self.ev
+        program = ev.program
+        e = self.e_size
+        accs = [torch.zeros((g.num_blocks, 2 * g.tangent_size), dtype=ev.dtype, device=ev.device)
+                for g in program.groups]
+        cam_raw = {}
+        for bi in self.sorted_info:
+            _, gi, c, t = self.batch_info[bi]["ret_slots"][0]
+            b = blocks[bi]
+            n, m, T = b.jac.shape
+            placed = self._place_rows(bi, b.jac.reshape(n, m * T), b.r)
+            cam_raw[bi] = placed[:, : m * T]
+            F = placed[:, : m * T].unflatten(1, (m, T))[:, :, c : c + t]
+            vals = torch.cat([_rows_apply_t(F, placed[:, m * T :]), (F * F).sum(1)], dim=1)
+            accs[gi] = accs[gi] + self._cam_reduce(bi, vals)
+        ete0_raw = None
+        for bi, b in enumerate(blocks):
+            info = self.batch_info[bi]
+            padded_slot = info["ret_slots"][0][0] if bi in self.sorted_info else None
+            for s, gi in enumerate(program.batches[bi].slot_groups):
+                if s == padded_slot:
+                    continue
+                c, t = ev._slot_cols[bi][s]
+                cols = b.jac[:, :, c : c + t]
+                gb = _rows_apply_t(cols, b.r)
+                if s == info["e_slot"]:
+                    ete = torch.einsum("bme,bmf->bef", cols, cols).reshape(-1, e * e)
+                    red = ev.slot_reduce(bi, s, torch.cat([gb, ete], dim=1))
+                    # the diagonal of each flat (e, e) block: a strided
+                    # slice, no index list (which a CUDA graph cannot copy)
+                    accs[gi] = accs[gi] + torch.cat([red[:, :e], red[:, e :: e + 1]], dim=1)
+                    ete0_raw = red[:, e:] if ete0_raw is None else ete0_raw + red[:, e:]
+                    continue
+                vals = torch.cat([gb, (cols * cols).sum(1)], dim=1)
+                accs[gi] = accs[gi] + ev.slot_reduce(bi, s, vals)
+        if ete0_raw is not None:
+            cam_raw[-1] = ete0_raw
+        g = ev.assemble_tangent([a[:, : a.shape[1] // 2] for a in accs])
+        diag = ev.assemble_tangent([a[:, a.shape[1] // 2 :] for a in accs])
+        return g, diag, cam_raw
+
     # -- per-linearization and per-mu assembly -----------------------------------
 
-    def prepare(self, data):
+    def prepare(self, data, cam_raw=None, scale=None):
         """Everything that does not depend on mu, once per linearization:
-        the E split, the undamped per-point ``E^T E`` and, off the dense-W
-        path, the per-camera sums of ``F^T F``, the A = F^T E rows where a
-        solve reads the camera blocks of S, and their point grid where a
-        plan (explicit or cluster: one layout) has K3 read them. Rejected
-        steps re-solve with a new mu from the same prepared data."""
+        the E split, the undamped per-point ``E^T E``, the placed rows of
+        every padded batch (``cam``) and, off the dense-W path, the
+        per-camera sums of ``F^T F``, the A = F^T E rows where a solve reads
+        the camera blocks of S from them, and their point grid where a plan
+        (explicit or cluster: one layout) has K3 read them. Rejected steps
+        re-solve with a new mu from the same prepared data.
+
+        ``cam_raw`` and ``scale``: what ``gradient_and_diag_padded`` placed
+        (unscaled) and the Jacobi scale ``data`` carries. The placed rows
+        are then reused as they are, with ``cam_scale`` set for the padded
+        products to conjugate with, and E^T E is ``cam_raw[-1]`` conjugated
+        (``skeres_tpu/core/schur.py:689-747``); without them the rows of
+        ``data`` are placed as they come."""
         e = self.e_size
+        ete0_raw = None if cam_raw is None or scale is None else cam_raw.get(-1)
         ete0 = None
+        if ete0_raw is not None:
+            s_e = self._gather_ge(scale)
+            ete0 = ete0_raw.view(self.num_points, e, e) * s_e[:, :, None] * s_e[:, None, :]
         per_batch = []
         for bi, (r, jac) in enumerate(data):
             E = self._split_E(bi, jac)
-            if E is not None:
+            if E is not None and ete0_raw is None:
                 outer = torch.einsum("bme,bmf->bef", E, E).reshape(-1, e * e)
                 s_e = self.ev.program.batches[bi].slot_groups.index(self.elim_group)
                 red = self.ev.slot_reduce(bi, s_e, outer).reshape(self.num_points, e, e)
@@ -445,6 +687,12 @@ class SchurSolver:
         if ete0 is None:  # no residual touches the eliminated blocks
             ete0 = data[0][1].new_zeros((self.num_points, e, e))
         prep = dict(per_batch=per_batch, ete0=ete0)
+        if self.sorted_info:
+            reuse = cam_raw is not None and scale is not None
+            prep["cam"] = {bi: cam_raw[bi] if reuse else
+                           self._place_rows(bi, data[bi][1].flatten(1))
+                           for bi in self.sorted_info}
+            prep["cam_scale"] = scale if reuse else None
         if self.w_plan is not None or not self._ba:
             return prep
         nc, f = self.num_cams, self.f_size
@@ -458,7 +706,8 @@ class SchurSolver:
             else:
                 a_rows = self._explicit_a_flat(per_batch)
                 prep["explicit_grid"] = plan.build_grid(a_rows)
-            prep["explicit_a"] = a_rows
+            if self._keeps_a:
+                prep["explicit_a"] = a_rows
         elif self._keeps_a:
             prep["explicit_a"] = self._explicit_a_flat(per_batch)
         if self._keeps_ftf:
@@ -494,6 +743,8 @@ class SchurSolver:
         ete = prep["ete0"] + torch.diag_embed(d_e)
         return dict(
             per_batch=prep["per_batch"],
+            cam=prep.get("cam"),
+            cam_scale=prep.get("cam_scale"),
             explicit_grid=prep.get("explicit_grid"),
             explicit_a=prep.get("explicit_a"),
             explicit_ftf=prep.get("explicit_ftf"),
@@ -510,10 +761,19 @@ class SchurSolver:
 
     def _w_apply(self, asm, v_e):
         """W v_e (points -> retained): (n_pt, e) -> (N_f,), summed over every
-        observation batch and each of its retained slots."""
+        observation batch and each of its retained slots; a padded batch
+        on its placed rows, ``F_s^T (E_s v_e) = s_f (F^T (E (s_e v_e)))``."""
         accs = {}
         for bi in self.e_batches:
             info = self.batch_info[bi]
+            if bi in self.sorted_info:
+                gi, F, E, pidx = self._cam_fe(asm, bi)
+                conj = self._cam_conj(asm, bi)
+                ve = v_e if conj is None else v_e * conj[2]
+                red = self._cam_reduce(bi, _rows_apply_t(F, _rows_apply(E, ve[pidx])))
+                red = red if conj is None else red * conj[1]
+                accs[gi] = red if gi not in accs else accs[gi] + red
+                continue
             _, jac, E = asm["per_batch"][bi]
             Ev = _rows_apply(E, v_e[info["pidx"]])
             for s, gi, c, t in info["ret_slots"]:
@@ -536,7 +796,9 @@ class SchurSolver:
 
     def _wt_apply(self, asm, v_f):
         """W^T v_f (retained -> points): (N_f,) -> (n_pt, e), summed over
-        every observation batch."""
+        every observation batch. A padded batch takes its rows in row order
+        here too (as the JAX package's): the sums are by point, which row
+        order keeps contiguous."""
         out = None
         for bi in self.e_batches:
             E = asm["per_batch"][bi][2]
@@ -618,7 +880,12 @@ class SchurSolver:
         ``Y A^T`` depends on mu; elsewhere every retained slot of every
         batch adds its ``F^T F - Y A^T`` row by row."""
         outs = {}
-        if self._ba:
+        for bi in self.sorted_info:
+            if only_batch is None or bi == only_batch:
+                gi = self.batch_info[bi]["ret_slots"][0][1]
+                red = self._padded_blocks(asm, bi, include_e_correction)
+                outs[gi] = red if gi not in outs else outs[gi] + red
+        if self._ba and self.e_batch not in self.sorted_info:
             nc, f, e = self.num_cams, self.f_size, self.e_size
             bi = self.e_batch
             blocks = asm["explicit_ftf"]
@@ -629,7 +896,8 @@ class SchurSolver:
                 blocks = blocks - self.ev.slot_reduce(bi, self.f_slot, yat).reshape(nc, f, f)
             outs[self.batch_info[bi]["ret_slots"][0][1]] = blocks
         for bj, (rb, jacb, Eb) in enumerate(asm["per_batch"]):
-            if (self._ba and bj == self.e_batch) or (only_batch is not None and bj != only_batch):
+            if ((self._ba and bj == self.e_batch) or bj in self.sorted_info
+                    or (only_batch is not None and bj != only_batch)):
                 continue
             info = self.batch_info[bj]
             for slot, gi, c, t in info["ret_slots"]:
@@ -648,10 +916,39 @@ class SchurSolver:
             blocks.append(dd if gi not in outs else outs[gi] + dd)
         return blocks
 
+    def _padded_blocks(self, asm, bi, include_e_correction):
+        """The camera blocks ``F^T F - Y A^T`` (or ``F^T F`` alone) of padded
+        batch ``bi`` from its placed rows, (nc, t, t): with unscaled rows,
+        ``A_s = s_f A s_e`` and ``C_s^-1`` enters as ``s_e C_s^-1 s_e``, and
+        the sums take ``s_f`` on both sides."""
+        _, Fs, E, pidx = self._cam_fe(asm, bi)
+        ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs)
+        conj = self._cam_conj(asm, bi)
+        if include_e_correction:
+            a = torch.einsum("bmf,bme->bfe", Fs, E)
+            cinv = asm["cinv"]
+            if conj is not None:
+                cinv = cinv * conj[2][:, :, None] * conj[2][:, None, :]
+            y = torch.bmm(a, cinv[pidx])
+            ftf = ftf - torch.bmm(y, a.transpose(1, 2))
+        red = self._cam_reduce(bi, ftf)
+        if conj is not None:
+            red = red * conj[1][:, :, None] * conj[1][:, None, :]
+        return red
+
     def _ftf_diag(self, asm):
-        """diag(F^T F) over the retained coordinates, every batch."""
+        """diag(F^T F) over the retained coordinates, every batch; a padded
+        batch on its placed rows (``s_f^2 diag(F^T F)`` with unscaled
+        rows)."""
         accs = {}
         for bi, (r, jac, E) in enumerate(asm["per_batch"]):
+            if bi in self.sorted_info:
+                gi, Fs, _, _ = self._cam_fe(asm, bi)
+                red = self._cam_reduce(bi, torch.sum(Fs * Fs, dim=1))
+                conj = self._cam_conj(asm, bi)
+                red = red if conj is None else red * conj[1] * conj[1]
+                accs[gi] = red if gi not in accs else accs[gi] + red
+                continue
             for slot, gi, c, t in self.batch_info[bi]["ret_slots"]:
                 Fs = jac[:, :, c : c + t]
                 red = self.ev.slot_reduce(bi, slot, torch.sum(Fs * Fs, dim=1))
@@ -664,12 +961,36 @@ class SchurSolver:
         retained slot: per row ``F^T (F v - E wc)`` with
         ``wc = C^-1 W^T v`` gathered by point, summed by retained block
         (reference: ``implicit_schur_complement.cc``
-        RightMultiplyAndAccumulate)."""
+        RightMultiplyAndAccumulate).
+
+        A padded batch takes the same per-row ``F^T (F v - E wc)`` on its
+        placed rows in one pass, v broadcast by camera, summed by
+        ``_cam_reduce``. Where the rows are unscaled (the minimizer's
+        ``prepare(cam_raw, scale)``), the scaled rows are ``F_s = F s_f``
+        and ``E_s = E s_e`` (the Jacobi scale is diagonal), so
+
+            F_s^T (F_s v - E_s wc) = s_f (F^T (F (s_f v) - E (s_e wc))):
+
+        v and wc go in scaled by s_ret (whose camera span is s_f) and s_e,
+        the camera sums come out scaled by s_f. The JAX package's padded
+        branch (``skeres_tpu/core/schur.py:1268-1292``) leaves out this
+        conjugation, so on that path its PCG multiplies by the S of the
+        unscaled Jacobian."""
         wc = torch.einsum("pef,pf->pe", asm["cinv"], self._wt_apply(asm, v))
         accs = {}
         for bi, (r, jac, E) in enumerate(asm["per_batch"]):
             info = self.batch_info[bi]
             if not info["ret_slots"]:
+                continue
+            if bi in self.sorted_info:
+                gi, Fs, Es, pidx = self._cam_fe(asm, bi)
+                conj = self._cam_conj(asm, bi)
+                v_in, wc_in = (v, wc) if conj is None else (v * conj[0], wc * conj[2])
+                Fv = (self._cam_bcast(bi, Fs, self._ret_view(v_in, gi))
+                      - _rows_apply(Es, wc_in[pidx]))
+                red = self._cam_reduce(bi, _rows_apply_t(Fs, Fv))
+                red = red if conj is None else red * conj[1]
+                accs[gi] = red if gi not in accs else accs[gi] + red
                 continue
             Fv = self._f_rows(asm, bi, v)
             if E is not None:
@@ -682,7 +1003,9 @@ class SchurSolver:
     def _s_matmat(self, asm, v):
         """``S V`` for a retained block ``V (N_f, k)``: the product of
         ``_s_matvec`` on k columns in one pass over the rows (per slot one
-        gather of (B, t, k), batched row products and one segment sum)."""
+        gather of (B, t, k), batched row products and one segment sum). A
+        padded batch takes its scaled rows in row order here: the same
+        values as its placed rows give."""
         k, e = v.shape[1], self.e_size
         fv_rows, wtv = {}, None
         for bi in self.e_batches:
@@ -1085,15 +1408,23 @@ class SchurSolver:
         return precond
 
     def jtj_quadratic(self, data, v):
-        """v^T (J^T J) v = ||J v||^2 in one forward pass over the rows."""
-        pairs = (
-            [(r, jac) for (r, jac, _) in data["per_batch"]]
-            if isinstance(data, dict)
-            else data
-        )
+        """v^T (J^T J) v = ||J v||^2 in one forward pass over the rows; a
+        padded batch of a ``prepare()`` dict on its placed rows, the camera
+        vector broadcast and the point vector gathered
+        (``J_s y = F (s_f y_f) + E (s_e y_e)`` with unscaled rows)."""
+        prep = data if isinstance(data, dict) else None
+        pairs = [(r, jac) for (r, jac, _) in data["per_batch"]] if prep is not None else data
         total = torch.zeros((), dtype=v.dtype, device=v.device)
         for bi, (r, jac) in enumerate(pairs):
-            jv = torch.einsum("bmi,bi->bm", jac, self.ev.v_rows(bi, v))
+            if prep is not None and bi in prep.get("cam", {}):
+                gi, F, E, pidx = self._cam_fe(prep, bi)
+                v_f, v_e = self._gather_f(v), self._gather_ge(v)
+                conj = self._cam_conj(prep, bi)
+                if conj is not None:
+                    v_f, v_e = v_f * conj[0], v_e * conj[2]
+                jv = self._cam_bcast(bi, F, self._ret_view(v_f, gi)) + _rows_apply(E, v_e[pidx])
+            else:
+                jv = torch.einsum("bmi,bi->bm", jac, self.ev.v_rows(bi, v))
             total = total + torch.sum(jv * jv)
         return self.ev.all_reduce(total)
 

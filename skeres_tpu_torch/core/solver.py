@@ -163,6 +163,7 @@ def solve(
                                    if options.use_mixed_precision_solves else 0),
             max_power_series_terms=options.max_num_spse_iterations,
             spse_tolerance=options.spse_tolerance,
+            sort_threshold=options.jacobian_sort_threshold,
             pad_waste=options.jacobian_pad_waste,
             use_explicit=options.use_explicit_schur_complement,
             explicit_s_limit_bytes=options.explicit_schur_limit_bytes,
@@ -181,6 +182,7 @@ def solve(
                         "to %s", options.preconditioner_type.value, used.value)
             summary.preconditioner_type_used = used
         summary.schur_complement_path = schur_solver.schur_path
+        summary.camera_padded_layout = schur_solver.camera_padded_layout
         if schur_solver.explicit_reject_reason is not None:
             # a wanted explicit-S plan was rejected: say what runs instead
             log.warning("explicit Schur complement plan rejected (%s); using %s",

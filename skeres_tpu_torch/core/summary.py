@@ -103,6 +103,9 @@ class Summary:
     dtype: str = ""
     # S-assembly path the Schur solver took ("dense-W" in the port)
     schur_complement_path: str = ""
+    # per observation batch, the camera-padded layout (nc x K, the waste,
+    # the placed copy) or the gate that refused it; "" off the Schur solvers
+    camera_padded_layout: str = ""
 
     @property
     def is_solution_usable(self) -> bool:
@@ -171,6 +174,8 @@ class Summary:
                 )
             if self.schur_complement_path:
                 a(f"{'Schur complement':40}{self.schur_complement_path:>24}")
+            if self.camera_padded_layout:
+                a(f"{'Camera-padded layout':40}{self.camera_padded_layout:>24}")
         a(f"{'Devices':40}{self.num_devices:>24}")
         a(f"{'Device dtype':40}{self.dtype:>24}")
         a("")

@@ -140,7 +140,8 @@ def _rank_main(rank: int, world: int, store: str, device: str, dtype_name: str) 
                 k1_launches=cholesky_both.launches - k1,
                 k2_update_launches=trailing_update_.launches - up,
                 k3_launches=pair_products.launches - k3, k3_fixup_launches=plan.fix_products,
-                all_reduces=all_reduce_sum.calls - calls, path=schur.schur_path)
+                all_reduces=all_reduce_sum.calls - calls, path=schur.schur_path,
+                layout=schur.camera_padded_layout)
 
 
 if __name__ == "__main__":

@@ -659,3 +659,60 @@ def test_device_loop_under_a_gloo_mesh_on_the_card_raises(cuda):
         assert host.num_devices == 1 and host.final_cost < host.initial_cost
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_padded_s_product_on_card_matches_generic(cuda):
+    """The camera-padded S product on the minimizer's path (unscaled
+    placed rows, ``cam_scale`` set) on the card against the generic product
+    on the card and the padded one on the CPU, float64, 1e-12; and a
+    padded damped solve on the card under a CUDA graph equal to the eager
+    one."""
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.graph import CapturedStep
+    from skeres_tpu_torch.core.linear_solvers import lm_diagonal
+    from skeres_tpu_torch.core.schur import SchurSolver
+
+    program = build_bal_problem(synthetic_bal(8, 90, 3))[0].compile()
+    products = {}
+    for dev in (cuda, torch.device("cpu")):
+        ev = Evaluator(program, dev, torch.float64)
+        _, blocks = ev.blocks(program.initial_state(dev, torch.float64))
+        g, diag = ev.gradient_and_diag(blocks)
+        scale = 1.0 / (1.0 + torch.sqrt(diag))
+        for thresh in (1, 10**12):
+            schur = SchurSolver(ev, iterative=True, sort_threshold=thresh, pad_waste=100.0)
+            data = schur.scale_data(schur.solver_data(blocks), scale)
+            if thresh == 1:
+                _, _, raw = schur.gradient_and_diag_padded(blocks)
+                prep = schur.prepare(data, cam_raw=raw, scale=scale)
+            else:
+                prep = schur.prepare(data)
+            asm = schur._assemble(prep, g * scale, lm_diagonal(diag * scale**2, 1e-4, 1e-6, 1e32))
+            v = torch.linspace(-1.0, 1.0, schur.num_f, dtype=torch.float64, device=dev)
+            products[(dev.type, thresh)] = schur._s_matvec(asm, v).cpu().numpy()
+            if dev.type == "cuda" and thresh == 1:
+                gs, ds = g * scale, diag * scale**2
+                mu = torch.tensor(1e-4, dtype=torch.float64, device=dev)
+                jitter0 = torch.zeros((), dtype=torch.float64, device=dev)
+                out = (torch.empty_like(g), torch.zeros((), dtype=torch.int64, device=dev))
+
+                def step():
+                    dx, iters, _ = schur.solve_damped(prep, gs, ds, mu, 1e-6, 1e32, jitter0)
+                    out[0].copy_(dx)
+                    out[1].copy_(iters)
+
+                captured = CapturedStep(step, dev)
+                captured.capture()
+                assert captured.graph is not None
+                for buf in out:
+                    buf.zero_()
+                captured()
+                eager = schur.solve_damped(prep, gs, ds, mu, 1e-6, 1e32, jitter0)
+                torch.cuda.synchronize()
+                captured.release()
+                assert int(out[1]) == int(eager[1]) > 1
+                torch.testing.assert_close(out[0], eager[0], rtol=1e-12, atol=1e-12)
+    ref = products[("cuda", 10**12)]
+    for key in (("cuda", 1), ("cpu", 1), ("cpu", 10**12)):
+        np.testing.assert_allclose(products[key], ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())

@@ -61,6 +61,11 @@ SOLVES = {
     "line_search": dict(minimizer_type="LINE_SEARCH", line_search_direction_type="LBFGS",
                         max_num_iterations=20),
 }
+# the camera-padded layout under a mesh of LAYOUT_RANKS ranks (shards of 50
+# rows: the default waste gate refuses it, 100 opens it)
+LAYOUT_RANKS = 3
+LAYOUT_ON = dict(jacobian_sort_threshold=1, jacobian_pad_waste=100.0)
+LAYOUT_SOLVES = {k: SOLVES[k] for k in ("iterative_implicit", "dense_schur")}
 # the row fields of a Summary that the comparisons read
 ROW_FIELDS = ("cost", "trust_region_radius", "step_norm", "gradient_max_norm",
               "linear_solver_iterations", "step_is_valid", "step_is_successful")
@@ -102,6 +107,30 @@ def _shuffled(bal):
 
 
 # -- the worker: one rank (torch and the port only) ------------------------------------
+
+
+def _layout_worker(rank, world, store, out):
+    """The camera-padded layout under the mesh: LAYOUT_SOLVES with the
+    layout forced on (each rank places its own rows into its own grid)."""
+    import torch.distributed as dist
+
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core import types as ttypes
+    from skeres_tpu_torch.io import bal as tbal
+    from skeres_tpu_torch.parallel import initialize_distributed, make_obs_mesh
+
+    torch.set_num_threads(1)
+    initialize_distributed(f"file://{store}", world, rank, backend="gloo", device_type="cpu")
+    mesh = make_obs_mesh(device_type="cpu")
+    res = {}
+    for name, kw in LAYOUT_SOLVES.items():
+        problem, cams, pts = tbal.build_bal_problem(tbal.synthetic_bal(*SCENE))
+        summary = stt.solve(stt.SolverOptions(device="cpu", mesh=mesh, **LAYOUT_ON,
+                                              **_options_kw(ttypes, kw)), problem)
+        res.update(_summary_arrays(name, summary, cams.values, pts.values))
+        res[f"{name}/layout"] = np.array(summary.camera_padded_layout)
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
 
 
 def _worker(rank, world, store, out):
@@ -176,8 +205,9 @@ if __name__ == "__main__":
         ap.add_argument(flag, type=int, required=True)
     ap.add_argument("--store", required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--layout", action="store_true")
     a = ap.parse_args()
-    _worker(a.rank, a.world, a.store, a.out)
+    (_layout_worker if a.layout else _worker)(a.rank, a.world, a.store, a.out)
     sys.exit(0)
 
 
@@ -204,18 +234,15 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """Every rank's results: the ranks spawned once, every case in one
-    spawn."""
-    tmp = tmp_path_factory.mktemp("mesh")
+def _spawn(tmp, world, *flags):
+    """Spawn ``world`` ranks of this file's worker; their results."""
     root = pathlib.Path(__file__).resolve().parent.parent
     env = dict(os.environ, PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = [subprocess.Popen(
-        [sys.executable, __file__, "--rank", str(r), "--world", str(N_RANKS),
-         "--store", str(tmp / "store"), "--out", str(tmp)],
+        [sys.executable, __file__, "--rank", str(r), "--world", str(world),
+         "--store", str(tmp / "store"), "--out", str(tmp), *flags],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=str(root))
-        for r in range(N_RANKS)]
+        for r in range(world)]
     try:
         logs = [p.communicate(timeout=600)[0] for p in procs]
     finally:
@@ -224,7 +251,20 @@ def ranks(tmp_path_factory):
                 p.kill()
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
-    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(N_RANKS)]
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Every rank's results: the ranks spawned once, every case in one
+    spawn."""
+    return _spawn(tmp_path_factory.mktemp("mesh"), N_RANKS)
+
+
+@pytest.fixture(scope="module")
+def layout_ranks(tmp_path_factory):
+    """The results of LAYOUT_RANKS ranks running LAYOUT_SOLVES."""
+    return _spawn(tmp_path_factory.mktemp("mesh_layout"), LAYOUT_RANKS, "--layout")
 
 
 @pytest.fixture(scope="module")
@@ -354,11 +394,14 @@ def test_schur_trajectories_match_jax_mesh_solve(ranks, jmesh, name, rtol):
 
 def test_implicit_iterative_schur_matches_jax_mesh_solve(ranks, jmesh):
     """ITERATIVE_SCHUR with the implicit S against the JAX package's mesh
-    solve at ``jacobian_sort_threshold=1``, which the port accepts and does
-    not read (ROADMAP Queue 3, note d). On this 4-shard scene the JAX
-    package's sharded camera-padded layout stays off at the default waste
-    gate; opened (``jacobian_pad_waste`` 3 or more) its trajectory parts
-    from the JAX package's own generic path (ROADMAP Queue 1, slice 8)."""
+    solve at ``jacobian_sort_threshold=1``. On this 4-shard scene the
+    sharded camera-padded layout stays off at the default waste gate, in
+    the JAX package (which that option decides) and in the port (which
+    reads the option from the ``SolverOptions``; here the default). Opened
+    (``jacobian_pad_waste`` 3 or more) the JAX trajectory parts from the
+    JAX package's own generic path: its padded S product leaves out the
+    Jacobi scale (ROADMAP Queue 3, note v); the port's sharded layout is
+    held by ``test_sharded_layout_equals_single_device_generic_solve``."""
     mine = ranks[0]
     ref = _jax_solve(SOLVES["iterative_implicit"], jmesh, jacobian_sort_threshold=1)
     _assert_same_run(mine, "iterative_implicit", ref, 1e-8)
@@ -386,6 +429,24 @@ def test_solver_under_mesh_matches_jax_and_one_device(ranks, name, rtol):
     mine = ranks[0]
     _assert_same_run(mine, name, _jax_solve(SOLVES[name]), rtol)
     _assert_same_run(mine, name, _port_solve(SOLVES[name]), rtol)
+
+
+@pytest.mark.parametrize("name", list(LAYOUT_SOLVES))
+def test_sharded_layout_equals_single_device_generic_solve(layout_ranks, name):
+    """The sharded camera-padded layout on 3 ranks (each rank's rows in its
+    own (nc, K) grid, each camera sum one ``all_reduce``) equals the port's
+    single-device solve on the generic path within 1e-10 a step, and every
+    rank's run equals rank 0's bit for bit."""
+    mine = layout_ranks[0]
+    assert str(mine[f"{name}/layout"]).startswith("batch 0: 6 x "), str(mine[f"{name}/layout"])
+    assert f"sharded, {LAYOUT_RANKS} shards" in str(mine[f"{name}/layout"])
+    assert int(mine[f"{name}/num_devices"]) == LAYOUT_RANKS
+    for r in range(1, LAYOUT_RANKS):
+        for k, v in mine.items():
+            if k.startswith(name):
+                np.testing.assert_array_equal(layout_ranks[r][k], v, err_msg=f"rank {r}: {k}")
+    _assert_same_run(mine, name, _port_solve(dict(SOLVES[name], jacobian_sort_threshold=10**12)),
+                     1e-10)
 
 
 def test_cluster_tridiagonal_under_mesh_keeps_the_band(ranks):
