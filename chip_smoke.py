@@ -266,6 +266,19 @@ non-zero and prints no result line):
                10-11, 16, 18-22, 26, 29 (its unsplit reference) and 34-36
                take it; phase 18 times the generic S product.
 
+ 38. measuring scripts — each script of ``tools_torch`` in a subprocess with
+               no ``--device`` (so on the card), its last line parsed as JSON:
+               ``bench.py``, ``bench_venice.py`` (ITERATIVE_SCHUR) and with
+               ``--linear_solver DENSE_SCHUR --iters 5``, ``bench_sphere.py``
+               and ``bench_two_signature.py`` at their default sizes,
+               ``bench_scaling.py --shards 1 2 4`` (in two lanes side by
+               side, the sphere and the ranks beside the rest): the value
+               finite and positive, every timed solve's final cost below its
+               initial cost, ``extra.device`` the card, K1 in bench.py's
+               captures, K3 and K2 on every damped solve of the DENSE_SCHUR
+               run, no launch on the other paths, and bench.py's final cost
+               within 1e-3 of phase 15's.
+
 The line before the last is a JSON object describing each kernel (its
 time, its launches on the main path, its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the peak for their type,
@@ -1249,9 +1262,10 @@ def spread(values) -> str:
             f"({', '.join(f'{v:.3f}' for v in values)})")
 
 
-def phase_device_loop_bal49(device) -> tuple[float, float]:
+def phase_device_loop_bal49(device) -> tuple[float, float, float]:
     """bench.py's device-loop configuration on the card. Returns the
-    median LM steps/s of the device loop and of the host loop."""
+    median LM steps/s of the device loop and of the host loop, and the
+    traced solve's final cost."""
     from skeres_tpu_torch.core.schur import FALLBACK_CG_ITERATIONS
     from skeres_tpu_torch.io.bal import synthetic_bal
 
@@ -1293,7 +1307,8 @@ def phase_device_loop_bal49(device) -> tuple[float, float]:
               f"{spread(preprocess[name])}")
     print(f"[device-loop BAL-49] capture (warm-up of every branch, the capture and the graph's "
           f"upload) s {spread(captures)}")
-    return statistics.median(rates["device loop"]), statistics.median(rates["host loop"])
+    return (statistics.median(rates["device loop"]), statistics.median(rates["host loop"]),
+            r["final_cost"])
 
 
 # -- the other linear solvers -----------------------------------------------------
@@ -3573,6 +3588,96 @@ def phase_mesh_nccl(device) -> dict:
     return out
 
 
+# -- the measuring scripts of tools_torch -----------------------------------------------
+
+# phase 38: each script at its default size (bench_scaling at 1, 2 and 4
+# shards), with no --device, so on the card; the two lanes run side by side,
+# each script of a lane after the other (the numbers of record are taken
+# with each script alone)
+MEASURING_SCRIPTS = (
+    (("bench_venice.py", ()),
+     ("bench_venice.py", ("--linear_solver", "DENSE_SCHUR", "--iters", "5")),
+     ("bench_two_signature.py", ()),
+     ("bench.py", ())),
+    (("bench_sphere.py", ()),
+     ("bench_scaling.py", ("--shards", "1", "2", "4"))),
+)
+SCRIPT_TIMEOUT = 300  # seconds one script may take
+
+
+def run_script(script: str, flags) -> tuple[dict, list, list, float]:
+    """``python3 tools_torch/<script> <flags>`` from the checkout: its last
+    line (the JSON result), its ``[<script>] solve`` records, its standard
+    output's lines and its wall seconds."""
+    t0 = time.time()
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "tools_torch", script), *flags],
+                         capture_output=True, text=True, timeout=SCRIPT_TIMEOUT, cwd=ROOT)
+    wall = time.time() - t0
+    check(out.returncode == 0, f"{script} {' '.join(flags)}: exit {out.returncode}\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    lines = out.stdout.strip().splitlines()
+    solves = [json.loads(ln.split(" solve ", 1)[1]) for ln in lines
+              if ln.startswith("[bench") and " solve {" in ln]
+    return json.loads(lines[-1]), solves, lines, wall
+
+
+def phase_measuring_scripts(bal49_final: float) -> dict:
+    """38: every measuring script of tools_torch in a subprocess on the card
+    (no --device), its last line parsed as JSON: the value finite and
+    positive, every timed solve's final cost below its initial cost, the
+    card's name in ``extra.device``, the kernels launched where the path
+    launches them and nowhere else, and bench.py's final cost within 1e-3 of
+    phase 15's. Returns the launches by script."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from skeres_tpu_torch.ops.cholesky import PANEL
+
+    card = torch.cuda.get_device_name(0)
+    panels = math.ceil(9 * VENICE["num_cameras"] / PANEL)
+    with ThreadPoolExecutor(len(MEASURING_SCRIPTS)) as pool:
+        lanes = [pool.submit(lambda lane: [(script, flags, run_script(script, flags))
+                                           for script, flags in lane], lane)
+                 for lane in MEASURING_SCRIPTS]
+        runs = [run for lane in lanes for run in lane.result()]
+    paths = {}
+    for script, flags, (result, solves, lines, wall) in runs:
+        label = " ".join((script, *flags))
+        value, extra = result["value"], result["extra"]
+        check(isinstance(value, (int, float)) and math.isfinite(value) and value > 0,
+              f"{label}: value {value!r}")
+        check(extra["device"]["name"] == card, f"{label}: device {extra['device']!r}, not {card}")
+        check(bool(solves), f"{label}: no solve line")
+        for rec in solves:
+            check(math.isfinite(rec["final_cost"]) and rec["final_cost"] < rec["initial_cost"],
+                  f"{label} {rec['label']}: final cost {rec['final_cost']} not below the initial "
+                  f"{rec['initial_cost']}")
+        n = {k: sum(rec["launches"][k] for rec in solves) for k in ("K1", "K2 update", "K3")}
+        damped = sum(rec["linear_solves"] for rec in solves)
+        if script == "bench.py":  # the device loop: K1 in the captures
+            check(n["K1"] >= len(solves) and n["K2 update"] == n["K3"] == 0,
+                  f"{label}: launches {n}, expected K1 in every solve's capture only")
+            gap = abs(extra["final_cost"] / bal49_final - 1.0)
+            check(gap <= 1e-3, f"{label}: final cost {extra['final_cost']!r} is {gap:.3e} from "
+                  f"phase 15's {bal49_final!r}")
+            key = f"tools_torch/{label} (device-loop captures)"
+        elif "DENSE_SCHUR" in flags:
+            check(n["K3"] >= damped > 0 and n["K2 update"] >= (panels - 1) * damped,
+                  f"{label}: launches {n} for {damped} damped solves: K3 or K2 not on each")
+            key = f"tools_torch/{label}"
+        else:
+            check(not any(n.values()), f"{label}: launches {n} on a path without a kernel")
+            key = f"tools_torch/{label}"
+        paths[key] = n
+        for ln in lines[:-1]:  # the scripts' own JSON rows (variants, shard counts)
+            if ln.startswith("{"):
+                print(f"[scripts] {script}: {ln[:400]}")
+        setup = [round(rec["preprocessor_s"], 3) for rec in solves]
+        print(f"[scripts] {label}: {result['metric']} {value!r} {result['unit']}; "
+              f"extra {json.dumps(extra)[:600]}; set-up (preprocessor, capture included) s "
+              f"{setup}; launches {n} over {damped} damped solves; wall {wall:.1f} s")
+    return paths
+
+
 def bound(nbytes: float, flop: float, flops_per_s: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / flops_per_s
@@ -3655,7 +3760,7 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
     k1_ms, k1_plain = timed("timing", phase_timing, device)
     timed("device loop card vs CPU", phase_device_loop_card_vs_cpu, device)
     timed("device loop explicit", phase_device_loop_explicit, device)
-    timed("device loop BAL-49", phase_device_loop_bal49, device)
+    bal49_final = timed("device loop BAL-49", phase_device_loop_bal49, device)[2]
     solver_paths = timed("solvers card vs CPU", phase_solvers_card_vs_cpu, device)
     solver_paths.update(timed("trust region card vs CPU", phase_trust_region_card_vs_cpu, device))
     # phases 24-27: the venice scene (host data) lived on for 25 and 26
@@ -3678,6 +3783,8 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
     mesh_paths.update(timed("mesh BAL-49", phase_mesh_bal49, device))
     mesh_paths.update(timed("mesh venice", phase_mesh_venice, device))
     mesh_paths.update(timed("mesh NCCL device loop", phase_mesh_nccl, device))
+    torch.cuda.empty_cache()
+    script_paths = timed("measuring scripts", phase_measuring_scripts, bal49_final)
     k3_err, k3_ms, k3_plain, k3_bytes, k3_flop = venice["k3"]
     k2_ms, k2_plain, k2_library, k2_n = venice["k2"]
     n1 = 9 * 49  # K1's n on the main path: the BAL-49 S
@@ -3701,7 +3808,8 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
                 for k, v in solver_paths.items()}, **{
                 f"{k} (panels inside K2)": v["K1"] for k, v in tr_paths.items()},
                 **{k: v["K1"] for k, v in {**new_paths, **cov["launches"]}.items()},
-                **{k: v["K1"] for k, v in {**general_paths, **mesh_paths}.items()}},
+                **{k: v["K1"] for k, v in {**general_paths, **mesh_paths,
+                                            **script_paths}.items()}},
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": k1_plain,
@@ -3720,7 +3828,7 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
                                  **{k: v["K2 update"] for k, v in tr_paths.items()},
                                  **{k: v["K2 update"] for k, v in
                                     {**new_paths, **cov["launches"], **general_paths,
-                                     **mesh_paths}.items()}},
+                                     **mesh_paths, **script_paths}.items()}},
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain,
@@ -3739,8 +3847,8 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
                                  **{k: v["K3"] for k, v in tr_paths.items()}, **{
                 (k if k.startswith("synthetic") else f"synthetic_bal(16, 500, 4) {k}"): v["K3"]
                 for k, v in solver_paths.items()},
-                **{k: v["K3"] for k, v in
-                   {**new_paths, **cov["launches"], **general_paths, **mesh_paths}.items()}},
+                **{k: v["K3"] for k, v in {**new_paths, **cov["launches"], **general_paths,
+                                            **mesh_paths, **script_paths}.items()}},
             "max_abs_err": k3_err,
             "ms": k3_ms,
             "cluster_plan_ms": venice["k3_cluster_ms"],

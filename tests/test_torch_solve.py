@@ -380,12 +380,13 @@ def test_write_back_and_report():
 
 def test_package_imports_neither_jax_nor_skeres_tpu():
     """In a fresh interpreter, with jax and skeres_tpu made unimportable,
-    every module of the port, of examples_torch (and chip_smoke.py) still
+    every module of the port, of examples_torch, every script of
+    tools_torch (the measuring scripts among them) and chip_smoke.py still
     imports: the line search, GradientProblem, covariance, the gradient
     checker, the pose graphs, priors, MGH, interpolation, g2o, the NIST
     data, the CLIs and the native loader among them."""
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, pathlib\n"
         "pre = set(sys.modules)\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['skeres_tpu'] = None\n"
@@ -394,6 +395,12 @@ def test_package_imports_neither_jax_nor_skeres_tpu():
         "    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "        if not m.name.endswith('__main__'):\n"
         "            importlib.import_module(m.name)\n"
+        "tools = sorted(p.stem for p in pathlib.Path('tools_torch').glob('*.py'))\n"
+        "for m in tools:\n"
+        "    importlib.import_module('tools_torch.' + m)\n"
+        "assert {'bench', 'bench_venice', 'bench_sphere', 'bench_two_signature',\n"
+        "        'bench_scaling', 'loop_rates', 'bal_parse_time'} <= set(tools), tools\n"
+        "assert 'bench' not in sys.modules, 'the JAX package\\'s bench.py was imported'\n"
         "import chip_smoke\n"
         "for m in ('core.line_search', 'core.gradient_problem', 'core.covariance',\n"
         "          'core.gradient_checker', 'models.pose_graph', 'models.priors',\n"
