@@ -279,6 +279,20 @@ non-zero and prints no result line):
                run, no launch on the other paths, and bench.py's final cost
                within 1e-3 of phase 15's.
 
+ 39. spans and stamps — BAL-49 float64 on the device loop under
+               ``torch.profiler`` (CPU and CUDA): the port's ``skeres.*``
+               spans on the host and no device event of those names (the
+               spans are of the function scope, so the trace mirrors none
+               onto the card); the stamped ``Summary`` timers above 0, each
+               iteration's times, cumulative times that increase, one replay
+               counted for each of a chunk's; the evaluation timers split
+               into the stamped part and the host's first linearization,
+               and each span's count, host time and device time launched
+               (``tools_torch/trace_spans.py:span_table``), the chunks'
+               above 0; then 1024 stamps back to back
+               inside one CUDA graph, in order, and the smallest step
+               between two of them (``%globaltimer``'s resolution bounds it).
+
 The line before the last is a JSON object describing each kernel (its
 time, its launches on the main path, its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the peak for their type,
@@ -2665,7 +2679,10 @@ def phase_venice_layout(device, problem, program, cams, initial) -> dict:
     generic, within 1e-8 a step with the same decisions; float32 DENSE_SCHUR LM steps/s of both
     forms on both loops (medians of 3, in turns) and the gap between
     identical runs of each form. Returns the launches by path."""
+    from torch.profiler import ProfilerActivity, profile
+
     import skeres_tpu_torch as stt
+    from tools_torch.trace_spans import span_table
 
     def restore():
         for grp, v in zip(program.groups, initial):
@@ -2673,7 +2690,9 @@ def phase_venice_layout(device, problem, program, cams, initial) -> dict:
 
     restore()
     state = program.initial_state(device, torch.float32)
-    ev, forms = layout_forms(program, device, torch.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ev, forms = layout_forms(program, device, torch.float32)
+    plan_s = span_table(prof.profiler.kineto_results.events())["skeres.plan.layout"]["host_s"]
     schur = forms["padded"][0]
     check(list(schur.sorted_info) == [0] and not forms["generic"][0].sorted_info,
           f"layout: not engaged at venice shape ({schur.camera_padded_layout})")
@@ -2684,7 +2703,7 @@ def phase_venice_layout(device, problem, program, cams, initial) -> dict:
     print(f"[layout] plan: {schur.camera_padded_layout}; nc {info['nc']}, K {info['K']}, waste "
           f"nc K / B = {info['nc'] * info['K'] / n_rows:.6f} over {n_rows} rows; the placed "
           f"(jac | r) copy {placed} bytes in float32 ({placed / 2**20:.1f} MiB); the plan "
-          f"{schur.layout_seconds:.4f} s of set-up (host)")
+          f"{plan_s:.4f} s of set-up (host; its span, the generic form's refusal included)")
 
     # the S product on the minimizer's path, and one linearization, float32
     prods = layout_products(forms, state)
@@ -3678,6 +3697,82 @@ def phase_measuring_scripts(bal49_final: float) -> dict:
     return paths
 
 
+# -- the port's spans and the device loop's stamps (phase 39) ----------------------------
+
+
+def phase_spans_and_stamps(device) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core.graph import stamp
+    from skeres_tpu_torch.core.types import LinearSolverType
+    from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
+    from tools_torch.trace_spans import span_table
+
+    problem, _, _ = build_bal_problem(synthetic_bal(**BAL49))
+    options = stt.SolverOptions(linear_solver_type=LinearSolverType.DENSE_SCHUR,
+                                dtype=torch.float64, device=device, **BAL49_DEVICE_LOOP)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s = stt.solve(options, problem)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    host = {ev.name() for ev in events if ev.device_type().name == "CPU"
+            and ev.name().startswith("skeres.")}
+    mirrored = {ev.name() for ev in events if ev.device_type().name == "CUDA"
+                and ev.name().startswith("skeres.")}
+    want = {"skeres.solve", "skeres.plan.schur", "skeres.plan.w", "skeres.device_loop.capture",
+            "skeres.minimize", "skeres.step.linearize", "skeres.device_loop.chunk"}
+    check(want <= host, f"spans: {sorted(want - host)} missing from the trace")
+    check(not mirrored, f"spans: {sorted(mirrored)} mirrored onto the card")
+    steps = s.num_successful_steps + s.num_unsuccessful_steps
+    times = [s.linear_solver_time_in_seconds, s.residual_evaluation_time_in_seconds,
+             s.jacobian_evaluation_time_in_seconds]
+    check(min(times) > 0 and sum(times) <= s.minimizer_time_in_seconds,
+          f"stamps: timers {times} against the minimizer's {s.minimizer_time_in_seconds}")
+    check(all(0 < it.step_solver_time_in_seconds < it.iteration_time_in_seconds
+              for it in s.iterations[1:]), "stamps: an iteration's times out of order")
+    cumulative = [it.cumulative_time_in_seconds for it in s.iterations]
+    check(all(b > a for a, b in zip(cumulative, cumulative[1:])),
+          f"stamps: cumulative times {cumulative} do not increase")
+    chunk = BAL49_DEVICE_LOOP["device_loop_chunk_iterations"]
+    limits = [min(chunk, options.max_num_iterations - k * chunk)
+              for k in range(math.ceil(steps / chunk))]
+    check(s.num_device_loop_replays == sum(limits),
+          f"stamps: {s.num_device_loop_replays} replays for {steps} steps in chunks of {chunk}")
+    # the evaluation timers hold the host's first linearization (its clock,
+    # its sync) and the stamped candidate costs and relinearizations
+    stamped = sum(it.iteration_time_in_seconds - it.step_solver_time_in_seconds
+                  for it in s.iterations[1:])
+    table = span_table(events)
+    rows = {k: [v["count"], round(v["host_s"] * 1e3, 3), round(v["device_s"] * 1e3, 3)]
+            for k, v in table.items()}
+    print(f"[trace] evaluation {(times[1] + times[2]) * 1e3:.3f} ms = stamped {stamped * 1e3:.3f} "
+          f"ms + the host's first linearization {(times[1] + times[2] - stamped) * 1e3:.3f} ms; "
+          f"spans (count, host ms, device ms launched): {json.dumps(rows)}")
+    check(table["skeres.device_loop.chunk"]["device_s"] > 0,
+          "spans: no device time launched inside the chunks' replays")
+    n = 1024
+    dst = torch.zeros(n, dtype=torch.int64, device=device)
+    index = torch.arange(n, device=device)
+    stamp(dst, index[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(n):
+            stamp(dst, index[k])
+    graph.replay()
+    torch.cuda.synchronize()
+    steps_ns = dst.diff()
+    check(bool((steps_ns >= 0).all()), "stamps: a graph's stamps out of order")
+    finest = int(steps_ns[steps_ns > 0].min())
+    print(f"[trace] spans {len(host)}, none mirrored; {steps} steps, {s.num_device_loop_replays} "
+          f"replays; linear solver {times[0] * 1e3:.3f} ms, residual {times[1] * 1e3:.3f} ms, "
+          f"Jacobian {times[2] * 1e3:.3f} ms of the minimizer's "
+          f"{s.minimizer_time_in_seconds * 1e3:.3f} ms; stamps in a graph: smallest step "
+          f"{finest} ns, median {float(steps_ns.double().median()):.0f} ns")
+    return {"finest_stamp_ns": finest}
+
+
 def bound(nbytes: float, flop: float, flops_per_s: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / flops_per_s
@@ -3785,6 +3880,7 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
     mesh_paths.update(timed("mesh NCCL device loop", phase_mesh_nccl, device))
     torch.cuda.empty_cache()
     script_paths = timed("measuring scripts", phase_measuring_scripts, bal49_final)
+    timed("spans and stamps", phase_spans_and_stamps, device)
     k3_err, k3_ms, k3_plain, k3_bytes, k3_flop = venice["k3"]
     k2_ms, k2_plain, k2_library, k2_n = venice["k2"]
     n1 = 9 * 49  # K1's n on the main path: the BAL-49 S

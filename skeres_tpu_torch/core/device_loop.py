@@ -18,7 +18,14 @@ compiles a chunk of the LM loop into one XLA program (``lax.while_loop``,
 - the history (cost, radius, step norm, max|g|, relative decrease,
   accepted, linear solver iterations) is written at the device index
   ``it``, since one graph serves every iteration;
-- after the K replays the host makes ONE packed device-to-host fetch.
+- the device's clock is stamped at four points of the step (its start,
+  after the damped solve, after the candidate's cost, after the
+  relinearization; ``core/graph.py:stamp``), also at ``it``;
+- after the K replays the host makes ONE packed device-to-host fetch,
+  history and stamps together, and fills the Summary's linear-solver and
+  evaluation timers and each iteration's times from the stamps (a
+  cumulative time is the host's clock at the fetch less the device time
+  from the stamp to the fetch).
 
 A bounded problem's candidate is projected onto the box and its
 convergence test reads the projected gradient, as in the JAX package's
@@ -57,7 +64,7 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
-from skeres_tpu_torch.core.graph import CapturedStep, cond
+from skeres_tpu_torch.core.graph import CapturedStep, cond, stamp
 from skeres_tpu_torch.core.linear_solvers import solve_dense_qr_seminormal
 from skeres_tpu_torch.core.minimizer import TrustRegionMinimizer
 from skeres_tpu_torch.core.summary import IterationSummary
@@ -65,6 +72,7 @@ from skeres_tpu_torch.core.types import (
     TerminationType,
     TrustRegionStrategyType,
 )
+from skeres_tpu_torch.utils.trace import span
 
 __all__ = ["DeviceLoopMinimizer"]
 
@@ -91,6 +99,11 @@ _MESSAGES = {
 # rows of the (7, K) history: cost, radius, step norm, max|g|, relative
 # decrease, accepted, linear solver iterations
 _HIST_ROWS = 7
+# rows of the (5, K) int64 stamps: a step's start, after its damped solve,
+# after its candidate's cost, after its relinearization (each at ``it``),
+# and the chunk's fetch (at 0)
+_START, _SOLVED, _COSTED, _RELINEARIZED, _FETCH = range(5)
+_STAMP_ROWS = 5
 
 
 @dataclasses.dataclass
@@ -116,6 +129,7 @@ class _Carry:
     n_invalid: torch.Tensor
     limit: torch.Tensor
     hist: torch.Tensor  # (7, K) in the working dtype
+    stamps: torch.Tensor  # (5, K) int64, the clock's nanoseconds
 
 
 def _copy_leaves(dst, src) -> None:
@@ -180,6 +194,8 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
             it=count(), term=count(), n_succ=count(), n_unsucc=count(), n_invalid=count(),
             limit=count(),
             hist=torch.empty((_HIST_ROWS, self.chunk_iterations), dtype=dtype, device=dev),
+            stamps=torch.zeros((_STAMP_ROWS, self.chunk_iterations), dtype=torch.int64,
+                               device=dev),
         )
 
     def compile_programs(self, state) -> None:
@@ -209,10 +225,13 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
     def _body(self) -> None:
         """One LM step on the carry (``skeres_tpu/core/device_loop.py:122-285``)."""
         c, o = self._carry, self.options
+        stamp(c.stamps[_START], c.it)
         cand, mcc, step_norm, lin_iters, jitter, _ = self.solve_step(
             c.state, c.data, c.g, c.diag, c.scale, c.radius, c.jitter, line_search=False
         )
+        stamp(c.stamps[_SOLVED], c.it)
         new_cost, x_norm = self.try_step(cand)
+        stamp(c.stamps[_COSTED], c.it)
         valid = (torch.isfinite(new_cost) & torch.isfinite(mcc) & torch.isfinite(step_norm)
                  & (mcc > 0.0))
         cost = c.cost.clone()  # the relinearization below overwrites c.cost
@@ -228,6 +247,7 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
         n_invalid = torch.where(valid, 0, c.n_invalid + 1)
 
         cond(accepted, lambda: self._relinearize(cand))
+        stamp(c.stamps[_RELINEARIZED], c.it)
 
         # convergence tests on the post-step carry
         g_max = self.gradient_max_norm(c.state, c.g)
@@ -295,10 +315,10 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
     def _minimize(self, state):
         o, s = self.options, self.summary
         start = time.time()
-        dtype = self.ev.dtype
 
         lin = self.linearize(state)
         cost_f, g_max = torch.stack([lin[0], lin[5]]).tolist()
+        s.jacobian_evaluation_time_in_seconds += time.time() - start
         s.num_jacobian_evaluations += 1
         if not math.isfinite(cost_f):
             s.termination_type = TerminationType.FAILURE
@@ -344,14 +364,21 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
             c.limit.fill_(limit)
             c.hist.fill_(float("nan"))
             c.hist[5:].zero_()
-            for _ in range(limit):
-                self._step()
-            # ONE device-to-host fetch for the chunk's statistics
-            packed = torch.cat([
-                torch.stack([c.it, c.term, c.n_succ, c.n_unsucc]).to(dtype),
-                c.cost.reshape(1),
-                c.hist.reshape(-1),
-            ]).tolist()
+            with span("skeres.device_loop.chunk"):
+                for _ in range(limit):
+                    self._step()
+                stamp(c.stamps[_FETCH])
+                # ONE device-to-host fetch for the chunk's statistics, in
+                # float64, which holds every count and the stamps, taken
+                # from the chunk's first, exactly
+                packed = torch.cat([
+                    torch.stack([c.it, c.term, c.n_succ, c.n_unsucc]).to(torch.float64),
+                    c.cost.reshape(1).to(torch.float64),
+                    c.hist.reshape(-1).to(torch.float64),
+                    (c.stamps - c.stamps[_START, 0]).reshape(-1).to(torch.float64),
+                ]).tolist()
+            now = time.time() - start
+            s.num_device_loop_replays += limit
             it_chunk, term_code, n_succ, n_unsucc = (int(v) for v in packed[:4])
             cost_f = packed[4]
             s.num_successful_steps += n_succ
@@ -360,9 +387,17 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
             s.num_jacobian_evaluations += n_succ
             s.num_residual_evaluations += it_chunk
             h = [packed[5 + r * K : 5 + (r + 1) * K] for r in range(_HIST_ROWS)]
-            now = time.time() - start
+            at = 5 + _HIST_ROWS * K
+            t = [[v * 1e-9 for v in packed[at + r * K : at + (r + 1) * K]]
+                 for r in range(_STAMP_ROWS)]
             for k in range(it_chunk):
                 it_total += 1
+                solve_s = t[_SOLVED][k] - t[_START][k]
+                s.linear_solver_time_in_seconds += solve_s
+                s.residual_evaluation_time_in_seconds += t[_COSTED][k] - t[_SOLVED][k]
+                if h[5][k]:
+                    s.jacobian_evaluation_time_in_seconds += (t[_RELINEARIZED][k]
+                                                              - t[_COSTED][k])
                 s.iterations.append(IterationSummary(
                     iteration=it_total,
                     cost=h[0][k] + s.fixed_cost,
@@ -373,7 +408,9 @@ class DeviceLoopMinimizer(TrustRegionMinimizer):
                     linear_solver_iterations=int(h[6][k]),
                     step_is_valid=True,
                     step_is_successful=bool(h[5][k]),
-                    cumulative_time_in_seconds=now,
+                    iteration_time_in_seconds=t[_RELINEARIZED][k] - t[_START][k],
+                    step_solver_time_in_seconds=solve_s,
+                    cumulative_time_in_seconds=now - (t[_FETCH][0] - t[_RELINEARIZED][k]),
                 ))
             if term_code != _RUNNING:
                 break

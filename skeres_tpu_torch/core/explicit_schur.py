@@ -62,6 +62,7 @@ import torch
 
 from skeres_tpu_torch.ops.pair_product import pair_products
 from skeres_tpu_torch.parallel.mesh import all_reduce_sum, shard_rows
+from skeres_tpu_torch.utils.trace import span
 
 __all__ = ["ExplicitSchurPlan"]
 
@@ -245,97 +246,100 @@ class ExplicitSchurPlan:
         # points per chunk of K3's plain version: bound its pair-value bytes
         self.chunk_points = max(256, chunk_value_budget // max(1, npairs * f_size * f_size * 4))
 
-        order = np.argsort(pt_idx, kind="stable")
-        sorted_pt = pt_idx[order]
-        starts = np.searchsorted(sorted_pt, np.arange(num_points))
-        pos = np.arange(B) - starts[sorted_pt]
-        grid_src = np.full(num_points * kp, B, dtype=np.int64)  # sentinel
-        grid_src[sorted_pt * kp + pos] = order
-        grid_cam = np.full(num_points * kp, -1, dtype=np.int64)
-        gvalid = grid_src < B
-        grid_cam[gvalid] = cam_idx[grid_src[gvalid]]
-        grid_cam = grid_cam.reshape(num_points, kp)
-        swap_g, valid_g, pair_id_g = _pair_metadata(
-            grid_cam, num_cameras, iu, ju, self.cluster_of, self.cluster_band)
-        uniq = np.unique(pair_id_g[pair_id_g >= 0])
-        self.n_uniq = n_uniq = len(uniq)
+        with span("skeres.plan.pairs.metadata"):
+            order = np.argsort(pt_idx, kind="stable")
+            sorted_pt = pt_idx[order]
+            starts = np.searchsorted(sorted_pt, np.arange(num_points))
+            pos = np.arange(B) - starts[sorted_pt]
+            grid_src = np.full(num_points * kp, B, dtype=np.int64)  # sentinel
+            grid_src[sorted_pt * kp + pos] = order
+            grid_cam = np.full(num_points * kp, -1, dtype=np.int64)
+            gvalid = grid_src < B
+            grid_cam[gvalid] = cam_idx[grid_src[gvalid]]
+            grid_cam = grid_cam.reshape(num_points, kp)
+            swap_g, valid_g, pair_id_g = _pair_metadata(
+                grid_cam, num_cameras, iu, ju, self.cluster_of, self.cluster_band)
+            uniq = np.unique(pair_id_g[pair_id_g >= 0])
+            self.n_uniq = n_uniq = len(uniq)
 
-        self.n_straddle = 0  # points whose rows straddle a shard boundary
-        if self.mesh is None:
-            # uniform point-sorted rows: the grid is the identity reshape of the rows
-            self.grid_is_reshape = bool(
-                num_points * kp == B and (counts == kp).all()
-                and (grid_src == np.arange(B)).all()
-            )
-            self.grid_src = None if self.grid_is_reshape else torch.as_tensor(grid_src).to(device)
-            self.swap_mask = torch.as_tensor(swap_g).to(device)
-            self.pair_valid = torch.as_tensor(valid_g).to(device)
-            rows = np.nonzero(pair_id_g >= 0)[0]
-            self.n_pair_rows = len(pair_id_g)
-            levels, uniq_l = _hierarchical_sum_plan(
-                pair_id_g[rows], rows, self.n_pair_rows, cap=pair_cap, adaptive=True,
-            )
-            assert len(uniq_l) == n_uniq
-            _check_level0_waste(levels, self.n_pair_rows)
-            self.levels = _freeze_levels(levels, device)
-        else:
-            self.grid_is_reshape = False
-            self._plan_sharded(B, pt_idx, grid_src.reshape(num_points, kp), swap_g, valid_g,
-                               pair_id_g.reshape(num_points, npairs), uniq, pad_waste,
-                               pair_cap, device)
+        with span("skeres.plan.pairs.sums"):
+            self.n_straddle = 0  # points whose rows straddle a shard boundary
+            if self.mesh is None:
+                # uniform point-sorted rows: the grid is the identity reshape of the rows
+                self.grid_is_reshape = bool(
+                    num_points * kp == B and (counts == kp).all()
+                    and (grid_src == np.arange(B)).all()
+                )
+                self.grid_src = (None if self.grid_is_reshape
+                                 else torch.as_tensor(grid_src).to(device))
+                self.swap_mask = torch.as_tensor(swap_g).to(device)
+                self.pair_valid = torch.as_tensor(valid_g).to(device)
+                rows = np.nonzero(pair_id_g >= 0)[0]
+                self.n_pair_rows = len(pair_id_g)
+                levels, uniq_l = _hierarchical_sum_plan(
+                    pair_id_g[rows], rows, self.n_pair_rows, cap=pair_cap, adaptive=True,
+                )
+                assert len(uniq_l) == n_uniq
+                _check_level0_waste(levels, self.n_pair_rows)
+                self.levels = _freeze_levels(levels, device)
+            else:
+                self.grid_is_reshape = False
+                self._plan_sharded(B, pt_idx, grid_src.reshape(num_points, kp), swap_g, valid_g,
+                                   pair_id_g.reshape(num_points, npairs), uniq, pad_waste,
+                                   pair_cap, device)
 
-        # -- dense-S gather map: block position (ci, cj) -> table row ------
-        # SAME-CAMERA pairs (a point observed twice by one camera) store a
-        # real uniq row at the diagonal position; the dense builds fold both
-        # of its read directions into the per-camera diagonal region
-        pos2u = np.full(num_cameras * num_cameras, n_uniq, dtype=np.int64)
-        pos2u[uniq] = np.arange(n_uniq)
-        lo_all = uniq // num_cameras
-        hi_all = uniq % num_cameras
-        pos2u_t = np.full(num_cameras * num_cameras, n_uniq, dtype=np.int64)
-        pos2u_t[hi_all * num_cameras + lo_all] = np.arange(n_uniq)
-        dd = np.arange(num_cameras)
-        self.diag_pair_idx = torch.as_tensor(pos2u[dd * num_cameras + dd]).to(device)
-        # one read per position from the combined table
-        # [uniq | uniq^T | per-camera diagonal region | zero]
-        comb = np.full(num_cameras * num_cameras, 2 * n_uniq + num_cameras, np.int64)
-        has_up = pos2u < n_uniq
-        comb[has_up] = pos2u[has_up]
-        has_low = (pos2u_t < n_uniq) & ~has_up
-        comb[has_low] = n_uniq + pos2u_t[has_low]
-        comb[dd * num_cameras + dd] = 2 * n_uniq + dd
-        self.pos2u_combined = torch.as_tensor(comb).to(device)
+            # -- dense-S gather map: block position (ci, cj) -> table row ------
+            # SAME-CAMERA pairs (a point observed twice by one camera) store a
+            # real uniq row at the diagonal position; the dense builds fold both
+            # of its read directions into the per-camera diagonal region
+            pos2u = np.full(num_cameras * num_cameras, n_uniq, dtype=np.int64)
+            pos2u[uniq] = np.arange(n_uniq)
+            lo_all = uniq // num_cameras
+            hi_all = uniq % num_cameras
+            pos2u_t = np.full(num_cameras * num_cameras, n_uniq, dtype=np.int64)
+            pos2u_t[hi_all * num_cameras + lo_all] = np.arange(n_uniq)
+            dd = np.arange(num_cameras)
+            self.diag_pair_idx = torch.as_tensor(pos2u[dd * num_cameras + dd]).to(device)
+            # one read per position from the combined table
+            # [uniq | uniq^T | per-camera diagonal region | zero]
+            comb = np.full(num_cameras * num_cameras, 2 * n_uniq + num_cameras, np.int64)
+            has_up = pos2u < n_uniq
+            comb[has_up] = pos2u[has_up]
+            has_low = (pos2u_t < n_uniq) & ~has_up
+            comb[has_low] = n_uniq + pos2u_t[has_low]
+            comb[dd * num_cameras + dd] = 2 * n_uniq + dd
+            self.pos2u_combined = torch.as_tensor(comb).to(device)
 
-        # -- cluster block maps: slot (c, i, j) -> unique-pair row ----------
-        if self.cluster_of is not None:
-            ncl = int(self.cluster_of.max()) + 1 if num_cameras else 0
-            members = [np.nonzero(self.cluster_of == c)[0] for c in range(ncl)]
-            cs = max((len(m) for m in members), default=1)
-            cam_of = np.full((ncl, cs), -1, dtype=np.int64)
-            for c, m in enumerate(members):
-                cam_of[c, : len(m)] = m
-            self.n_clusters = ncl
-            self.cluster_slot_size = cs
-            self.cluster_cam_of = cam_of  # (ncl, cs) on the host, -1 = pad
+            # -- cluster block maps: slot (c, i, j) -> unique-pair row ----------
+            if self.cluster_of is not None:
+                ncl = int(self.cluster_of.max()) + 1 if num_cameras else 0
+                members = [np.nonzero(self.cluster_of == c)[0] for c in range(ncl)]
+                cs = max((len(m) for m in members), default=1)
+                cam_of = np.full((ncl, cs), -1, dtype=np.int64)
+                for c, m in enumerate(members):
+                    cam_of[c, : len(m)] = m
+                self.n_clusters = ncl
+                self.cluster_slot_size = cs
+                self.cluster_cam_of = cam_of  # (ncl, cs) on the host, -1 = pad
 
-            def block_maps(rows_cam, cols_cam):
-                """Per (cluster, i, j) the unique-pair row of the pair
-                (rows_cam[c, i], cols_cam[c, j]) in either orientation;
-                ``n_uniq`` (a zero row) where unobserved or padded."""
-                a = np.broadcast_to(rows_cam[:, :, None], (len(rows_cam), cs, cs))
-                b = np.broadcast_to(cols_cam[:, None, :], (len(rows_cam), cs, cs))
-                ok = ((a >= 0) & (b >= 0)).reshape(-1)
-                flat = np.where(ok, (np.clip(a, 0, None) * num_cameras
-                                     + np.clip(b, 0, None)).reshape(-1), 0)
-                return (torch.as_tensor(np.where(ok, pos2u[flat], n_uniq)).to(device),
-                        torch.as_tensor(np.where(ok, pos2u_t[flat], n_uniq)).to(device))
+                def block_maps(rows_cam, cols_cam):
+                    """Per (cluster, i, j) the unique-pair row of the pair
+                    (rows_cam[c, i], cols_cam[c, j]) in either orientation;
+                    ``n_uniq`` (a zero row) where unobserved or padded."""
+                    a = np.broadcast_to(rows_cam[:, :, None], (len(rows_cam), cs, cs))
+                    b = np.broadcast_to(cols_cam[:, None, :], (len(rows_cam), cs, cs))
+                    ok = ((a >= 0) & (b >= 0)).reshape(-1)
+                    flat = np.where(ok, (np.clip(a, 0, None) * num_cameras
+                                         + np.clip(b, 0, None)).reshape(-1), 0)
+                    return (torch.as_tensor(np.where(ok, pos2u[flat], n_uniq)).to(device),
+                            torch.as_tensor(np.where(ok, pos2u_t[flat], n_uniq)).to(device))
 
-            self.cluster_map_u, self.cluster_map_l = block_maps(cam_of, cam_of)
-            # cluster c (rows) against cluster c + 1 (columns); both
-            # orientations, so the build holds for any cluster_of
-            self.band_map_u = self.band_map_l = None
-            if self.cluster_band and ncl > 1:
-                self.band_map_u, self.band_map_l = block_maps(cam_of[:-1], cam_of[1:])
+                self.cluster_map_u, self.cluster_map_l = block_maps(cam_of, cam_of)
+                # cluster c (rows) against cluster c + 1 (columns); both
+                # orientations, so the build holds for any cluster_of
+                self.band_map_u = self.band_map_l = None
+                if self.cluster_band and ncl > 1:
+                    self.band_map_u, self.band_map_l = block_maps(cam_of[:-1], cam_of[1:])
 
     # -- the sharded plan (skeres_tpu/core/explicit_schur.py:469-606) --------
 

@@ -1,5 +1,5 @@
-"""Device-side branching for CUDA graphs: ``cond``, ``while_loop`` and
-``CapturedStep``.
+"""Device-side branching for CUDA graphs: ``cond``, ``while_loop``,
+``CapturedStep`` and ``stamp``.
 
 The JAX package's device loop is one XLA program: ``lax.while_loop`` over
 the LM step, with ``lax.cond`` for the relinearization after an accepted
@@ -36,6 +36,10 @@ tensors made before the branch, since a body that does not run leaves no
 outputs. Nor may they change Python state that later code reads: under
 capture each runs once, whatever ``pred`` holds.
 
+``stamp(dst, index)`` writes the device's clock into a tensor in stream
+order, so that a captured step times its own phases on every replay
+(``core/device_loop.py``).
+
 Each nesting depth of conditional bodies is captured on a stream of its
 own, and what a body allocates comes from a private memory pool of that
 depth, held for the life of the graph, so that no block the graph uses is
@@ -55,7 +59,7 @@ import torch
 
 from skeres_tpu_torch.ops.build import load_library
 
-__all__ = ["CapturedStep", "build_library", "cond", "while_loop"]
+__all__ = ["CapturedStep", "build_library", "cond", "stamp", "while_loop"]
 
 # nesting depth of conditional bodies: the device loop's step, two rungs,
 # the PCG fallback and its WHILE body (DENSE_SCHUR); the step, the PCG's
@@ -79,10 +83,29 @@ def build_library():
     lib.skeres_set_conditional.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p]
     lib.skeres_capture_to_graph.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.skeres_capture_end.argtypes = [ctypes.c_void_p]
+    lib.skeres_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     for fn in (lib.skeres_if_node_begin, lib.skeres_while_node_begin, lib.skeres_set_conditional,
-               lib.skeres_capture_to_graph, lib.skeres_capture_end):
+               lib.skeres_capture_to_graph, lib.skeres_capture_end, lib.skeres_stamp):
         fn.restype = ctypes.c_int
     return lib, log
+
+
+def stamp(dst: torch.Tensor, index: Optional[torch.Tensor] = None) -> None:
+    """Write the clock's nanoseconds into ``dst[index]`` (``dst`` a 1-D
+    int64 tensor, ``index`` a 0-d int64 device tensor; ``dst[0]`` without
+    one), in stream order and with no host read: on the card a one-thread
+    kernel reading ``%globaltimer`` (``csrc/graph_cond.cu``), which a
+    capture records like any kernel; on the CPU ``time.perf_counter_ns()``.
+    Only differences of one device's stamps mean anything."""
+    if dst.is_cuda:
+        lib, _ = build_library()
+        _check(lib.skeres_stamp(torch.cuda.current_stream(dst.device).cuda_stream,
+                                dst.data_ptr(), None if index is None else index.data_ptr(),
+                                dst.numel()), "a stamp")
+    elif index is None:
+        dst[0] = time.perf_counter_ns()
+    else:
+        dst.index_fill_(0, index.reshape(1), time.perf_counter_ns())
 
 
 def _check(err: int, what: str) -> None:

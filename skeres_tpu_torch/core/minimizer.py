@@ -69,6 +69,7 @@ from skeres_tpu_torch.core.types import (
     TrustRegionStrategyType,
 )
 from skeres_tpu_torch.utils.checkpoint import save_checkpoint
+from skeres_tpu_torch.utils.trace import span
 
 __all__ = ["TrustRegionMinimizer", "TrustRegionStepEvaluator", "synchronize"]
 
@@ -341,36 +342,37 @@ class TrustRegionMinimizer:
         in the scaled space after them. The Jacobi column scaling
         ``1 / (1 + sqrt(diag))`` is computed fresh unless ``scale_prev``
         pins it (refresh_jacobi_scaling=False)."""
-        ev = self.ev
-        cost, blocks = ev.blocks(state)
-        cam_raw = None
-        if self.schur_solver is not None and self.schur_solver.sorted_info:
-            # the camera sums on the padded layout, whose placed rows
-            # prepare() reuses (skeres_tpu/core/minimizer.py:431-457)
-            g, diag, cam_raw = self.schur_solver.gradient_and_diag_padded(blocks)
-        else:
-            g, diag = ev.gradient_and_diag(blocks)
-        if not self.options.jacobi_scaling:
-            scale = torch.ones_like(diag)
-        elif scale_prev is None:
-            scale = 1.0 / (1.0 + torch.sqrt(torch.clamp(diag, min=0.0)))
-        else:
-            scale = scale_prev
-        data = self._prep_data(blocks, scale, cam_raw)
-        del blocks, cam_raw  # the unscaled rows: not held through a dogleg solve below
-        out = (cost, g, diag, data, scale, self.gradient_max_norm(state, g),
-               torch.sqrt(torch.sum(g * g)))
-        if not self.dogleg:
-            return out
-        # the Gauss-Newton point: one (nearly) undamped solve a
-        # linearization, reused across every radius change (reference:
-        # dogleg_strategy.cc ComputeGaussNewtonStep); the JAX package's
-        # _solve_scaled(..., jitter=None) starts the ladder at 0
-        scaled = data if self.schur_solver is not None else self._scale_data(data, scale)
-        y_gn, iters, _ = self._solve_damped(scaled, g * scale, diag * scale * scale, 1e32,
-                                            torch.zeros((), dtype=g.dtype, device=g.device))
-        self._gn_iters.append(iters)
-        return out + (y_gn,)
+        with span("skeres.step.linearize"):
+            ev = self.ev
+            cost, blocks = ev.blocks(state)
+            cam_raw = None
+            if self.schur_solver is not None and self.schur_solver.sorted_info:
+                # the camera sums on the padded layout, whose placed rows
+                # prepare() reuses (skeres_tpu/core/minimizer.py:431-457)
+                g, diag, cam_raw = self.schur_solver.gradient_and_diag_padded(blocks)
+            else:
+                g, diag = ev.gradient_and_diag(blocks)
+            if not self.options.jacobi_scaling:
+                scale = torch.ones_like(diag)
+            elif scale_prev is None:
+                scale = 1.0 / (1.0 + torch.sqrt(torch.clamp(diag, min=0.0)))
+            else:
+                scale = scale_prev
+            data = self._prep_data(blocks, scale, cam_raw)
+            del blocks, cam_raw  # the unscaled rows: not held through a dogleg solve below
+            out = (cost, g, diag, data, scale, self.gradient_max_norm(state, g),
+                   torch.sqrt(torch.sum(g * g)))
+            if not self.dogleg:
+                return out
+            # the Gauss-Newton point: one (nearly) undamped solve a
+            # linearization, reused across every radius change (reference:
+            # dogleg_strategy.cc ComputeGaussNewtonStep); the JAX package's
+            # _solve_scaled(..., jitter=None) starts the ladder at 0
+            scaled = data if self.schur_solver is not None else self._scale_data(data, scale)
+            y_gn, iters, _ = self._solve_damped(scaled, g * scale, diag * scale * scale, 1e32,
+                                                torch.zeros((), dtype=g.dtype, device=g.device))
+            self._gn_iters.append(iters)
+            return out + (y_gn,)
 
     def solve_step(self, state, data, g, diag, scale, radius, jitter, y_gn=None, cost=None,
                    line_search=True):
@@ -382,39 +384,40 @@ class TrustRegionMinimizer:
         device loop, as the JAX package's, only projects). Returns
         (new_state, model_cost_change, step_norm, linear solver
         iterations, jitter_used, dx), all on the device."""
-        ev = self.ev
-        gs = g * scale
-        if self.dogleg:
-            step = (self._subspace_dogleg_step if self.options.dogleg_type
-                    == DoglegType.SUBSPACE_DOGLEG else self._dogleg_step)
-            y, lin_iters, cauchy = step(data, scale, gs, y_gn, radius)
-            self._cauchy.append(cauchy)
-            jitter_used = jitter
-        else:
-            scaled = data if self.schur_solver is not None else self._scale_data(data, scale)
-            y, lin_iters, jitter_used = self._solve_damped(
-                scaled, gs, diag * scale * scale, radius, jitter)
-        dx = y * scale
-        new_state = ev.plus(state, dx)
-        if ev.program.has_bounds:
-            # reference bounds semantics: the candidate is the projection
-            # onto the box, and the model sees the effective step
-            projected = ev.project_bounds(new_state)
-            if line_search and self.options.max_num_line_search_step_size_iterations > 0:
-                new_state = self._projected_line_search(state, data, g, scale, dx, projected,
-                                                        cost)
+        with span("skeres.step.damped_solve"):
+            ev = self.ev
+            gs = g * scale
+            if self.dogleg:
+                step = (self._subspace_dogleg_step if self.options.dogleg_type
+                        == DoglegType.SUBSPACE_DOGLEG else self._dogleg_step)
+                y, lin_iters, cauchy = step(data, scale, gs, y_gn, radius)
+                self._cauchy.append(cauchy)
+                jitter_used = jitter
             else:
-                new_state = projected
-            dx = ev.tangent_diff(new_state, state)
-            y = dx / scale
-        dx_jtj_dx = self._model_quadratic(data, dx, scale)
-        model_cost_change = -(torch.dot(g, dx) + 0.5 * dx_jtj_dx)
-        step_norm = torch.sqrt(torch.sum(y * y))  # scaled-space norm
-        if self.inner_refiner is not None:
-            # reference order: inner iterations refine the candidate before
-            # its cost decides the step
-            new_state = self.inner_refiner.refine(new_state)
-        return new_state, model_cost_change, step_norm, lin_iters, jitter_used, dx
+                scaled = data if self.schur_solver is not None else self._scale_data(data, scale)
+                y, lin_iters, jitter_used = self._solve_damped(
+                    scaled, gs, diag * scale * scale, radius, jitter)
+            dx = y * scale
+            new_state = ev.plus(state, dx)
+            if ev.program.has_bounds:
+                # reference bounds semantics: the candidate is the projection
+                # onto the box, and the model sees the effective step
+                projected = ev.project_bounds(new_state)
+                if line_search and self.options.max_num_line_search_step_size_iterations > 0:
+                    new_state = self._projected_line_search(state, data, g, scale, dx, projected,
+                                                            cost)
+                else:
+                    new_state = projected
+                dx = ev.tangent_diff(new_state, state)
+                y = dx / scale
+            dx_jtj_dx = self._model_quadratic(data, dx, scale)
+            model_cost_change = -(torch.dot(g, dx) + 0.5 * dx_jtj_dx)
+            step_norm = torch.sqrt(torch.sum(y * y))  # scaled-space norm
+            if self.inner_refiner is not None:
+                # reference order: inner iterations refine the candidate before
+                # its cost decides the step
+                new_state = self.inner_refiner.refine(new_state)
+            return new_state, model_cost_change, step_norm, lin_iters, jitter_used, dx
 
     def _projected_line_search(self, state, data, g, scale, dx, projected, cost):
         """The projected Armijo line search on a step the projection clipped
@@ -540,7 +543,8 @@ class TrustRegionMinimizer:
 
     def try_step(self, new_state):
         """Residual-only evaluation of the candidate: (cost, |x|)."""
-        return self.ev.cost(new_state), self.ev.x_norm(new_state)
+        with span("skeres.step.candidate_cost"):
+            return self.ev.cost(new_state), self.ev.x_norm(new_state)
 
     # -- the outer loop ------------------------------------------------------------
 

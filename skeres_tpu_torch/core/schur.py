@@ -82,8 +82,6 @@ plan the rows are the point grid K3 reads anyway.
 from __future__ import annotations
 
 
-import time
-
 import numpy as np
 import torch
 
@@ -111,6 +109,7 @@ from skeres_tpu_torch.ops.segment_reduce import (
 )
 from skeres_tpu_torch.ops.small_inverse import batched_spd_inverse
 from skeres_tpu_torch.parallel.mesh import shard_rows
+from skeres_tpu_torch.utils.trace import span
 
 __all__ = ["SchurSolver", "padded_plan"]
 
@@ -325,20 +324,22 @@ class SchurSolver:
         def make_w_plan():
             # each (point, camera) cell receives at most a few observations
             lin = pt_idx * self.num_cams + cam_idx
-            if mesh is None:
-                return build_reduce_plan(lin, self.num_points * self.num_cams, device)
-            return build_sharded_reduce_plan(lin[slice(*evaluator.row_range[self.e_batch])],
-                                             self.num_points * self.num_cams, device)
+            with span("skeres.plan.w"):
+                if mesh is None:
+                    return build_reduce_plan(lin, self.num_points * self.num_cams, device)
+                return build_sharded_reduce_plan(lin[slice(*evaluator.row_range[self.e_batch])],
+                                                 self.num_points * self.num_cams, device)
 
         if w_fits and mesh is None:
             self.w_plan = make_w_plan()
 
         def make_plan(**kw):
-            return ExplicitSchurPlan(
-                cam_idx=cam_idx, pt_idx=pt_idx, num_cameras=self.num_cams,
-                num_points=self.num_points, f_size=self.f_size, e_size=self.e_size,
-                pad_waste=pad_waste, pair_cap=pair_cap, device=device, mesh=mesh, **kw,
-            )
+            with span("skeres.plan.pairs"):
+                return ExplicitSchurPlan(
+                    cam_idx=cam_idx, pt_idx=pt_idx, num_cameras=self.num_cams,
+                    num_points=self.num_points, f_size=self.f_size, e_size=self.e_size,
+                    pad_waste=pad_waste, pair_cap=pair_cap, device=device, mesh=mesh, **kw,
+                )
 
         # explicit-S plan (core/explicit_schur.py), on the BA structure: for
         # DENSE_SCHUR where dense W does not fit, for ITERATIVE_SCHUR where the
@@ -377,22 +378,23 @@ class SchurSolver:
         self.cluster_plan = None
         cluster_kinds = (PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL)
         if self._ba and iterative and preconditioner in cluster_kinds:
-            try:
-                self.cluster_plan = make_plan(
-                    cluster_of=np.arange(self.num_cams) // max(cluster_size, 1),
-                    cluster_band=preconditioner == PreconditionerType.CLUSTER_TRIDIAGONAL,
-                )
-            except ValueError:
-                self.cluster_plan = None
-            if self.cluster_plan is not None:
-                # camera -> its cluster slot, and slot -> camera (``nc`` for a
-                # padded slot, which reads an identity block or a zero row)
-                flat = self.cluster_plan.cluster_cam_of.reshape(-1)
-                pos_of_cam = np.zeros(self.num_cams, dtype=np.int64)
-                pos_of_cam[flat[flat >= 0]] = np.nonzero(flat >= 0)[0]
-                self._cluster_pos_of_cam = torch.as_tensor(pos_of_cam).to(device)
-                self._cluster_slot_cam = torch.as_tensor(
-                    np.where(flat >= 0, flat, self.num_cams)).to(device)
+            with span("skeres.plan.cluster"):
+                try:
+                    self.cluster_plan = make_plan(
+                        cluster_of=np.arange(self.num_cams) // max(cluster_size, 1),
+                        cluster_band=preconditioner == PreconditionerType.CLUSTER_TRIDIAGONAL,
+                    )
+                except ValueError:
+                    self.cluster_plan = None
+                if self.cluster_plan is not None:
+                    # camera -> its cluster slot, and slot -> camera (``nc`` for a
+                    # padded slot, which reads an identity block or a zero row)
+                    flat = self.cluster_plan.cluster_cam_of.reshape(-1)
+                    pos_of_cam = np.zeros(self.num_cams, dtype=np.int64)
+                    pos_of_cam[flat[flat >= 0]] = np.nonzero(flat >= 0)[0]
+                    self._cluster_pos_of_cam = torch.as_tensor(pos_of_cam).to(device)
+                    self._cluster_slot_cam = torch.as_tensor(
+                        np.where(flat >= 0, flat, self.num_cams)).to(device)
 
         # the preconditioner the damped solves apply: a cluster
         # preconditioner whose plan was rejected, and CLUSTER_TRIDIAGONAL on
@@ -420,12 +422,11 @@ class SchurSolver:
         # the camera-padded layout, per observation batch; where it holds
         # the observation batch, the camera blocks come from the placed rows
         # and neither the A rows nor the F^T F sums are kept
-        t0 = time.perf_counter()
         self.sorted_info = {}
         self._layout_notes = []
-        for bi in e_batches:
-            self._plan_padded(bi, sort_threshold, pad_waste)
-        self.layout_seconds = time.perf_counter() - t0
+        with span("skeres.plan.layout"):
+            for bi in e_batches:
+                self._plan_padded(bi, sort_threshold, pad_waste)
         if self.e_batch in self.sorted_info:
             self._keeps_a = self._keeps_ftf = False
 
@@ -547,15 +548,16 @@ class SchurSolver:
         ``parts`` (each (B, w_i)) side by side, into the camera-padded order:
         (nc*K, sum w_i), one ``index_select`` over the rows and a zero row
         that every unused slot reads."""
-        sinfo = self.sorted_info[bi]
-        n = parts[0].shape[0]
-        rows = parts[0].new_empty((n + 1, sum(p.shape[1] for p in parts)))
-        c = 0
-        for p in parts:
-            rows[:n, c : c + p.shape[1]] = p
-            c += p.shape[1]
-        rows[n].zero_()
-        return rows.index_select(0, sinfo["src"])
+        with span("skeres.schur.place"):
+            sinfo = self.sorted_info[bi]
+            n = parts[0].shape[0]
+            rows = parts[0].new_empty((n + 1, sum(p.shape[1] for p in parts)))
+            c = 0
+            for p in parts:
+                rows[:n, c : c + p.shape[1]] = p
+                c += p.shape[1]
+            rows[n].zero_()
+            return rows.index_select(0, sinfo["src"])
 
     def _cam_fe(self, asm, bi):
         """The placed rows of padded batch ``bi``: (its retained group, their
@@ -669,53 +671,55 @@ class SchurSolver:
         products to conjugate with, and E^T E is ``cam_raw[-1]`` conjugated
         (``skeres_tpu/core/schur.py:689-747``); without them the rows of
         ``data`` are placed as they come."""
-        e = self.e_size
-        ete0_raw = None if cam_raw is None or scale is None else cam_raw.get(-1)
-        ete0 = None
-        if ete0_raw is not None:
-            s_e = self._gather_ge(scale)
-            ete0 = ete0_raw.view(self.num_points, e, e) * s_e[:, :, None] * s_e[:, None, :]
-        per_batch = []
-        for bi, (r, jac) in enumerate(data):
-            E = self._split_E(bi, jac)
-            if E is not None and ete0_raw is None:
-                outer = torch.einsum("bme,bmf->bef", E, E).reshape(-1, e * e)
-                s_e = self.ev.program.batches[bi].slot_groups.index(self.elim_group)
-                red = self.ev.slot_reduce(bi, s_e, outer).reshape(self.num_points, e, e)
-                ete0 = red if ete0 is None else ete0 + red
-            per_batch.append((r, jac, E))
-        if ete0 is None:  # no residual touches the eliminated blocks
-            ete0 = data[0][1].new_zeros((self.num_points, e, e))
-        prep = dict(per_batch=per_batch, ete0=ete0)
-        if self.sorted_info:
-            reuse = cam_raw is not None and scale is not None
-            prep["cam"] = {bi: cam_raw[bi] if reuse else
-                           self._place_rows(bi, data[bi][1].flatten(1))
-                           for bi in self.sorted_info}
-            prep["cam_scale"] = scale if reuse else None
-        if self.w_plan is not None or not self._ba:
+        with span("skeres.schur.prepare"):
+            e = self.e_size
+            ete0_raw = None if cam_raw is None or scale is None else cam_raw.get(-1)
+            ete0 = None
+            if ete0_raw is not None:
+                s_e = self._gather_ge(scale)
+                ete0 = ete0_raw.view(self.num_points, e, e) * s_e[:, :, None] * s_e[:, None, :]
+            per_batch = []
+            for bi, (r, jac) in enumerate(data):
+                E = self._split_E(bi, jac)
+                if E is not None and ete0_raw is None:
+                    outer = torch.einsum("bme,bmf->bef", E, E).reshape(-1, e * e)
+                    s_e = self.ev.program.batches[bi].slot_groups.index(self.elim_group)
+                    red = self.ev.slot_reduce(bi, s_e, outer).reshape(self.num_points, e, e)
+                    ete0 = red if ete0 is None else ete0 + red
+                per_batch.append((r, jac, E))
+            if ete0 is None:  # no residual touches the eliminated blocks
+                ete0 = data[0][1].new_zeros((self.num_points, e, e))
+            prep = dict(per_batch=per_batch, ete0=ete0)
+            if self.sorted_info:
+                reuse = cam_raw is not None and scale is not None
+                prep["cam"] = {bi: cam_raw[bi] if reuse else
+                               self._place_rows(bi, data[bi][1].flatten(1))
+                               for bi in self.sorted_info}
+                prep["cam_scale"] = scale if reuse else None
+            if self.w_plan is not None or not self._ba:
+                return prep
+            nc, f = self.num_cams, self.f_size
+            plan = self.explicit_plan or self.cluster_plan
+            if plan is not None:
+                with span("skeres.schur.grid"):
+                    if plan.grid_is_reshape:
+                        # uniform point-grouped rows: write the grid rows directly
+                        grid = self._explicit_a_grid(per_batch, plan.kp, plan.np_ * plan.kp)
+                        a_rows = grid.view(-1, f * self.e_size)
+                        prep["explicit_grid"] = {"grid": grid}
+                    else:
+                        a_rows = self._explicit_a_flat(per_batch)
+                        prep["explicit_grid"] = plan.build_grid(a_rows)
+                if self._keeps_a:
+                    prep["explicit_a"] = a_rows
+            elif self._keeps_a:
+                prep["explicit_a"] = self._explicit_a_flat(per_batch)
+            if self._keeps_ftf:
+                Fs = per_batch[self.e_batch][1][:, :, self.f_col : self.f_col + f]
+                ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs).reshape(-1, f * f)
+                prep["explicit_ftf"] = self.ev.slot_reduce(
+                    self.e_batch, self.f_slot, ftf).reshape(nc, f, f)
             return prep
-        nc, f = self.num_cams, self.f_size
-        plan = self.explicit_plan or self.cluster_plan
-        if plan is not None:
-            if plan.grid_is_reshape:
-                # uniform point-grouped rows: write the grid rows directly
-                grid = self._explicit_a_grid(per_batch, plan.kp, plan.np_ * plan.kp)
-                a_rows = grid.view(-1, f * self.e_size)
-                prep["explicit_grid"] = {"grid": grid}
-            else:
-                a_rows = self._explicit_a_flat(per_batch)
-                prep["explicit_grid"] = plan.build_grid(a_rows)
-            if self._keeps_a:
-                prep["explicit_a"] = a_rows
-        elif self._keeps_a:
-            prep["explicit_a"] = self._explicit_a_flat(per_batch)
-        if self._keeps_ftf:
-            Fs = per_batch[self.e_batch][1][:, :, self.f_col : self.f_col + f]
-            ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs).reshape(-1, f * f)
-            prep["explicit_ftf"] = self.ev.slot_reduce(
-                self.e_batch, self.f_slot, ftf).reshape(nc, f, f)
-        return prep
 
     def _explicit_a_flat(self, per_batch):
         """The per-row A = F^T E blocks, flat: (B, f*e), f-major."""
@@ -1082,11 +1086,12 @@ class SchurSolver:
         """Materialize S (N_f, N_f): dense W while it fits its gate, else
         the explicit pair-product plan, else the column probe (the JAX
         package's priority)."""
-        if self.w_plan is not None:
-            return self._dense_s_dense_w(asm)
-        if self.explicit_plan is not None:
-            return self._dense_s_explicit(asm)
-        return self._dense_s_probe(asm)
+        with span("skeres.schur.s_build"):
+            if self.w_plan is not None:
+                return self._dense_s_dense_w(asm)
+            if self.explicit_plan is not None:
+                return self._dense_s_explicit(asm)
+            return self._dense_s_probe(asm)
 
     def _factor_solve(self, s, rhs, delta):
         """Solve (S + delta I) x = rhs, ``delta`` a device scalar read by no
@@ -1145,108 +1150,113 @@ class SchurSolver:
         else:
             dx_f, iters, jitter_used = self._solve_dense(asm, rhs, jitter0)
 
-        dx_e = self._back_substitute(asm, dx_f)
-        dx = torch.empty_like(g)
-        self._scatter_f(dx, dx_f)
-        dx[self.elim_offset : self.elim_offset + self.elim_span] = dx_e.reshape(-1)
+        with span("skeres.schur.back_substitute"):
+            dx_e = self._back_substitute(asm, dx_f)
+            dx = torch.empty_like(g)
+            self._scatter_f(dx, dx_f)
+            dx[self.elim_offset : self.elim_offset + self.elim_span] = dx_e.reshape(-1)
         return dx, iters, jitter_used
 
     def _solve_dense(self, asm, rhs, jitter0):
         """DENSE_SCHUR: factor the equilibrated S; (dx_f, iterations,
         jitter_used)."""
         s = self._dense_s(asm)
-        # symmetric equilibration: factor D^-1/2 S D^-1/2 (pivots ~1); in
-        # float32 it moves the point where assembly noise makes S
-        # numerically indefinite out by orders of magnitude
-        d_eq = torch.sqrt(torch.clamp(torch.diagonal(s), min=torch.finfo(s.dtype).tiny))
-        s.div_(d_eq[:, None]).div_(d_eq[None, :])  # S is this solve's own
-        rhs_eq = rhs / d_eq
-        dx_f, solve = self._factor_solve(s, rhs_eq, jitter0)
-        # mixed-precision refinement on the reduced camera system
-        # (reference: use_mixed_precision_solves): residuals in float64,
-        # corrections through the factor already made
-        for _ in range(self.refinement_iterations):
-            r64 = rhs_eq.double() - s.double() @ dx_f.double()
-            dx_f = dx_f + solve(r64.to(s.dtype))
+        with span("skeres.schur.factor"):
+            # symmetric equilibration: factor D^-1/2 S D^-1/2 (pivots ~1); in
+            # float32 it moves the point where assembly noise makes S
+            # numerically indefinite out by orders of magnitude
+            d_eq = torch.sqrt(torch.clamp(torch.diagonal(s), min=torch.finfo(s.dtype).tiny))
+            s.div_(d_eq[:, None]).div_(d_eq[None, :])  # S is this solve's own
+            rhs_eq = rhs / d_eq
+            dx_f, solve = self._factor_solve(s, rhs_eq, jitter0)
+            # mixed-precision refinement on the reduced camera system
+            # (reference: use_mixed_precision_solves): residuals in float64,
+            # corrections through the factor already made
+            for _ in range(self.refinement_iterations):
+                r64 = rhs_eq.double() - s.double() @ dx_f.double()
+                dx_f = dx_f + solve(r64.to(s.dtype))
 
-        # Jitter ladder (see skeres_tpu/core/schur.py:1488-1585): a failed
-        # factor (NaN, the only signal K1 gives) is retried on S + delta*I
-        # in the equilibrated space, delta escalating from two decades above
-        # the ratchet (at least 1e-3) to 0.1, at most two rungs; if even
-        # they fail, capped PCG on the equilibrated S with the block-Jacobi
-        # preconditioner read off S. Each rung and the PCG run under
-        # cond() on the factor's failure, nested, so that a factor that
-        # holds costs one host read eagerly and none in a CUDA graph.
-        delta = torch.clamp(torch.clamp(jitter0 * 100.0, min=1e-3), max=0.1)
-        jitter_used = jitter0.clone()
-        iters = torch.ones((), dtype=torch.int64, device=rhs.device)
+            # Jitter ladder (see skeres_tpu/core/schur.py:1488-1585): a failed
+            # factor (NaN, the only signal K1 gives) is retried on S + delta*I
+            # in the equilibrated space, delta escalating from two decades above
+            # the ratchet (at least 1e-3) to 0.1, at most two rungs; if even
+            # they fail, capped PCG on the equilibrated S with the block-Jacobi
+            # preconditioner read off S. Each rung and the PCG run under
+            # cond() on the factor's failure, nested, so that a factor that
+            # holds costs one host read eagerly and none in a CUDA graph.
+            delta = torch.clamp(torch.clamp(jitter0 * 100.0, min=1e-3), max=0.1)
+            jitter_used = jitter0.clone()
+            iters = torch.ones((), dtype=torch.int64, device=rhs.device)
 
-        def failed():
-            return ~torch.isfinite(dx_f).all()
+            def failed():
+                return ~torch.isfinite(dx_f).all()
 
-        def rung():
-            dx_f.copy_(self._factor_solve(s, rhs_eq, delta)[0])
-            jitter_used.copy_(delta)
-            delta.copy_(torch.clamp(delta * 100.0, max=0.1))
-            iters.add_(1)
+            def rung():
+                dx_f.copy_(self._factor_solve(s, rhs_eq, delta)[0])
+                jitter_used.copy_(delta)
+                delta.copy_(torch.clamp(delta * 100.0, max=0.1))
+                iters.add_(1)
 
-        def first_rung():
-            rung()
-            cond(failed(), second_rung)
+            def first_rung():
+                rung()
+                cond(failed(), second_rung)
 
-        def second_rung():
-            rung()
-            cond(failed(), fallback)
+            def second_rung():
+                rung()
+                cond(failed(), fallback)
 
-        def fallback():
-            if len(self.ret_blocks) == 1:  # the block-Jacobi preconditioner read off S
-                precond = self._block_inverse_apply([self._diag_blocks_of(s)])
-            else:  # the diagonal of S
-                d_s = torch.clamp(torch.diagonal(s).abs(), min=torch.finfo(s.dtype).tiny)
-                precond = lambda v: v / d_s  # noqa: E731
-            x, _ = preconditioned_conjugate_gradients(
-                lambda v: s @ v, rhs_eq, precond, FALLBACK_CG_ITERATIONS, 1e-8,
-            )
-            dx_f.copy_(x)
-            iters.fill_(FALLBACK_CG_ITERATIONS)
+            def fallback():
+                if len(self.ret_blocks) == 1:  # the block-Jacobi preconditioner read off S
+                    precond = self._block_inverse_apply([self._diag_blocks_of(s)])
+                else:  # the diagonal of S
+                    d_s = torch.clamp(torch.diagonal(s).abs(), min=torch.finfo(s.dtype).tiny)
+                    precond = lambda v: v / d_s  # noqa: E731
+                x, _ = preconditioned_conjugate_gradients(
+                    lambda v: s @ v, rhs_eq, precond, FALLBACK_CG_ITERATIONS, 1e-8,
+                )
+                dx_f.copy_(x)
+                iters.fill_(FALLBACK_CG_ITERATIONS)
 
-        cond(failed(), first_rung)
-        return dx_f / d_eq, iters, jitter_used
+            cond(failed(), first_rung)
+            return dx_f / d_eq, iters, jitter_used
 
     def _solve_iterative(self, asm, rhs):
         """ITERATIVE_SCHUR: PCG on S, implicit or explicit, with the chosen
         preconditioner (``skeres_tpu/core/schur.py:1586-1693``); (dx_f,
         iterations)."""
         P = PreconditionerType
-        kind = self.preconditioner_used
-        if self.use_explicit:
-            # reference: use_explicit_schur_complement: S once a solve, and
-            # every PCG step one dense matrix-vector product
-            s_explicit = self._dense_s_explicit(asm)
-            s_matvec = lambda v: s_explicit @ v  # noqa: E731
-        else:
-            s_matvec = lambda v: self._s_matvec(asm, v)  # noqa: E731
+        with span("skeres.schur.pcg"):
+            kind = self.preconditioner_used
+            if self.use_explicit:
+                # reference: use_explicit_schur_complement: S once a solve, and
+                # every PCG step one dense matrix-vector product
+                with span("skeres.schur.s_build"):
+                    s_explicit = self._dense_s_explicit(asm)
+                s_matvec = lambda v: s_explicit @ v  # noqa: E731
+            else:
+                s_matvec = lambda v: self._s_matvec(asm, v)  # noqa: E731
 
-        if self.use_explicit and kind == P.SCHUR_JACOBI and len(self.ret_blocks) == 1:
-            # the block diagonal read off the explicit S
-            precond = self._block_inverse_apply([self._diag_blocks_of(s_explicit)])
-        elif kind == P.CLUSTER_JACOBI:
-            precond = self._cluster_jacobi_precond(asm)
-        elif kind == P.CLUSTER_TRIDIAGONAL:
-            precond = self._cluster_tridiag_precond(asm)
-        elif kind == P.SCHUR_JACOBI:
-            precond = self._block_inverse_apply(self._schur_jacobi_blocks(asm))
-        elif kind == P.POWER_SERIES_EXPANSION:
-            precond = self._power_series_precond(asm, s_matvec)
-        else:  # JACOBI and IDENTITY: diagonal scaling
-            d_f = torch.clamp(asm["d_f"] + self._ftf_diag(asm), min=torch.finfo(rhs.dtype).tiny)
-            precond = lambda v: v / d_f  # noqa: E731
+            if self.use_explicit and kind == P.SCHUR_JACOBI and len(self.ret_blocks) == 1:
+                # the block diagonal read off the explicit S
+                precond = self._block_inverse_apply([self._diag_blocks_of(s_explicit)])
+            elif kind == P.CLUSTER_JACOBI:
+                precond = self._cluster_jacobi_precond(asm)
+            elif kind == P.CLUSTER_TRIDIAGONAL:
+                precond = self._cluster_tridiag_precond(asm)
+            elif kind == P.SCHUR_JACOBI:
+                precond = self._block_inverse_apply(self._schur_jacobi_blocks(asm))
+            elif kind == P.POWER_SERIES_EXPANSION:
+                precond = self._power_series_precond(asm, s_matvec)
+            else:  # JACOBI and IDENTITY: diagonal scaling
+                d_f = torch.clamp(asm["d_f"] + self._ftf_diag(asm),
+                                  min=torch.finfo(rhs.dtype).tiny)
+                precond = lambda v: v / d_f  # noqa: E731
 
-        # reference parity (iterative_schur_complement_solver.cc): the Q
-        # test with q_tolerance = eta; the residual test is off
-        return preconditioned_conjugate_gradients(
-            s_matvec, rhs, precond, self.max_cg_iterations, 0.0, q_tolerance=self.eta
-        )
+            # reference parity (iterative_schur_complement_solver.cc): the Q
+            # test with q_tolerance = eta; the residual test is off
+            return preconditioned_conjugate_gradients(
+                s_matvec, rhs, precond, self.max_cg_iterations, 0.0, q_tolerance=self.eta
+            )
 
     def _power_series_precond(self, asm, s_matvec):
         """POWER_SERIES_EXPANSION (reference:

@@ -57,6 +57,7 @@ from skeres_tpu_torch.core.types import (
 )
 from skeres_tpu_torch.parallel.mesh import check_obs_mesh
 from skeres_tpu_torch.utils.checkpoint import load_checkpoint
+from skeres_tpu_torch.utils.trace import next_solve_number, span
 
 __all__ = ["TRACE_FILE", "solve"]
 
@@ -90,7 +91,14 @@ def solve(
     program: Optional[Program] = None,
 ) -> Summary:
     """Solve the problem; writes the solution back into the problem's
-    parameter arrays and returns a Summary (reference: ``ceres::Solve``)."""
+    parameter arrays and returns a Summary (reference: ``ceres::Solve``).
+    Under a profiler the solve is the span ``skeres.solve``, with the
+    process's solve number (``utils/trace.py``)."""
+    with span("skeres.solve", solve=next_solve_number()):
+        return _solve(options, problem, program)
+
+
+def _solve(options: SolverOptions, problem: Problem, program: Optional[Program]) -> Summary:
     summary = Summary()
     total_start = time.time()
 
@@ -111,7 +119,8 @@ def solve(
     # -- preprocess -----------------------------------------------------------
     t0 = time.time()
     if program is None:
-        program = problem.compile()
+        with span("skeres.plan.compile"):
+            program = problem.compile()
     summary.num_parameter_blocks = program.num_parameter_blocks
     summary.num_parameters = program.num_parameters
     summary.num_effective_parameters = program.num_effective_parameters
@@ -141,36 +150,38 @@ def solve(
 
     solver_type = _select_linear_solver(options, program)
     summary.linear_solver_type_used = solver_type
-    evaluator = Evaluator(
-        program,
-        device=device,
-        dtype=options.dtype,
-        chunk_size=options.evaluation_chunk_size,
-        diff_mode=options.jacobian_diff_mode,
-        mesh=options.mesh,
-    )
+    with span("skeres.plan.evaluator"):
+        evaluator = Evaluator(
+            program,
+            device=device,
+            dtype=options.dtype,
+            chunk_size=options.evaluation_chunk_size,
+            diff_mode=options.jacobian_diff_mode,
+            mesh=options.mesh,
+        )
     summary.num_devices = evaluator.n_shards
     schur_solver = None
     if solver_type in (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR):
         log = logging.getLogger("skeres_tpu_torch")
-        schur_solver = SchurSolver(
-            evaluator,
-            iterative=solver_type == LinearSolverType.ITERATIVE_SCHUR,
-            preconditioner=options.preconditioner_type,
-            max_cg_iterations=options.max_linear_solver_iterations,
-            eta=options.eta,
-            refinement_iterations=(options.max_num_refinement_iterations
-                                   if options.use_mixed_precision_solves else 0),
-            max_power_series_terms=options.max_num_spse_iterations,
-            spse_tolerance=options.spse_tolerance,
-            sort_threshold=options.jacobian_sort_threshold,
-            pad_waste=options.jacobian_pad_waste,
-            use_explicit=options.use_explicit_schur_complement,
-            explicit_s_limit_bytes=options.explicit_schur_limit_bytes,
-            pair_cap=options.schur_pair_cap,
-            cluster_size=options.cluster_jacobi_size,
-            cluster_boost=options.cluster_jacobi_boost,
-        )
+        with span("skeres.plan.schur"):
+            schur_solver = SchurSolver(
+                evaluator,
+                iterative=solver_type == LinearSolverType.ITERATIVE_SCHUR,
+                preconditioner=options.preconditioner_type,
+                max_cg_iterations=options.max_linear_solver_iterations,
+                eta=options.eta,
+                refinement_iterations=(options.max_num_refinement_iterations
+                                       if options.use_mixed_precision_solves else 0),
+                max_power_series_terms=options.max_num_spse_iterations,
+                spse_tolerance=options.spse_tolerance,
+                sort_threshold=options.jacobian_sort_threshold,
+                pad_waste=options.jacobian_pad_waste,
+                use_explicit=options.use_explicit_schur_complement,
+                explicit_s_limit_bytes=options.explicit_schur_limit_bytes,
+                pair_cap=options.schur_pair_cap,
+                cluster_size=options.cluster_jacobi_size,
+                cluster_boost=options.cluster_jacobi_boost,
+            )
         used = schur_solver.preconditioner_used
         if options.preconditioner_type == PreconditionerType.SUBSET:
             # reference semantics: SUBSET serves CGNR only
@@ -245,7 +256,8 @@ def solve(
     # the device loop's first linearization and CUDA-graph capture count as
     # preprocessing, as the JAX package's compilation does
     if isinstance(minimizer, DeviceLoopMinimizer):
-        minimizer.compile_programs(state)
+        with span("skeres.device_loop.capture"):
+            minimizer.compile_programs(state)
         summary.device_loop_capture_time_in_seconds = minimizer.capture_seconds
     synchronize(device)
     summary.preprocessor_time_in_seconds = time.time() - t0
@@ -258,12 +270,13 @@ def solve(
         activities = [ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
+        with profile(activities=activities) as prof, span("skeres.minimize"):
             state = minimizer.minimize(state)
             synchronize(device)
     else:
-        state = minimizer.minimize(state)
-        synchronize(device)
+        with span("skeres.minimize"):
+            state = minimizer.minimize(state)
+            synchronize(device)
     summary.minimizer_time_in_seconds = time.time() - t0
     if options.trace_dir:
         os.makedirs(options.trace_dir, exist_ok=True)
@@ -271,7 +284,8 @@ def solve(
 
     # -- postprocess -------------------------------------------------------------
     t0 = time.time()
-    program.write_back(state)
+    with span("skeres.postprocess"):
+        program.write_back(state)
     if summary.final_cost < 0.0 and summary.iterations:
         summary.final_cost = min(it.cost for it in summary.iterations)
     summary.postprocessor_time_in_seconds = time.time() - t0

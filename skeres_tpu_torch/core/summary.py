@@ -2,7 +2,10 @@
 ``include/ceres/solver.h`` — ``Solver::Summary``, ``IterationSummary`` — and
 ``internal/ceres/solver.cc`` for the report formatting). Same fields and
 report as ``skeres_tpu/core/summary.py``; every time field is read from the
-host clock after the device has been synchronized."""
+host clock after the device has been synchronized, except the device loop's
+step times (its linear-solver and evaluation timers and each iteration's
+times), which come from the device's own clock stamped inside each step
+(``core/device_loop.py``)."""
 
 from __future__ import annotations
 
@@ -71,6 +74,9 @@ class Summary:
     residual_evaluation_time_in_seconds: float = 0.0
     jacobian_evaluation_time_in_seconds: float = 0.0
     num_linear_solves: int = 0
+    # the device loop's replays of its captured step, those that ran no
+    # step (past a termination, in a chunk's tail) included
+    num_device_loop_replays: int = 0
     # dogleg (host loop): the linear solver iterations of each Gauss-Newton
     # solve (one a linearization; a Schur solve counts 1 + its jitter rungs),
     # and the steps that took the Cauchy point (the GN point not finite, or

@@ -1,5 +1,5 @@
-// CUDA-graph conditional IF and WHILE nodes for stream capture, with a plain C
-// interface.
+// CUDA-graph conditional IF and WHILE nodes for stream capture, and the device
+// clock's stamps, with a plain C interface.
 //
 // A host-side helper of core/graph.py, not a port of a TPU kernel: the JAX
 // package's device loop branches with lax.cond inside one XLA program
@@ -21,7 +21,12 @@
 //                           one-thread kernel that sets the handle from a
 //                           device bool;
 //   skeres_capture_to_graph begin capturing another stream into a body;
-//   skeres_capture_end      end that capture.
+//   skeres_capture_end      end that capture;
+//   skeres_stamp            launch a one-thread kernel that writes the device's
+//                           %globaltimer (nanoseconds) into dst[*index], or
+//                           dst[0] with no index: the device loop's stamps of
+//                           each step's phases, captured into the step like
+//                           any kernel.
 //
 // Work captured into an IF body runs on a replay only when the bool was true
 // at that point of the replay; a WHILE body runs again and again for as long
@@ -72,6 +77,13 @@ int cond_node_begin(void* stream, const void* pred, cudaGraphConditionalNodeType
   return 0;
 }
 
+__global__ void stamp_kernel(long long* dst, const long long* index, int n) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  const long long k = index ? *index : 0;
+  if (k >= 0 && k < n) dst[k] = static_cast<long long>(t);
+}
+
 }  // namespace
 
 extern "C" int skeres_if_node_begin(void* stream, const void* pred, void** body_out) {
@@ -102,4 +114,10 @@ extern "C" int skeres_capture_to_graph(void* stream, void* graph) {
 extern "C" int skeres_capture_end(void* stream) {
   cudaGraph_t graph;
   return static_cast<int>(cudaStreamEndCapture(static_cast<cudaStream_t>(stream), &graph));
+}
+
+extern "C" int skeres_stamp(void* stream, void* dst, const void* index, int n) {
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(dst), static_cast<const long long*>(index), n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -268,6 +268,17 @@ def test_device_loop_on_card_matches_cpu(cuda):
     np.testing.assert_allclose([it.cost for it in card.iterations],
                                [it.cost for it in cpu.iterations], rtol=1e-8)
     np.testing.assert_allclose(card_cams, cpu_cams, rtol=1e-6, atol=1e-9)
+    # the step's stamps (%globaltimer on the card): the timers, each
+    # iteration's times, and the replays of chunks of 4, 4 and 2
+    for s in (card, cpu):
+        assert s.num_device_loop_replays == 10
+        assert min(s.linear_solver_time_in_seconds, s.residual_evaluation_time_in_seconds,
+                   s.jacobian_evaluation_time_in_seconds) > 0.0
+        assert all(0.0 < it.step_solver_time_in_seconds < it.iteration_time_in_seconds
+                   for it in s.iterations[1:])
+        cumulative = [it.cumulative_time_in_seconds for it in s.iterations]
+        assert all(b > a for a, b in zip(cumulative, cumulative[1:]))
+        assert cumulative[-1] <= s.minimizer_time_in_seconds
 
 
 @pytest.mark.gpu
