@@ -12,7 +12,7 @@ of the dense-W path passes its gate (venice-1778: 192 GB):
   order);
 - the OFF-diagonal blocks are the pair products ``Y_pk A_pl^T`` (k < l)
   of every point, computed by K3 (``ops/pair_product.py``), reduced onto
-  the unique camera pairs by a host-planned hierarchical sum: each level
+  the unique camera pairs by a planned hierarchical sum: each level
   is one index-select, a reshape and a sum, with fan-in <= ``pair_cap``.
   It is deterministic, where an ``index_add_`` would sum in a different
   order on every run;
@@ -27,14 +27,19 @@ unique-pair table stays small however many cameras, and
 batched per-cluster matrices. K3 computes the pair products of either
 plan; on a cluster plan most pairs are invalid and come out as zero rows.
 
-All index arrays are problem structure, built once on the host.
+All index arrays are problem structure, built once, by torch ops on the
+device of the plan (sorts, ``unique_consecutive``, ``cumsum``,
+``repeat_interleave``): on the card the solver's plan reads the
+evaluator's copies of the row indices and adds no copy from the host. Each
+array equals the JAX package's numpy plan element for element.
 
 Under a mesh (``mesh=``, the counterpart of ``_plan_sharded``,
 ``skeres_tpu/core/explicit_schur.py:469-606``) the observation rows are
 split over the ranks by the JAX package's convention
 (``parallel/mesh.py``), so the pair products are local to a rank for
-every point whose rows all lie on it. Every rank plans on the host from
-the whole problem, so that all take the same decisions: the points that
+every point whose rows all lie on it. Every rank plans from the whole
+problem (its point grid on the device, the split on the host from copies
+of it), so that all take the same decisions: the points that
 straddle a shard boundary (at most ``max(4 ns, 64)``, or the plan is
 rejected), each shard's list of whole points, and the same two
 ``ValueError`` gates (too many straddlers, shard imbalance) as the JAX
@@ -77,13 +82,26 @@ class _SumLevel(NamedTuple):
     cap: int
 
 
+def _np_median(counts: torch.Tensor) -> int:
+    """``int(np.median(counts))`` of non-negative integer counts: an
+    even-length array's median is the mean of its two middle values,
+    truncated (``torch.median`` takes the lower of the two)."""
+    s = torch.sort(counts).values
+    n = len(s)
+    return int(s[n // 2]) if n % 2 else int(s[n // 2 - 1] + s[n // 2]) // 2
+
+
+def _exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x, 0) - x
+
+
 def _hierarchical_sum_plan(
-    ids: np.ndarray, raw_rows: np.ndarray, n_rows: int, cap: int = 32,
+    ids: torch.Tensor, raw_rows: torch.Tensor, n_rows: int, cap: int = 32,
     adaptive: bool = False,
-) -> Tuple[list, np.ndarray]:
+) -> Tuple[list, torch.Tensor]:
     """Plan ``out[u] = sum(values[raw_rows][ids == uniq[u]])`` as static
-    gather+reshape+sum levels with fan-in <= cap per level (numpy,
-    vectorized; venice has ~10M pair rows).
+    gather+reshape+sum levels with fan-in <= cap per level (vectorized
+    torch on the device of ``ids``; venice has ~10M pair rows).
 
     ``adaptive=True`` shrinks each level's fan-in toward the median group
     size (power of two, >= 2), bounding the padded-row waste even for
@@ -91,48 +109,50 @@ def _hierarchical_sum_plan(
     one or two extra levels.
 
     Returns (levels, uniq_ids (n_uniq,)) with levels as raw
-    ``(src ndarray, n_dest, cap)`` tuples. Level k's gather indexes the
+    ``(src (n_dest*cap,) int64, n_dest, cap)`` tuples, equal element for
+    element to the JAX package's numpy plan. Level k's gather indexes the
     output rows of level k-1 (level 0 indexes the raw value rows); the
     sentinel index == n_rows_of_previous_level selects a zero row appended
     at run time.
     """
-    order = np.argsort(ids, kind="stable")
-    sorted_ids = ids[order]
-    uniq, start = np.unique(sorted_ids, return_index=True)
-    counts = np.diff(np.append(start, len(ids)))
+    dev = ids.device
+    sorted_ids, order = torch.sort(ids, stable=True)
+    uniq, counts = torch.unique_consecutive(sorted_ids, return_counts=True)
+    del sorted_ids
 
     levels = []
     n_prev = n_rows
-    cur_counts = counts.astype(np.int64)
-    cur_rows = raw_rows[order].astype(np.int64)  # grouped by id
+    cur_counts = counts
+    cur_rows = raw_rows.to(torch.int64)[order]  # grouped by id
+    del order
     max_cap = cap
     while True:
         if adaptive and len(cur_counts):
-            med = max(int(np.median(cur_counts)), 2)
-            cap = min(max_cap, 1 << int(np.ceil(np.log2(med))))
+            med = max(_np_median(cur_counts), 2)
+            cap = min(max_cap, 1 << (med - 1).bit_length())  # 2 ** ceil(log2(med))
         n_dest = len(cur_counts)
         n_d = (cur_counts + cap - 1) // cap  # sub-rows per destination
-        sub_start = np.concatenate([[0], np.cumsum(n_d)[:-1]]).astype(np.int64)
         n_sub = int(n_d.sum())
-        # position of the j-th row of destination d: sub_start[d]*cap + j
-        dest_of_row = np.repeat(np.arange(n_dest), cur_counts)
-        starts = np.concatenate([[0], np.cumsum(cur_counts)[:-1]]).astype(np.int64)
-        j_within = np.arange(len(cur_rows)) - starts[dest_of_row]
-        positions = sub_start[dest_of_row] * cap + j_within
-        src = np.full(n_sub * cap, n_prev, dtype=np.int64)  # sentinel
-        src[positions] = cur_rows
+        # the j-th row of destination d goes to sub_start[d]*cap + j, and
+        # it is row starts[d] + j of cur_rows
+        shift = torch.repeat_interleave(
+            _exclusive_cumsum(n_d) * cap - _exclusive_cumsum(cur_counts), cur_counts,
+            output_size=len(cur_rows))
+        src = torch.full((n_sub * cap,), n_prev, dtype=torch.int64, device=dev)  # sentinel
+        src[torch.arange(len(cur_rows), device=dev) + shift] = cur_rows
+        del shift
         levels.append((src, n_sub, cap))
-        if n_dest == 0 or (n_d == 1).all():
+        if n_dest == 0 or bool((n_d == 1).all()):
             break
         # next level reduces each destination's sub-rows
-        cur_rows = np.arange(n_sub, dtype=np.int64)
+        cur_rows = torch.arange(n_sub, device=dev)
         cur_counts = n_d
         n_prev = n_sub
     return levels, uniq
 
 
 def _freeze_levels(levels, device) -> List[_SumLevel]:
-    return [_SumLevel(torch.as_tensor(src).to(device), n_dest, cap) for src, n_dest, cap in levels]
+    return [_SumLevel(src.to(device), n_dest, cap) for src, n_dest, cap in levels]
 
 
 def _apply_hierarchical_sum(levels: List[_SumLevel], values: torch.Tensor) -> torch.Tensor:
@@ -160,27 +180,27 @@ def _check_level0_waste(levels, n_rows: int, factor: float = 3.0):
             )
 
 
-def _pair_metadata(grid_cam: np.ndarray, num_cameras: int, iu, ju, cluster_of=None,
+def _pair_metadata(grid_cam: torch.Tensor, num_cameras: int, iu, ju, cluster_of=None,
                    cluster_band=False):
     """Per-point-row pair bookkeeping from a (Pn, kp) camera grid:
     (swap (Pn, npair) bool, valid (Pn, npair) bool, pair_id (Pn*npair,)
-    with -1 for invalid). With ``cluster_of`` (a cluster id per camera),
-    pairs whose cameras lie in different clusters are dropped, the
-    CLUSTER_JACOBI restriction; ``cluster_band`` keeps the pairs of
-    adjacent clusters too (the CLUSTER_TRIDIAGONAL band)."""
+    with -1 for invalid), on the grid's device. With ``cluster_of`` (a
+    cluster id per camera, a tensor on that device), pairs whose cameras
+    lie in different clusters are dropped, the CLUSTER_JACOBI restriction;
+    ``cluster_band`` keeps the pairs of adjacent clusters too (the
+    CLUSTER_TRIDIAGONAL band)."""
     npair = len(iu)
     ca = grid_cam[:, iu].reshape(-1)
     cb = grid_cam[:, ju].reshape(-1)
     pair_valid = (ca >= 0) & (cb >= 0)
     if cluster_of is not None:
-        dcl = np.abs(cluster_of[np.clip(ca, 0, None)] - cluster_of[np.clip(cb, 0, None)])
+        dcl = (cluster_of[ca.clamp(min=0)] - cluster_of[cb.clamp(min=0)]).abs()
         pair_valid &= dcl <= (1 if cluster_band else 0)
     swap = ca > cb
-    lo = np.where(swap, cb, ca)
-    hi = np.where(swap, ca, cb)
-    pair_id = np.where(pair_valid, lo * num_cameras + hi, -1)
+    pair_id = torch.where(pair_valid, torch.minimum(ca, cb) * num_cameras + torch.maximum(ca, cb),
+                          -1)
     pn = grid_cam.shape[0]
-    return swap.reshape(pn, npair), pair_valid.reshape(pn, npair), pair_id
+    return swap.view(pn, npair), pair_valid.view(pn, npair), pair_id
 
 
 def _transpose_blocks(flat: torch.Tensor, f: int) -> torch.Tensor:
@@ -188,12 +208,12 @@ def _transpose_blocks(flat: torch.Tensor, f: int) -> torch.Tensor:
     return flat.view(-1, f, f).transpose(1, 2).reshape(-1, f * f)
 
 
-def _level0_rows(ids: np.ndarray, cap: int) -> int:
+def _level0_rows(ids: torch.Tensor, cap: int) -> int:
     """The padded rows of level 0 of a fixed-cap hierarchical sum over
     ``ids``: what ``_check_level0_waste`` reads, without the plan."""
     if len(ids) == 0:
         return 0
-    _, counts = np.unique(ids, return_counts=True)
+    _, counts = torch.unique(ids, return_counts=True)
     return int(((counts + cap - 1) // cap).sum()) * cap
 
 
@@ -204,8 +224,8 @@ class ExplicitSchurPlan:
 
     def __init__(
         self,
-        cam_idx: np.ndarray,  # (B,) camera block id per row
-        pt_idx: np.ndarray,  # (B,) point block id per row
+        cam_idx,  # (B,) camera block id per row: an int64 tensor or array
+        pt_idx,  # (B,) point block id per row
         num_cameras: int,
         num_points: int,
         f_size: int,
@@ -222,7 +242,12 @@ class ExplicitSchurPlan:
         device,
         mesh=None,
     ):
-        B = len(cam_idx)  # the port's batches have no pad rows
+        # the plan is built on ``device``: index tensors already there (the
+        # evaluator's) are read in place
+        cam = torch.as_tensor(cam_idx, device=device).long()
+        pt = torch.as_tensor(pt_idx, device=device).long()
+        dev = cam.device
+        B = len(cam)  # the port's batches have no pad rows
         self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
         self.n_shards = 1 if self.mesh is None else mesh.size()
         self.rank = 0 if self.mesh is None else mesh.get_local_rank()
@@ -234,7 +259,7 @@ class ExplicitSchurPlan:
         self.cluster_band = bool(cluster_band)
 
         # -- point grid stats + skew gate ----------------------------------
-        counts = np.bincount(pt_idx, minlength=num_points)
+        counts = torch.bincount(pt, minlength=num_points)
         kp = int(counts.max()) if num_points else 0
         self.kp = kp
         if num_points * kp > pad_waste * B * 2.0:
@@ -247,68 +272,71 @@ class ExplicitSchurPlan:
         self.chunk_points = max(256, chunk_value_budget // max(1, npairs * f_size * f_size * 4))
 
         with span("skeres.plan.pairs.metadata"):
-            order = np.argsort(pt_idx, kind="stable")
-            sorted_pt = pt_idx[order]
-            starts = np.searchsorted(sorted_pt, np.arange(num_points))
-            pos = np.arange(B) - starts[sorted_pt]
-            grid_src = np.full(num_points * kp, B, dtype=np.int64)  # sentinel
+            sorted_pt, order = torch.sort(pt, stable=True)
+            pos = torch.arange(B, device=dev) - _exclusive_cumsum(counts)[sorted_pt]
+            grid_src = torch.full((num_points * kp,), B, dtype=torch.int64, device=dev)  # sentinel
             grid_src[sorted_pt * kp + pos] = order
-            grid_cam = np.full(num_points * kp, -1, dtype=np.int64)
-            gvalid = grid_src < B
-            grid_cam[gvalid] = cam_idx[grid_src[gvalid]]
-            grid_cam = grid_cam.reshape(num_points, kp)
+            del sorted_pt, order, pos
+            grid_cam = torch.cat([cam, cam.new_full((1,), -1)])[grid_src].view(num_points, kp)
+            kl = self.pair_kl.long()
+            cluster_t = None if self.cluster_of is None else torch.as_tensor(self.cluster_of,
+                                                                            device=dev)
             swap_g, valid_g, pair_id_g = _pair_metadata(
-                grid_cam, num_cameras, iu, ju, self.cluster_of, self.cluster_band)
-            uniq = np.unique(pair_id_g[pair_id_g >= 0])
-            self.n_uniq = n_uniq = len(uniq)
+                grid_cam, num_cameras, kl[0], kl[1], cluster_t, self.cluster_band)
+            del grid_cam
+            rows = torch.nonzero(pair_id_g >= 0).view(-1)
+            ids = pair_id_g[rows]
 
         with span("skeres.plan.pairs.sums"):
             self.n_straddle = 0  # points whose rows straddle a shard boundary
             if self.mesh is None:
                 # uniform point-sorted rows: the grid is the identity reshape of the rows
                 self.grid_is_reshape = bool(
-                    num_points * kp == B and (counts == kp).all()
-                    and (grid_src == np.arange(B)).all()
+                    num_points * kp == B and bool((counts == kp).all())
+                    and torch.equal(grid_src, torch.arange(B, device=dev))
                 )
-                self.grid_src = (None if self.grid_is_reshape
-                                 else torch.as_tensor(grid_src).to(device))
-                self.swap_mask = torch.as_tensor(swap_g).to(device)
-                self.pair_valid = torch.as_tensor(valid_g).to(device)
-                rows = np.nonzero(pair_id_g >= 0)[0]
+                self.grid_src = None if self.grid_is_reshape else grid_src
+                self.swap_mask = swap_g
+                self.pair_valid = valid_g
                 self.n_pair_rows = len(pair_id_g)
-                levels, uniq_l = _hierarchical_sum_plan(
-                    pair_id_g[rows], rows, self.n_pair_rows, cap=pair_cap, adaptive=True,
+                del pair_id_g
+                # its sort of the pair ids gives the unique pairs too
+                levels, uniq = _hierarchical_sum_plan(
+                    ids, rows, self.n_pair_rows, cap=pair_cap, adaptive=True,
                 )
-                assert len(uniq_l) == n_uniq
+                del ids, rows
                 _check_level0_waste(levels, self.n_pair_rows)
                 self.levels = _freeze_levels(levels, device)
+                del levels
             else:
                 self.grid_is_reshape = False
-                self._plan_sharded(B, pt_idx, grid_src.reshape(num_points, kp), swap_g, valid_g,
-                                   pair_id_g.reshape(num_points, npairs), uniq, pad_waste,
-                                   pair_cap, device)
+                uniq = torch.unique(ids)
+                self._plan_sharded(B, pt.cpu().numpy(),
+                                   grid_src.cpu().numpy().reshape(num_points, kp),
+                                   swap_g.cpu().numpy(), valid_g.cpu().numpy(),
+                                   pair_id_g.cpu().numpy().reshape(num_points, npairs),
+                                   uniq.cpu(), pad_waste, pair_cap, device)
+            self.n_uniq = n_uniq = len(uniq)
 
             # -- dense-S gather map: block position (ci, cj) -> table row ------
             # SAME-CAMERA pairs (a point observed twice by one camera) store a
             # real uniq row at the diagonal position; the dense builds fold both
             # of its read directions into the per-camera diagonal region
-            pos2u = np.full(num_cameras * num_cameras, n_uniq, dtype=np.int64)
-            pos2u[uniq] = np.arange(n_uniq)
-            lo_all = uniq // num_cameras
-            hi_all = uniq % num_cameras
-            pos2u_t = np.full(num_cameras * num_cameras, n_uniq, dtype=np.int64)
-            pos2u_t[hi_all * num_cameras + lo_all] = np.arange(n_uniq)
-            dd = np.arange(num_cameras)
-            self.diag_pair_idx = torch.as_tensor(pos2u[dd * num_cameras + dd]).to(device)
+            u_rows = torch.arange(n_uniq, device=dev)
+            pos2u = torch.full((num_cameras * num_cameras,), n_uniq, dtype=torch.int64,
+                               device=dev)
+            pos2u[uniq] = u_rows
+            pos2u_t = torch.full_like(pos2u, n_uniq)
+            pos2u_t[(uniq % num_cameras) * num_cameras + uniq // num_cameras] = u_rows
+            dd = torch.arange(num_cameras, device=dev)
+            self.diag_pair_idx = pos2u[dd * (num_cameras + 1)]
             # one read per position from the combined table
             # [uniq | uniq^T | per-camera diagonal region | zero]
-            comb = np.full(num_cameras * num_cameras, 2 * n_uniq + num_cameras, np.int64)
-            has_up = pos2u < n_uniq
-            comb[has_up] = pos2u[has_up]
-            has_low = (pos2u_t < n_uniq) & ~has_up
-            comb[has_low] = n_uniq + pos2u_t[has_low]
-            comb[dd * num_cameras + dd] = 2 * n_uniq + dd
-            self.pos2u_combined = torch.as_tensor(comb).to(device)
+            comb = torch.where(pos2u < n_uniq, pos2u,
+                               torch.where(pos2u_t < n_uniq, n_uniq + pos2u_t,
+                                           2 * n_uniq + num_cameras))
+            comb[dd * (num_cameras + 1)] = 2 * n_uniq + dd
+            self.pos2u_combined = comb
 
             # -- cluster block maps: slot (c, i, j) -> unique-pair row ----------
             if self.cluster_of is not None:
@@ -321,25 +349,27 @@ class ExplicitSchurPlan:
                 self.n_clusters = ncl
                 self.cluster_slot_size = cs
                 self.cluster_cam_of = cam_of  # (ncl, cs) on the host, -1 = pad
+                cam_of_t = torch.as_tensor(cam_of, device=dev)
 
                 def block_maps(rows_cam, cols_cam):
                     """Per (cluster, i, j) the unique-pair row of the pair
                     (rows_cam[c, i], cols_cam[c, j]) in either orientation;
                     ``n_uniq`` (a zero row) where unobserved or padded."""
-                    a = np.broadcast_to(rows_cam[:, :, None], (len(rows_cam), cs, cs))
-                    b = np.broadcast_to(cols_cam[:, None, :], (len(rows_cam), cs, cs))
+                    shape = (len(rows_cam), cs, cs)
+                    a = rows_cam[:, :, None].expand(shape)
+                    b = cols_cam[:, None, :].expand(shape)
                     ok = ((a >= 0) & (b >= 0)).reshape(-1)
-                    flat = np.where(ok, (np.clip(a, 0, None) * num_cameras
-                                         + np.clip(b, 0, None)).reshape(-1), 0)
-                    return (torch.as_tensor(np.where(ok, pos2u[flat], n_uniq)).to(device),
-                            torch.as_tensor(np.where(ok, pos2u_t[flat], n_uniq)).to(device))
+                    flat = torch.where(ok, (a.clamp(min=0) * num_cameras
+                                            + b.clamp(min=0)).reshape(-1), 0)
+                    return (torch.where(ok, pos2u[flat], n_uniq),
+                            torch.where(ok, pos2u_t[flat], n_uniq))
 
-                self.cluster_map_u, self.cluster_map_l = block_maps(cam_of, cam_of)
+                self.cluster_map_u, self.cluster_map_l = block_maps(cam_of_t, cam_of_t)
                 # cluster c (rows) against cluster c + 1 (columns); both
                 # orientations, so the build holds for any cluster_of
                 self.band_map_u = self.band_map_l = None
                 if self.cluster_band and ncl > 1:
-                    self.band_map_u, self.band_map_l = block_maps(cam_of[:-1], cam_of[1:])
+                    self.band_map_u, self.band_map_l = block_maps(cam_of_t[:-1], cam_of_t[1:])
 
     # -- the sharded plan (skeres_tpu/core/explicit_schur.py:469-606) --------
 
@@ -348,9 +378,10 @@ class ExplicitSchurPlan:
         """This rank's grid of whole points, its hierarchical sum ending in a
         placement onto the global unique-pair table, and the replicated
         straddle fixup. ``grid_src``, ``swap_g``, ``valid_g`` and
-        ``pair_id_g`` are the whole problem's point grid, one row a point
-        (rows of a point in row order, as the JAX package's per-shard
-        grids take them)."""
+        ``pair_id_g`` are host copies of the whole problem's point grid, one
+        row a point (rows of a point in row order, as the JAX package's
+        per-shard grids take them); ``uniq`` the global unique pair ids (a
+        CPU tensor)."""
         ns, kp, npairs = self.n_shards, self.kp, self.npairs
         bs = -(-B // ns)
         lo, hi = shard_rows(B, ns, self.rank)
@@ -383,7 +414,7 @@ class ExplicitSchurPlan:
         n_rows0 = p_max * npairs
         for pts in self.shard_points:
             ids = pair_id_g[pts].reshape(-1)
-            n0 = _level0_rows(ids[ids >= 0], cap)
+            n0 = _level0_rows(torch.from_numpy(ids[ids >= 0]), cap)
             if n0 >= (1 << 20) and n0 > 3.0 * max(n_rows0, 1):
                 raise ValueError(
                     "unique-pair fan-in too low for the hierarchical padded "
@@ -401,8 +432,10 @@ class ExplicitSchurPlan:
             its placement onto the global unique-pair table."""
             ids = pair_id_g[pts].reshape(-1)
             rows = np.nonzero(ids >= 0)[0]
-            levels, uniq_s = _hierarchical_sum_plan(ids[rows], rows, len(pts) * npairs, cap=cap)
-            place = torch.as_tensor(np.searchsorted(uniq, uniq_s)).to(device)
+            levels, uniq_s = _hierarchical_sum_plan(torch.from_numpy(ids[rows]),
+                                                    torch.from_numpy(rows), len(pts) * npairs,
+                                                    cap=cap)
+            place = torch.searchsorted(uniq, uniq_s).to(device)
             return _freeze_levels(levels, device), place
 
         pts = self.shard_points[self.rank]

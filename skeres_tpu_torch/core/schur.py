@@ -118,23 +118,23 @@ PROBE_CHUNK = 128  # the identity columns the column-probe S applies S to at onc
 FALLBACK_CG_ITERATIONS = 32
 
 
-def _cam_padded_src(idx_np, nc: int, K: int, n_valid=None, sentinel=None) -> np.ndarray:
+def _cam_padded_src(idx, nc: int, K: int, n_valid=None, sentinel=None) -> torch.Tensor:
     """The row placement of the camera-padded layout
-    (``skeres_tpu/core/schur.py:55``): ``src`` (nc*K,) with
-    ``src[cam*K + j]`` the row of camera ``cam``'s j-th observation (in
-    row order), and ``sentinel`` (a zero row the caller appends; default
-    ``len(idx_np)``) in the unused slots. Only the first ``n_valid`` rows
-    are placed (default all)."""
-    idx_np = np.asarray(idx_np, dtype=np.int64)
-    b = len(idx_np)
+    (``skeres_tpu/core/schur.py:55``), on the device of ``idx`` (int64
+    (B,), a tensor or an array): ``src`` (nc*K,) with ``src[cam*K + j]``
+    the row of camera ``cam``'s j-th observation (in row order), and
+    ``sentinel`` (a zero row the caller appends; default ``len(idx)``) in
+    the unused slots. Only the first ``n_valid`` rows are placed (default
+    all)."""
+    idx = torch.as_tensor(idx, dtype=torch.int64)
+    dev = idx.device
+    b = len(idx)
     sentinel = b if sentinel is None else sentinel
     n_valid = b if n_valid is None else n_valid
-    idx_v = idx_np[:n_valid]
-    order = np.argsort(idx_v, kind="stable")
-    sorted_cam = idx_v[order]
-    starts = np.searchsorted(sorted_cam, np.arange(nc))
-    pos = np.arange(n_valid) - starts[sorted_cam]
-    src = np.full(nc * K, sentinel, dtype=np.int64)
+    sorted_cam, order = torch.sort(idx[:n_valid], stable=True)
+    starts = torch.searchsorted(sorted_cam, torch.arange(nc, device=dev))
+    pos = torch.arange(n_valid, device=dev) - starts[sorted_cam]
+    src = torch.full((nc * K,), sentinel, dtype=torch.int64, device=dev)
     src[sorted_cam * K + pos] = order
     return src
 
@@ -143,26 +143,28 @@ def padded_plan(cam_idx, pt_idx, nc: int, n_shards: int, rank: int, sort_thresho
                 pad_waste: float):
     """The gates and the placement of the camera-padded layout of one
     observation batch (``skeres_tpu/core/schur.py:251-332``), rows
-    ``cam_idx`` / ``pt_idx`` (B,) split over ``n_shards`` as the evaluator
-    splits them (``shard_rows``). It engages for B >= ``sort_threshold``
-    and ``n_shards nc K <= pad_waste B``, K the most rows of one camera on
-    one shard (the JAX package's local form where ``n_shards`` is 1).
-    Returns ``(K, (src, pidx_pad))`` for shard ``rank``: its rows' placement
-    (sentinel: its row count) and the point of each placed row (point 0 for
-    the sentinel's zero row); or ``(None, reason)``."""
-    cam_idx = np.asarray(cam_idx, dtype=np.int64)
-    n_rows = len(cam_idx)
+    ``cam_idx`` / ``pt_idx`` (B,) (int64 tensors or arrays; the plan is
+    built on their device) split over ``n_shards`` as the evaluator splits
+    them (``shard_rows``). It engages for B >= ``sort_threshold`` and
+    ``n_shards nc K <= pad_waste B``, K the most rows of one camera on one
+    shard (the JAX package's local form where ``n_shards`` is 1). Returns
+    ``(K, (src, pidx_pad))`` for shard ``rank``: its rows' placement
+    (sentinel: its row count) and the point of each placed row (point 0
+    for the sentinel's zero row); or ``(None, reason)``."""
+    cam = torch.as_tensor(cam_idx, dtype=torch.int64)
+    n_rows = len(cam)
     if n_rows < sort_threshold:
         return None, f"{n_rows} rows < jacobian_sort_threshold {sort_threshold}"
     bounds = [shard_rows(n_rows, n_shards, k) for k in range(n_shards)]
-    K = max(int(np.bincount(cam_idx[lo:hi], minlength=nc).max()) if hi > lo else 0
+    K = max(int(torch.bincount(cam[lo:hi], minlength=nc).max()) if hi > lo else 0
             for lo, hi in bounds)
     if K == 0 or n_shards * nc * K > pad_waste * n_rows:
         return None, (f"waste {n_shards * nc * K / max(n_rows, 1):.3f} > "
                       f"jacobian_pad_waste {pad_waste}")
     lo, hi = bounds[rank]
-    src = _cam_padded_src(cam_idx[lo:hi], nc, K)
-    pidx_pad = np.concatenate([np.asarray(pt_idx, dtype=np.int64)[lo:hi], [0]])[src]
+    src = _cam_padded_src(cam[lo:hi], nc, K)
+    pt = torch.as_tensor(pt_idx, dtype=torch.int64, device=cam.device)
+    pidx_pad = torch.cat([pt[lo:hi], pt.new_zeros(1)])[src]
     return K, (src, pidx_pad)
 
 
@@ -336,7 +338,8 @@ class SchurSolver:
         def make_plan(**kw):
             with span("skeres.plan.pairs"):
                 return ExplicitSchurPlan(
-                    cam_idx=cam_idx, pt_idx=pt_idx, num_cameras=self.num_cams,
+                    cam_idx=self._whole_rows(self.e_batch, self.f_slot),
+                    pt_idx=self._whole_rows(self.e_batch, self.e_slot), num_cameras=self.num_cams,
                     num_points=self.num_points, f_size=self.f_size, e_size=self.e_size,
                     pad_waste=pad_waste, pair_cap=pair_cap, device=device, mesh=mesh, **kw,
                 )
@@ -430,6 +433,14 @@ class SchurSolver:
         if self.e_batch in self.sorted_info:
             self._keeps_a = self._keeps_ftf = False
 
+    def _whole_rows(self, bi, s):
+        """Slot ``s``'s block of every row of batch ``bi``, on the solver's
+        device, for the plans: the evaluator's copy where it holds every
+        row (no mesh), else the program's."""
+        if self.ev.mesh is None:
+            return self.ev._batch_const[bi][1][s]
+        return torch.as_tensor(self.ev.program.batches[bi].slot_indices[s], device=self.ev.device)
+
     def _plan_padded(self, bi, sort_threshold, pad_waste):
         """The camera-padded layout of batch ``bi`` where its gates hold
         (one retained slot, then ``padded_plan``): ``sorted_info[bi]`` with
@@ -446,15 +457,14 @@ class SchurSolver:
             return
         s, gi, _, _ = info["ret_slots"][0]
         nc = program.groups[gi].num_blocks
-        K, plan = padded_plan(b.slot_indices[s], b.slot_indices[info["e_slot"]], nc,
+        K, plan = padded_plan(self._whole_rows(bi, s), self._whole_rows(bi, info["e_slot"]), nc,
                               ev.n_shards, ev.rank, sort_threshold, pad_waste)
         if K is None:
             self._layout_notes.append(f"batch {bi}: off (gate: {plan})")
             return
         src, pidx_pad = plan
         kind = "local" if ev.mesh is None else "sharded"
-        self.sorted_info[bi] = dict(kind=kind, nc=nc, K=K, src=torch.as_tensor(src).to(ev.device),
-                                    pidx_pad=torch.as_tensor(pidx_pad).to(ev.device))
+        self.sorted_info[bi] = dict(kind=kind, nc=nc, K=K, src=src, pidx_pad=pidx_pad)
         m, T = b.residual_dim, b.block_tangent_size
         placed = nc * K * m * (T + 1) * torch.finfo(ev.dtype).bits // 8
         shards = "" if ev.mesh is None else f", {ev.n_shards} shards"

@@ -57,14 +57,21 @@ def _close(a, b, rtol=1e-12):
 # -- the plan ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("tensors", [False, True], ids=["arrays", "tensors"])
 @pytest.mark.parametrize("nc,b,n_valid,sentinel", [
-    (5, 40, None, None), (7, 64, 50, None), (4, 30, 30, 99), (9, 100, 71, 100)])
-def test_cam_padded_src_matches_jax(nc, b, n_valid, sentinel):
+    (5, 40, None, None), (7, 64, 50, None), (4, 30, 30, 99), (9, 100, 71, 100),
+    (6, 0, None, None), (3000, 20000, None, None)])
+def test_cam_padded_src_matches_jax(nc, b, n_valid, sentinel, tensors):
+    """The placement equals the JAX package's numpy one element for
+    element, from arrays or CPU tensors; cameras with no row and an
+    empty batch included."""
     ids = np.random.default_rng(nc * b).integers(0, nc, size=b)
-    K = int(np.bincount(ids[: n_valid or b], minlength=nc).max())
+    K = int(np.bincount(ids[: n_valid or b], minlength=nc).max()) if b else 1
+    src = _cam_padded_src(torch.from_numpy(ids) if tensors else ids, nc, K, n_valid=n_valid,
+                          sentinel=sentinel)
+    assert src.dtype == torch.int64
     np.testing.assert_array_equal(
-        _cam_padded_src(ids, nc, K, n_valid=n_valid, sentinel=sentinel),
-        j_cam_padded_src(ids, nc, K, n_valid=n_valid, sentinel=sentinel))
+        src.numpy(), j_cam_padded_src(ids, nc, K, n_valid=n_valid, sentinel=sentinel))
 
 
 def _skewed(bal):
@@ -75,6 +82,7 @@ def _skewed(bal):
     return bal
 
 
+@pytest.mark.parametrize("tensors", [False, True], ids=["arrays", "tensors"])
 @pytest.mark.parametrize("shards", [1, 2, 3, 4])
 @pytest.mark.parametrize("case", [
     ("threshold", dict(sort_threshold=151, pad_waste=100.0), False),
@@ -84,11 +92,12 @@ def _skewed(bal):
     ("skew", dict(sort_threshold=1, pad_waste=2.0), True),
     ("skew opened", dict(sort_threshold=1, pad_waste=100.0), True),
 ], ids=lambda c: c[0])
-def test_sorted_info_engages_where_jax_does(case, shards):
+def test_sorted_info_engages_where_jax_does(case, shards, tensors):
     """The gates engage and refuse as the JAX package's, on one device
-    and for 2, 3 and 4 shards: the same K, and each shard's placement and
-    point map equal to the JAX ``sorted_info`` (its pad rows and its
-    sentinel taken as the port's sentinel)."""
+    and for 2, 3 and 4 shards, from arrays or CPU tensors: the same K, and
+    each shard's placement and point map equal to the JAX ``sorted_info``
+    (its pad rows and its sentinel taken as the port's sentinel); a
+    refusal gives the same note from either input."""
     _, kw, skew = case
     bal = jbal.synthetic_bal(*SCENE)
     bal = _skewed(bal) if skew else bal
@@ -96,11 +105,18 @@ def test_sorted_info_engages_where_jax_does(case, shards):
     mesh = None if shards == 1 else jax.sharding.Mesh(np.array(jax.devices()[:shards]), ("obs",))
     jschur = JSchur(JEvaluator(program, mesh=mesh), iterative=True, **kw)
     cam, pt = np.asarray(bal.camera_index), np.asarray(bal.point_index)
+    gates = (kw["sort_threshold"], kw.get("pad_waste", 1.5))
     for rank in range(shards):
-        K, plan = padded_plan(cam, pt, bal.num_cameras, shards, rank,
-                              kw["sort_threshold"], kw.get("pad_waste", 1.5))
+        if tensors:
+            K, plan = padded_plan(torch.from_numpy(cam), torch.from_numpy(pt), bal.num_cameras,
+                                  shards, rank, *gates)
+            assert (K is None) == (padded_plan(cam, pt, bal.num_cameras, shards, rank, *gates)[0]
+                                   is None)
+        else:
+            K, plan = padded_plan(cam, pt, bal.num_cameras, shards, rank, *gates)
         assert (K is not None) == bool(jschur.sorted_info), (K, plan)
         if K is None:
+            assert plan == padded_plan(cam, pt, bal.num_cameras, shards, rank, *gates)[1]
             continue
         info = jschur.sorted_info[0]
         assert (K, bal.num_cameras) == (info["K"], info["nc"])
@@ -109,7 +125,7 @@ def test_sorted_info_engages_where_jax_does(case, shards):
         if shards > 1:
             jsrc, jpidx = jsrc[rank], jpidx[rank]
         lo, hi = shard_rows(len(cam), shards, rank)
-        src, pidx = plan
+        src, pidx = (t.numpy() for t in plan)
         np.testing.assert_array_equal(np.where(src < hi - lo, src, -1),
                                       np.where(jsrc < hi - lo, jsrc, -1))
         assert (src <= hi - lo).all()

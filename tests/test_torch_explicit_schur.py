@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from skeres_tpu.core import explicit_schur as jes
 from skeres_tpu.core.explicit_schur import ExplicitSchurPlan as JPlan
 from skeres_tpu.core.explicit_schur import _hierarchical_sum_plan as j_sum_plan
 from skeres_tpu_torch.core import explicit_schur as tes
@@ -21,12 +22,15 @@ F, E = 5, 3  # deliberately not the BAL 9/3
 TOL = dict(rtol=1e-10, atol=1e-12)
 
 
-def _random_case(seed, num_points=37, num_cameras=11, uniform=False):
+def _random_case(seed, num_points=37, num_cameras=11, uniform=False, shuffled=False):
     """Point-sorted rows with 1-6 observations per point (as
-    tests/test_explicit_schur.py builds them), float64."""
+    tests/test_explicit_schur.py builds them), or with ``shuffled`` the
+    same rows in a random order, float64."""
     rng = np.random.default_rng(seed)
     counts = np.full(num_points, 4) if uniform else rng.integers(1, 7, size=num_points)
     pt_idx = np.repeat(np.arange(num_points), counts)
+    if shuffled:
+        pt_idx = rng.permutation(pt_idx)
     cam_idx = rng.integers(0, num_cameras, size=len(pt_idx))
     a_flat = rng.normal(size=(len(pt_idx), F * E))
     cinv = rng.normal(size=(num_points, E, E))
@@ -51,11 +55,33 @@ def _oracle_offdiag(pt_idx, cam_idx, a_flat, cinv, nc):
     return out
 
 
-def _plans(case, **kw):
+def _plans(case, tensors=False, **kw):
+    """The JAX plan and the port's, the port's from CPU tensors with
+    ``tensors`` (as the solver passes the evaluator's), else from the
+    arrays."""
     pt, cam, _, _, nc, npts = case
-    args = dict(cam_idx=cam, pt_idx=pt, num_cameras=nc, num_points=npts,
-                f_size=F, e_size=E, pad_waste=100.0, **kw)
-    return JPlan(**args), ExplicitSchurPlan(**args, device="cpu")
+    args = dict(num_cameras=nc, num_points=npts, f_size=F, e_size=E, pad_waste=100.0, **kw)
+    idx = dict(cam_idx=cam, pt_idx=pt)
+    t_idx = {k: torch.from_numpy(v) for k, v in idx.items()} if tensors else idx
+    return JPlan(**idx, **args), ExplicitSchurPlan(**t_idx, **args, device="cpu")
+
+
+def _assert_same_plan(tplan, jplan):
+    """Every index array of the two plans equal element for element."""
+    assert tplan.grid_is_reshape == jplan.grid_is_reshape
+    if tplan.grid_is_reshape:
+        assert tplan.grid_src is None and jplan.grid_src is None
+    else:
+        np.testing.assert_array_equal(tplan.grid_src.numpy(), np.asarray(jplan.grid_src))
+    np.testing.assert_array_equal(tplan.swap_mask.numpy(), np.asarray(jplan.swap_mask))
+    np.testing.assert_array_equal(tplan.pair_valid.numpy(), np.asarray(jplan.pair_valid))
+    assert tplan.n_uniq == jplan.n_uniq
+    assert len(tplan.levels) == len(jplan.levels)
+    for lv, jlv in zip(tplan.levels, jplan.levels):
+        assert (lv.n_dest, lv.cap) == (jlv.n_dest, jlv.cap)
+        np.testing.assert_array_equal(lv.src.numpy(), np.asarray(jlv.src))
+    np.testing.assert_array_equal(tplan.pos2u_combined.numpy(), np.asarray(jplan.pos2u_combined))
+    np.testing.assert_array_equal(tplan.diag_pair_idx.numpy(), np.asarray(jplan.diag_pair_idx))
 
 
 def _jax_uniq_dense(plan, a_flat, cinv):
@@ -73,14 +99,20 @@ def _torch_uniq_dense(plan, a_flat, cinv):
     return uniq.numpy(), plan.dense_s_offdiag(uniq).numpy()
 
 
-@pytest.mark.parametrize("seed,uniform", [(0, False), (3, False), (5, True)])
-def test_plan_matches_jax_and_oracle(seed, uniform):
-    case = _random_case(seed, uniform=uniform)
+@pytest.mark.parametrize("seed,uniform,shuffled,tensors", [
+    (0, False, False, False), (3, False, False, False), (5, True, False, False),
+    (0, False, False, True), (5, True, False, True), (8, False, True, True),
+    (9, True, True, True)])
+def test_plan_matches_jax_and_oracle(seed, uniform, shuffled, tensors):
+    """The plan's index arrays equal the JAX package's numpy plan element
+    for element, from arrays or from CPU tensors; a grid by reshape only
+    where the rows are point-sorted and uniform."""
+    case = _random_case(seed, uniform=uniform, shuffled=shuffled)
     pt, cam, a, cinv, nc, _ = case
-    jplan, tplan = _plans(case)
-    assert tplan.grid_is_reshape == jplan.grid_is_reshape == uniform
+    jplan, tplan = _plans(case, tensors=tensors)
+    assert tplan.grid_is_reshape == jplan.grid_is_reshape == (uniform and not shuffled)
     assert (tplan.kp, tplan.npairs, tplan.n_uniq) == (jplan.kp, jplan.npairs, jplan.n_uniq)
-    assert [(l.n_dest, l.cap) for l in tplan.levels] == [(l.n_dest, l.cap) for l in jplan.levels]
+    _assert_same_plan(tplan, jplan)
     j_uniq, j_dense = _jax_uniq_dense(jplan, a, cinv)
     t_uniq, t_dense = _torch_uniq_dense(tplan, a, cinv)
     np.testing.assert_allclose(t_uniq, j_uniq, **TOL)
@@ -121,35 +153,63 @@ def test_dense_s_full_folds_the_diagonal_blocks_in():
     np.testing.assert_allclose(full, t_off + blocks, **TOL)
 
 
-@pytest.mark.parametrize("adaptive", [False, True])
-def test_hierarchical_sum_plan_and_apply_match_jax(adaptive):
+@pytest.mark.parametrize("ids_kind,adaptive", [
+    ("skewed", False), ("skewed", True), ("even median", True)])
+def test_hierarchical_sum_plan_and_apply_match_jax(ids_kind, adaptive):
+    """Every level's ``src``, ``n_dest`` and ``cap`` equal the JAX
+    package's numpy plan. "even median": 4 groups of 1, 2, 5 and 9 rows,
+    whose median numpy takes as (2 + 5) / 2, so the adaptive first cap is
+    4 (``torch.median``'s lower middle value, 2, would make it 2)."""
     rng = np.random.default_rng(2)
-    ids = rng.integers(0, 9, size=500) ** 2  # skewed fan-in
-    rows = rng.permutation(700)[:500]
-    levels, uniq = tes._hierarchical_sum_plan(ids, rows, 700, cap=4, adaptive=adaptive)
+    if ids_kind == "skewed":
+        ids = rng.integers(0, 9, size=500) ** 2  # skewed fan-in
+    else:
+        ids = rng.permutation(np.repeat(np.arange(4) * 7, [1, 2, 5, 9]))
+    rows = rng.permutation(700)[: len(ids)]
+    levels, uniq = tes._hierarchical_sum_plan(torch.from_numpy(ids), torch.from_numpy(rows), 700,
+                                              cap=4, adaptive=adaptive)
     j_levels, j_uniq = j_sum_plan(ids, rows, 700, cap=4, adaptive=adaptive)
-    np.testing.assert_array_equal(uniq, j_uniq)
+    np.testing.assert_array_equal(uniq.numpy(), j_uniq)
     assert len(levels) == len(j_levels) > 1
     for (s, n, c), (js, jn, jc) in zip(levels, j_levels):
-        np.testing.assert_array_equal(s, js)
+        np.testing.assert_array_equal(s.numpy(), js)
         assert (n, c) == (jn, jc)
+    if ids_kind == "even median":
+        assert levels[0][2] == 4
     values = rng.normal(size=(700, 3))
     got = tes._apply_hierarchical_sum(tes._freeze_levels(levels, "cpu"), torch.from_numpy(values))
-    want = np.stack([values[rows[ids == u]].sum(axis=0) for u in uniq])
+    want = np.stack([values[rows[ids == u]].sum(axis=0) for u in uniq.numpy()])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
 
 
-def test_gates_raise_like_jax():
+@pytest.mark.parametrize("tensors", [False, True], ids=["arrays", "tensors"])
+def test_gates_raise_like_jax(tensors):
     """The skew gate and the level-0 waste check raise ValueError (the
-    solver reports it as the gate's reason)."""
+    solver reports it as the gate's reason) where the JAX package's do,
+    from arrays or CPU tensors: the waste check from 1 << 20 padded rows
+    on, on a plan of unique ids (fan-in 1: 32 padded rows each at a fixed
+    cap of 32, 2 at the adaptive cap) built by both packages."""
+    as_in = torch.from_numpy if tensors else (lambda a: a)
     pt = np.concatenate([np.zeros(40, np.int64), np.arange(1, 41)])
     cam = np.arange(80) % 7
-    kw = dict(cam_idx=cam, pt_idx=pt, num_cameras=7, num_points=41, f_size=F, e_size=E)
+    kw = dict(num_cameras=7, num_points=41, f_size=F, e_size=E)
     with pytest.raises(ValueError, match="skew") as jerr:
-        JPlan(**kw)
+        JPlan(cam_idx=cam, pt_idx=pt, **kw)
     with pytest.raises(ValueError, match=str(jerr.value)):
-        ExplicitSchurPlan(**kw, device="cpu")
+        ExplicitSchurPlan(cam_idx=as_in(cam), pt_idx=as_in(pt), **kw, device="cpu")
     levels = [(np.zeros(1 << 21), 1 << 16, 32)]
     with pytest.raises(ValueError, match="fan-in too low"):
         tes._check_level0_waste(levels, 1000)
     tes._check_level0_waste(levels, 1 << 20)
+    for n_ids, adaptive, raises in ((1 << 15, False, True), ((1 << 15) - 1, False, False),
+                                    (1 << 15, True, False)):
+        ids = np.arange(n_ids, dtype=np.int64)
+        j_levels, _ = j_sum_plan(ids, ids, n_ids, cap=32, adaptive=adaptive)
+        levels, _ = tes._hierarchical_sum_plan(torch.from_numpy(ids), torch.from_numpy(ids),
+                                               n_ids, cap=32, adaptive=adaptive)
+        for mod, lv in ((jes, j_levels), (tes, levels)):
+            if raises:
+                with pytest.raises(ValueError, match="fan-in too low"):
+                    mod._check_level0_waste(lv, n_ids)
+            else:
+                mod._check_level0_waste(lv, n_ids)

@@ -727,3 +727,48 @@ def test_padded_s_product_on_card_matches_generic(cuda):
     ref = products[("cuda", 10**12)]
     for key in (("cuda", 1), ("cpu", 1), ("cpu", 10**12)):
         np.testing.assert_allclose(products[key], ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shuffled", [False, True], ids=["point-sorted", "shuffled"])
+def test_plans_built_on_card_equal_cpu_plans(cuda, shuffled):
+    """The explicit-S pair plan and the camera-padded layout plan built on
+    the card from index tensors on the card equal the CPU build element
+    for element, and keep their tensors on the card: 60,000 points seen
+    3-6 times each by 300 cameras (about 270k rows, 670k valid pair rows),
+    in point order (the grid a reshape) or shuffled (a gathered grid)."""
+    from skeres_tpu_torch.core.explicit_schur import ExplicitSchurPlan
+    from skeres_tpu_torch.core.schur import padded_plan
+
+    rng = np.random.default_rng(17)
+    nc, npts = 300, 60_000
+    pt = np.repeat(np.arange(npts), rng.integers(3, 7, size=npts) if shuffled else 5)
+    if shuffled:
+        pt = rng.permutation(pt)
+    cam = rng.integers(0, nc, size=len(pt))
+    assert len(pt) >= 200_000
+    plans, layouts = {}, {}
+    for key, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+        cam_t, pt_t = torch.from_numpy(cam).to(dev), torch.from_numpy(pt).to(dev)
+        plans[key] = ExplicitSchurPlan(cam_idx=cam_t, pt_idx=pt_t, num_cameras=nc,
+                                       num_points=npts, f_size=9, e_size=3, device=dev)
+        layouts[key] = padded_plan(cam_t, pt_t, nc, 1, 0, 100_000, 1.5)
+    cpu, card = plans["cpu"], plans["card"]
+    assert card.grid_is_reshape == cpu.grid_is_reshape == (not shuffled)
+    assert (card.kp, card.npairs, card.n_uniq) == (cpu.kp, cpu.npairs, cpu.n_uniq)
+    kept = [("swap_mask", card.swap_mask, cpu.swap_mask),
+            ("pair_valid", card.pair_valid, cpu.pair_valid),
+            ("pos2u_combined", card.pos2u_combined, cpu.pos2u_combined),
+            ("diag_pair_idx", card.diag_pair_idx, cpu.diag_pair_idx),
+            ("pair_kl", card.pair_kl, cpu.pair_kl)]
+    if shuffled:
+        kept.append(("grid_src", card.grid_src, cpu.grid_src))
+    assert [(lv.n_dest, lv.cap) for lv in card.levels] == [(lv.n_dest, lv.cap) for lv in cpu.levels]
+    kept += [(f"level {k} src", lv.src, lc.src)
+             for k, (lv, lc) in enumerate(zip(card.levels, cpu.levels))]
+    (k_card, (src, pidx)), (k_cpu, (src_c, pidx_c)) = layouts["card"], layouts["cpu"]
+    assert k_card == k_cpu is not None
+    kept += [("layout src", src, src_c), ("layout pidx_pad", pidx, pidx_c)]
+    for name, on_card, on_cpu in kept:
+        assert on_card.is_cuda, name
+        assert torch.equal(on_card.cpu(), on_cpu), name
