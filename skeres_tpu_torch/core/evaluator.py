@@ -49,6 +49,7 @@ from skeres_tpu_torch.ops.segment_reduce import (
     build_sharded_reduce_plan,
 )
 from skeres_tpu_torch.parallel.mesh import all_reduce_sum, check_obs_mesh, shard_rows
+from skeres_tpu_torch.utils.trace import span
 
 __all__ = ["Evaluator", "BatchBlocks"]
 
@@ -99,6 +100,8 @@ class Evaluator:
             self.n_shards, self.rank = mesh.size(), mesh.get_local_rank()
             chunk_size = None  # a shard is already a chunk
         self.chunk_size = chunk_size
+        # row chunks that ``blocks`` evaluated (``Summary.num_evaluation_chunks``)
+        self.num_evaluation_chunks = 0
         self.diff_mode = diff_mode
         # False: evaluate without the robustifier (Problem.evaluate's
         # apply_loss_function)
@@ -253,16 +256,32 @@ class Evaluator:
     def blocks(self, state) -> Tuple[torch.Tensor, List[BatchBlocks]]:
         """Full evaluation: (cost, per-batch corrected blocks). With
         ``chunk_size`` set, the differentiation and correction transients
-        are bounded by one chunk of rows; the outputs stay whole."""
+        are bounded by one chunk of rows, and each chunk is written into
+        the whole outputs, allocated once (no concatenated copy). Each
+        chunk is one ``skeres.eval.chunk`` span and one count of
+        ``num_evaluation_chunks``."""
         total = torch.zeros((), dtype=self.dtype, device=self.device)
         out = []
         for bi, batch in enumerate(self.program.batches):
-            parts = []
-            for rows in self._row_slices(bi):
-                data, idx = self._chunk_args(bi, rows)
-                parts.append(self._rows_residuals_and_jacobian(batch, data, idx, state))
-            cost, r, jac = (torch.cat(p) for p in zip(*parts))
-            total = total + torch.sum(cost)
+            slices = self._row_slices(bi)
+            costs, r, jac = [], None, None
+            for rows in slices:
+                with span("skeres.eval.chunk"):
+                    data, idx = self._chunk_args(bi, rows)
+                    cost_c, r_c, jac_c = self._rows_residuals_and_jacobian(batch, data, idx, state)
+                    if len(slices) == 1:  # vmap's outputs may be strided views
+                        r, jac = r_c.contiguous(), jac_c.contiguous()
+                    else:
+                        if r is None:
+                            n = self.row_range[bi][1] - self.row_range[bi][0]
+                            r = r_c.new_empty((n, *r_c.shape[1:]))
+                            jac = jac_c.new_empty((n, *jac_c.shape[1:]))
+                        r[rows] = r_c
+                        jac[rows] = jac_c
+                    costs.append(cost_c)
+                    del r_c, jac_c  # not held through the next chunk
+                self.num_evaluation_chunks += 1
+            total = total + torch.sum(torch.cat(costs))
             out.append(BatchBlocks(r, jac, self._batch_const[bi][2]))
         return self.all_reduce(total), out
 

@@ -731,6 +731,8 @@ class TrustRegionMinimizer:
                 t0 = time.time()
                 self._prepare_for_evaluation(True, False)
                 pinned = o.jacobi_scaling and not o.refresh_jacobi_scaling
+                # the last linearization's data is dead: not held through the next
+                data = gn = None
                 cost_d, g, diag, data, scale, g_max_d, g_norm_d, *gn = self.linearize(
                     state, scale if pinned else None
                 )

@@ -111,11 +111,14 @@ from skeres_tpu_torch.ops.small_inverse import batched_spd_inverse
 from skeres_tpu_torch.parallel.mesh import shard_rows
 from skeres_tpu_torch.utils.trace import span
 
-__all__ = ["SchurSolver", "padded_plan"]
+__all__ = ["SchurSolver", "implicit_s_product", "padded_plan"]
 
 DENSE_W_LIMIT_BYTES = 2 << 30  # the JAX package's gate (as float32 bytes)
 PROBE_CHUNK = 128  # the identity columns the column-probe S applies S to at once
 FALLBACK_CG_ITERATIONS = 32
+# the most bytes of per-row (t, t) products that the SCHUR_JACOBI blocks of a
+# camera-padded batch hold at once (three such tensors live at a time)
+PADDED_BLOCK_BYTES = 4 << 30
 
 
 def _cam_padded_src(idx, nc: int, K: int, n_valid=None, sentinel=None) -> torch.Tensor:
@@ -259,9 +262,9 @@ class SchurSolver:
 
         # per batch: the retained slots (slot, group, first column, width),
         # the eliminated slot and its first column (or None), its point
-        # index per row, and the retained columns with their retained-space
-        # indices (the scatter of batches that add to S outside the
-        # observation batches, e.g. camera priors)
+        # index per row, and the retained columns (with, below, their
+        # retained-space indices: the scatter of batches that add to S
+        # outside the observation batches, e.g. camera priors)
         self.batch_info = []
         e_batches = []
         for bi, b in enumerate(program.batches):
@@ -285,8 +288,6 @@ class SchurSolver:
                 e_col=None if e_slot is None else evaluator._slot_cols[bi][e_slot][0],
                 pidx=None if e_slot is None else evaluator._batch_const[bi][1][e_slot],
                 f_cols=torch.as_tensor(f_cols).to(device),
-                fidx=torch.as_tensor(self.glob2ret[b.tangent_index[slice(
-                    *evaluator.row_range[bi])][:, f_cols]]).to(device),
             ))
             if e_slots and ret_slots:
                 e_batches.append(bi)
@@ -295,6 +296,15 @@ class SchurSolver:
         # the dense-W, explicit and cluster paths)
         self.e_batches = e_batches
         self.e_batch = e_batches[0] if len(e_batches) == 1 else None
+        # the retained-space index of each retained column of each row, for
+        # the batches that _add_other_batches scatters into S; not for the
+        # observation batch, whose (B, n_f) map nothing reads (at 29M rows
+        # a 2 GB host gather and copy)
+        for bi, (b, info) in enumerate(zip(program.batches, self.batch_info)):
+            if bi != self.e_batch and len(info["f_cols"]):
+                rows = b.tangent_index[slice(*evaluator.row_range[bi])]
+                info["fidx"] = torch.as_tensor(
+                    self.glob2ret[rows[:, info["f_cols"].cpu().numpy()]]).to(device)
 
         # the bundle-adjustment structure the fast paths take: one
         # observation batch, one retained group, one retained slot in it
@@ -581,13 +591,13 @@ class SchurSolver:
                 self.sorted_info[bi]["pidx_pad"])
 
     def _cam_reduce(self, bi, vals):
-        """Sum the placed rows' values ``vals (nc*K, ...)`` by camera ->
-        ``(nc, ...)``: a reshape and a sum, in a fixed order; under a mesh
+        """Sum the placed rows' values ``vals (n*K, ...)`` of ``n`` whole
+        cameras (all the batch's, or a block of them) by camera ->
+        ``(n, ...)``: a reshape and a sum, in a fixed order; under a mesh
         the rank's sums, then one ``all_reduce`` of the table. (The JAX
         package's ``_cam_reduce`` also takes the row function and its
         operands, for ``shard_map``; here the caller computes the rows.)"""
-        sinfo = self.sorted_info[bi]
-        red = vals.reshape(sinfo["nc"], sinfo["K"], *vals.shape[1:]).sum(1)
+        red = vals.reshape(-1, self.sorted_info[bi]["K"], *vals.shape[1:]).sum(1)
         return self.ev.all_reduce(red)
 
     def _cam_bcast(self, bi, rows, v_cam):
@@ -934,18 +944,32 @@ class SchurSolver:
         """The camera blocks ``F^T F - Y A^T`` (or ``F^T F`` alone) of padded
         batch ``bi`` from its placed rows, (nc, t, t): with unscaled rows,
         ``A_s = s_f A s_e`` and ``C_s^-1`` enters as ``s_e C_s^-1 s_e``, and
-        the sums take ``s_f`` on both sides."""
+        the sums take ``s_f`` on both sides. The per-row ``(t, t)`` products
+        are taken for whole cameras at a time, at most
+        ``PADDED_BLOCK_BYTES`` of them a pass (one pass where they fit)."""
         _, Fs, E, pidx = self._cam_fe(asm, bi)
-        ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs)
+        sinfo = self.sorted_info[bi]
+        nc, K = sinfo["nc"], sinfo["K"]
+        t = Fs.shape[2]
         conj = self._cam_conj(asm, bi)
-        if include_e_correction:
-            a = torch.einsum("bmf,bme->bfe", Fs, E)
-            cinv = asm["cinv"]
-            if conj is not None:
-                cinv = cinv * conj[2][:, :, None] * conj[2][:, None, :]
-            y = torch.bmm(a, cinv[pidx])
-            ftf = ftf - torch.bmm(y, a.transpose(1, 2))
-        red = self._cam_reduce(bi, ftf)
+        cinv = asm["cinv"]
+        if include_e_correction and conj is not None:
+            cinv = cinv * conj[2][:, :, None] * conj[2][:, None, :]
+        per_cam = K * t * t * Fs.element_size()
+        step = max(1, min(nc, PADDED_BLOCK_BYTES // max(per_cam, 1)))
+        parts = []
+        for c0 in range(0, nc, step):
+            rows = slice(c0 * K, min(nc, c0 + step) * K)
+            f_rows = Fs[rows]
+            ftf = torch.einsum("bmf,bmg->bfg", f_rows, f_rows)
+            if include_e_correction:
+                a = torch.einsum("bmf,bme->bfe", f_rows, E[rows])
+                y = torch.bmm(a, cinv[pidx[rows]])
+                ftf = ftf - torch.bmm(y, a.transpose(1, 2))
+                del a, y
+            parts.append(self._cam_reduce(bi, ftf))
+            del ftf
+        red = torch.cat(parts)
         if conj is not None:
             red = red * conj[1][:, :, None] * conj[1][:, None, :]
         return red
@@ -970,49 +994,10 @@ class SchurSolver:
         return self._ret_assemble(accs, asm["d_f"])
 
     def _s_matvec(self, asm, v):
-        """The implicit Schur-complement product
-        ``S v = (F^T F + D_f) v - W C^-1 W^T v`` over every batch and every
-        retained slot: per row ``F^T (F v - E wc)`` with
-        ``wc = C^-1 W^T v`` gathered by point, summed by retained block
-        (reference: ``implicit_schur_complement.cc``
-        RightMultiplyAndAccumulate).
-
-        A padded batch takes the same per-row ``F^T (F v - E wc)`` on its
-        placed rows in one pass, v broadcast by camera, summed by
-        ``_cam_reduce``. Where the rows are unscaled (the minimizer's
-        ``prepare(cam_raw, scale)``), the scaled rows are ``F_s = F s_f``
-        and ``E_s = E s_e`` (the Jacobi scale is diagonal), so
-
-            F_s^T (F_s v - E_s wc) = s_f (F^T (F (s_f v) - E (s_e wc))):
-
-        v and wc go in scaled by s_ret (whose camera span is s_f) and s_e,
-        the camera sums come out scaled by s_f. The JAX package's padded
-        branch (``skeres_tpu/core/schur.py:1268-1292``) leaves out this
-        conjugation, so on that path its PCG multiplies by the S of the
-        unscaled Jacobian."""
-        wc = torch.einsum("pef,pf->pe", asm["cinv"], self._wt_apply(asm, v))
-        accs = {}
-        for bi, (r, jac, E) in enumerate(asm["per_batch"]):
-            info = self.batch_info[bi]
-            if not info["ret_slots"]:
-                continue
-            if bi in self.sorted_info:
-                gi, Fs, Es, pidx = self._cam_fe(asm, bi)
-                conj = self._cam_conj(asm, bi)
-                v_in, wc_in = (v, wc) if conj is None else (v * conj[0], wc * conj[2])
-                Fv = (self._cam_bcast(bi, Fs, self._ret_view(v_in, gi))
-                      - _rows_apply(Es, wc_in[pidx]))
-                red = self._cam_reduce(bi, _rows_apply_t(Fs, Fv))
-                red = red if conj is None else red * conj[1]
-                accs[gi] = red if gi not in accs else accs[gi] + red
-                continue
-            Fv = self._f_rows(asm, bi, v)
-            if E is not None:
-                Fv = Fv - _rows_apply(E, wc[info["pidx"]])
-            for slot, gi, c, t in info["ret_slots"]:
-                red = self.ev.slot_reduce(bi, slot, _rows_apply_t(jac[:, :, c : c + t], Fv))
-                accs[gi] = red if gi not in accs else accs[gi] + red
-        return asm["d_f"] * v + self._ret_assemble(accs, v)
+        """The implicit Schur-complement product ``S v``
+        (:func:`implicit_s_product`, looked up here as a module global so
+        that a wrapper of the module's name sees every product)."""
+        return implicit_s_product(self, asm, v)
 
     def _s_matmat(self, asm, v):
         """``S V`` for a retained block ``V (N_f, k)``: the product of
@@ -1460,3 +1445,54 @@ class SchurSolver:
             [BatchBlocks(r, jac, self.ev._batch_const[bi][2]) for bi, (r, jac) in enumerate(pairs)],
             v,
         )
+
+
+def implicit_s_product(solver, asm, v):
+    """The implicit Schur-complement product
+    ``S v = (F^T F + D_f) v - W C^-1 W^T v`` of ``solver`` (a
+    :class:`SchurSolver`) on its per-mu state ``asm`` (``_assemble``),
+    over every batch and every retained slot: per row ``F^T (F v - E wc)`` with
+    ``wc = C^-1 W^T v`` gathered by point, summed by retained block
+    (reference: ``implicit_schur_complement.cc``
+    RightMultiplyAndAccumulate).
+
+    A padded batch takes the same per-row ``F^T (F v - E wc)`` on its
+    placed rows in one pass, v broadcast by camera, summed by
+    ``_cam_reduce``. Where the rows are unscaled (the minimizer's
+    ``prepare(cam_raw, scale)``), the scaled rows are ``F_s = F s_f``
+    and ``E_s = E s_e`` (the Jacobi scale is diagonal), so
+
+        F_s^T (F_s v - E_s wc) = s_f (F^T (F (s_f v) - E (s_e wc))):
+
+    v and wc go in scaled by s_ret (whose camera span is s_f) and s_e,
+    the camera sums come out scaled by s_f. The JAX package's padded
+    branch (``skeres_tpu/core/schur.py:1268-1292``) leaves out this
+    conjugation, so on that path its PCG multiplies by the S of the
+    unscaled Jacobian.
+
+    One ``skeres.schur.s_product`` span a call (inside
+    ``skeres.schur.pcg``)."""
+    with span("skeres.schur.s_product"):
+        wc = torch.einsum("pef,pf->pe", asm["cinv"], solver._wt_apply(asm, v))
+        accs = {}
+        for bi, (r, jac, E) in enumerate(asm["per_batch"]):
+            info = solver.batch_info[bi]
+            if not info["ret_slots"]:
+                continue
+            if bi in solver.sorted_info:
+                gi, Fs, Es, pidx = solver._cam_fe(asm, bi)
+                conj = solver._cam_conj(asm, bi)
+                v_in, wc_in = (v, wc) if conj is None else (v * conj[0], wc * conj[2])
+                Fv = (solver._cam_bcast(bi, Fs, solver._ret_view(v_in, gi))
+                      - _rows_apply(Es, wc_in[pidx]))
+                red = solver._cam_reduce(bi, _rows_apply_t(Fs, Fv))
+                red = red if conj is None else red * conj[1]
+                accs[gi] = red if gi not in accs else accs[gi] + red
+                continue
+            Fv = solver._f_rows(asm, bi, v)
+            if E is not None:
+                Fv = Fv - _rows_apply(E, wc[info["pidx"]])
+            for slot, gi, c, t in info["ret_slots"]:
+                red = solver.ev.slot_reduce(bi, slot, _rows_apply_t(jac[:, :, c : c + t], Fv))
+                accs[gi] = red if gi not in accs else accs[gi] + red
+        return asm["d_f"] * v + solver._ret_assemble(accs, v)

@@ -286,6 +286,7 @@ def _solve(options: SolverOptions, problem: Problem, program: Optional[Program])
     t0 = time.time()
     with span("skeres.postprocess"):
         program.write_back(state)
+    summary.num_evaluation_chunks = evaluator.num_evaluation_chunks
     if summary.final_cost < 0.0 and summary.iterations:
         summary.final_cost = min(it.cost for it in summary.iterations)
     summary.postprocessor_time_in_seconds = time.time() - t0

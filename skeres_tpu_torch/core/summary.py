@@ -77,6 +77,10 @@ class Summary:
     # the device loop's replays of its captured step, those that ran no
     # step (past a termination, in a chunk's tail) included
     num_device_loop_replays: int = 0
+    # the row chunks of the Jacobian evaluations the host ran: one a batch a
+    # linearization unless evaluation_chunk_size splits the batch (the
+    # device loop's replays add none)
+    num_evaluation_chunks: int = 0
     # dogleg (host loop): the linear solver iterations of each Gauss-Newton
     # solve (one a linearization; a Schur solve counts 1 + its jitter rungs),
     # and the steps that took the Cauchy point (the GN point not finite, or

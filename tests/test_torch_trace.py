@@ -55,6 +55,7 @@ PARENT = {
     "skeres.plan.layout": "skeres.plan.schur",
     "skeres.minimize": "skeres.solve",
     "skeres.step.linearize": "skeres.minimize",
+    "skeres.eval.chunk": "skeres.step.linearize",
     "skeres.schur.place": "skeres.step.linearize",
     "skeres.schur.prepare": "skeres.step.linearize",
     "skeres.schur.grid": "skeres.schur.prepare",
@@ -62,20 +63,21 @@ PARENT = {
     "skeres.schur.s_build": "skeres.step.damped_solve",
     "skeres.schur.factor": "skeres.step.damped_solve",
     "skeres.schur.pcg": "skeres.step.damped_solve",
+    "skeres.schur.s_product": "skeres.schur.pcg",
     "skeres.schur.back_substitute": "skeres.step.damped_solve",
     "skeres.step.candidate_cost": "skeres.minimize",
     "skeres.postprocess": "skeres.solve",
 }
 COMMON = {"skeres.solve", "skeres.plan.compile", "skeres.plan.evaluator", "skeres.plan.schur",
-          "skeres.plan.layout", "skeres.minimize", "skeres.step.linearize", "skeres.schur.place",
-          "skeres.schur.prepare", "skeres.step.damped_solve", "skeres.schur.back_substitute",
-          "skeres.step.candidate_cost", "skeres.postprocess"}
+          "skeres.plan.layout", "skeres.minimize", "skeres.step.linearize", "skeres.eval.chunk",
+          "skeres.schur.place", "skeres.schur.prepare", "skeres.step.damped_solve",
+          "skeres.schur.back_substitute", "skeres.step.candidate_cost", "skeres.postprocess"}
 
 
 @pytest.mark.parametrize("solver,want", [
     ("DENSE_SCHUR", {"skeres.plan.pairs", "skeres.plan.pairs.metadata", "skeres.plan.pairs.sums",
                      "skeres.schur.grid", "skeres.schur.s_build", "skeres.schur.factor"}),
-    ("ITERATIVE_SCHUR", {"skeres.schur.pcg"}),
+    ("ITERATIVE_SCHUR", {"skeres.schur.pcg", "skeres.schur.s_product"}),
 ])
 def test_spans_of_a_solve(monkeypatch, solver, want):
     """Two solves under one profiler (DENSE_SCHUR on the explicit S; both on
