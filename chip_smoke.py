@@ -9,7 +9,8 @@ non-zero and prints no result line):
   1. device  — a CUDA card is present; print its name and power limit;
                TF32 off for matmuls and cuDNN.
   2. build   — compile K1 and K2's trailing update (csrc/cholesky.cu), K3
-               (csrc/pair_product.cu) and K1 with its clock64 phase counters
+               (csrc/pair_product.cu), the S product's pair
+               (csrc/s_product.cu) and K1 with its clock64 phase counters
                (-DSKERES_K1_CLOCKS), one nvcc each, started together; print
                the seconds and the compiler's resource report.
   3. K1      — the kernel against its plain PyTorch version on the card,
@@ -259,7 +260,9 @@ non-zero and prints no result line):
                float64 trajectories of DENSE_SCHUR and ITERATIVE_SCHUR
                (SCHUR_JACOBI) with cameras 0 and 1 constant from initial
                radius 1, layout against ``jacobian_sort_threshold=10**12``,
-               5 steps: the same decisions, within 1e-8 a step; float32 DENSE_SCHUR LM steps/s
+               5 steps: the same decisions, within 1e-8 a step, and the padded
+               ITERATIVE_SCHUR solve launching each of the S product's
+               kernels once a product (the generic one none); float32 DENSE_SCHUR LM steps/s
                of both forms on the host loop and the device loop (medians of
                3, in turns) and each form's gap between identical runs.
                The layout is on by default past 100,000 rows, so phases
@@ -292,6 +295,17 @@ non-zero and prints no result line):
                above 0; then 1024 stamps back to back
                inside one CUDA graph, in order, and the smallest step
                between two of them (``%globaltimer``'s resolution bounds it).
+
+ 40. S product — the implicit Schur product's kernel pair
+               (``csrc/s_product.cu``) at the camera-padded shapes of BAL
+               venice-1778 and Final-13682 (their cameras, their points'
+               observation counts, float64; rows drawn on the card, each
+               row's camera uniform, so K lands near the cells' 3008 and
+               2299): the pair against its plain version (1e-12 of
+               max|S v|), a second call bit for bit; each pass, the pair
+               and the plain version timed (CUDA events, median of 20, in
+               turns), beside the bound of the benchmark's
+               ``roofline_implicit.s_product_counts``.
 
 The line before the last is a JSON object describing each kernel (its
 time, its launches on the main path, its bound: the larger of the bytes it
@@ -386,7 +400,7 @@ def phase_device():
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from skeres_tpu_torch.ops import cholesky, pair_product
+    from skeres_tpu_torch.ops import cholesky, pair_product, s_product
     from skeres_tpu_torch.ops.build import build_all, load_library
 
     t0 = time.time()
@@ -402,6 +416,7 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}")
     cholesky.build_kernels()
     pair_product.build_kernels()
+    s_product.build_kernels()
 
 
 def backward_errors(a, l, linv) -> tuple[float, float]:
@@ -1331,16 +1346,20 @@ def phase_device_loop_bal49(device) -> tuple[float, float, float]:
 def reset_launches() -> None:
     from skeres_tpu_torch.ops.cholesky import cholesky_both, trailing_update_
     from skeres_tpu_torch.ops.pair_product import pair_products
+    from skeres_tpu_torch.ops.s_product import camera_sums, point_sums
 
     cholesky_both.launches = trailing_update_.launches = pair_products.launches = 0
+    point_sums.launches = camera_sums.launches = 0
 
 
 def launch_counts() -> dict:
     from skeres_tpu_torch.ops.cholesky import cholesky_both, trailing_update_
     from skeres_tpu_torch.ops.pair_product import pair_products
+    from skeres_tpu_torch.ops.s_product import camera_sums, point_sums
 
     return {"K1": cholesky_both.launches, "K2 update": trailing_update_.launches,
-            "K3": pair_products.launches}
+            "K3": pair_products.launches, "S point": point_sums.launches,
+            "S camera": camera_sums.launches}
 
 
 def solve_chain(n, device, dtype, iters, **kw):
@@ -1525,7 +1544,7 @@ def iterative_solve(label, device, problem, program, initial, k3_a_solve, refere
     check(s.final_cost < s.initial_cost, f"{label}: final cost {s.final_cost} not below initial")
     check(k3 == k3_a_solve * solves and solves > 0,
           f"{label}: K3 launched {k3} times for {solves} damped solves")
-    return s, {"K1": cholesky_both.launches, "K2 update": trailing_update_.launches, "K3": k3}
+    return s, launch_counts()
 
 
 VENICE_ITERATIVE = (
@@ -2682,6 +2701,7 @@ def phase_venice_layout(device, problem, program, cams, initial) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     import skeres_tpu_torch as stt
+    from skeres_tpu_torch.core import schur as schur_mod
     from tools_torch.trace_spans import span_table
 
     def restore():
@@ -2757,19 +2777,37 @@ def phase_venice_layout(device, problem, program, cams, initial) -> dict:
             for form, thresh in (("padded", 100_000), ("generic", GENERIC)):
                 restore()
                 torch.cuda.empty_cache()
+                products = []  # the implicit S products the solve makes
+                product = schur_mod.implicit_s_product
+
+                def counting(*args, product=product, products=products):
+                    products.append(1)
+                    return product(*args)
+
+                schur_mod.implicit_s_product = counting
                 reset_launches()
-                # initial radius 1, as phases 17, 23 and 31: every decision on
-                # a cost change far above rounding (at the default radius
-                # ITERATIVE_SCHUR's rejected candidates reach a cost of 8.5e17,
-                # whose value moves by 1.4e-7 between the two forms)
-                s = stt.solve(venice_options(device, solver, precond, dtype=torch.float64,
-                                             jacobian_sort_threshold=thresh,
-                                             initial_trust_region_radius=1.0), problem, gauged)
+                try:
+                    # initial radius 1, as phases 17, 23 and 31: every decision
+                    # on a cost change far above rounding (at the default radius
+                    # ITERATIVE_SCHUR's rejected candidates reach a cost of
+                    # 8.5e17, whose value moves by 1.4e-7 between the two forms)
+                    s = stt.solve(venice_options(device, solver, precond, dtype=torch.float64,
+                                                 jacobian_sort_threshold=thresh,
+                                                 initial_trust_region_radius=1.0), problem, gauged)
+                finally:
+                    schur_mod.implicit_s_product = product
                 runs[form] = s
                 n = launches[f"venice layout float64 {solver} {form}"] = launch_counts()
                 if solver == "DENSE_SCHUR":
                     check(n["K3"] >= s.num_linear_solves > 0 and n["K2 update"] > 0,
                           f"layout float64 DENSE_SCHUR {form}: K3 or K2 did not launch")
+                else:  # the pair on each product of the padded batch, on no other
+                    pair = len(products) if form == "padded" else 0
+                    print(f"[layout] float64 {solver} {form}: {len(products)} S products, "
+                          f"launches point {n['S point']}, camera {n['S camera']}")
+                    check(len(products) > 0 and n["S point"] == n["S camera"] == pair,
+                          f"layout float64 {solver} {form}: launches {n} for {len(products)} "
+                          f"S products, expected {pair} of each kernel")
             p, g = runs["padded"], runs["generic"]
             a = np.array([it.cost for it in p.iterations])
             b = np.array([it.cost for it in g.iterations])
@@ -3773,6 +3811,104 @@ def phase_spans_and_stamps(device) -> dict:
     return {"finest_stamp_ns": finest}
 
 
+# -- the implicit S product's kernel pair (phase 40) ------------------------------------
+
+# the camera-padded shapes of the benchmark's ITERATIVE_SCHUR cells: cameras,
+# and (points, observations a point) as the BAL files count them
+S_SHAPES = {
+    "venice-1778": (1778, ((32_331, 6), (961_592, 5))),
+    "final-13682": (13_682, ((2_205_175, 6), (2_250_942, 7))),
+}
+S_RTOL = 1e-12  # float64: each output a sum of a few thousand rows' products
+
+
+def s_product_inputs(nc: int, point_counts, device, dtype=torch.float64) -> dict:
+    """Both passes' inputs at a BAL scene's padded shape, drawn on the card:
+    points seen as often as ``point_counts`` says, in random order, rows
+    grouped by point, each row's camera uniform over ``nc``; the rows 26
+    values wide (2 x 12 and the residual, as the minimizer places them)."""
+    from skeres_tpu_torch.core.schur import _cam_padded_src
+
+    gen = torch.Generator(device=device).manual_seed(40)
+    per_pt = torch.cat([torch.full((n,), k, dtype=torch.int64, device=device)
+                        for n, k in point_counts])
+    per_pt = per_pt[torch.randperm(len(per_pt), generator=gen, device=device)]
+    n_pts = len(per_pt)
+    pt = torch.repeat_interleave(torch.arange(n_pts, device=device), per_pt)
+    b = len(pt)
+    cam = torch.randint(0, nc, (b,), generator=gen, device=device)
+    wide = torch.randn((b + 1, 26), generator=gen, dtype=dtype, device=device)
+    wide[b].zero_()  # the row the unused slots read
+    counts = torch.bincount(cam, minlength=nc)
+    src = _cam_padded_src(cam, nc, int(counts.max()))
+    x = dict(rows=wide[:b, :24].contiguous().view(b, 2, 12), cam=cam, counts=counts,
+             placed=wide.index_select(0, src)[:, :24].unflatten(1, (2, 12)),
+             pidx=torch.cat([pt, pt.new_zeros(1)])[src],
+             seg=torch.searchsorted(pt, torch.arange(n_pts + 1, device=device)),
+             v=torch.randn(nc * 9, generator=gen, dtype=dtype, device=device),
+             cinv=torch.randn((n_pts, 3, 3), generator=gen, dtype=dtype, device=device),
+             s_e=0.5 + torch.rand((n_pts, 3), generator=gen, dtype=dtype, device=device),
+             s_f=0.5 + torch.rand((nc, 9), generator=gen, dtype=dtype, device=device),
+             d=torch.rand((nc, 9), generator=gen, dtype=dtype, device=device))
+    x["K"] = int(counts.max())
+    return x
+
+
+def phase_s_product(device) -> dict:
+    """Phase 40: the S product's kernel pair at venice's and Final's padded
+    shapes against its plain version; times and bounds."""
+    import types
+
+    from benchmark.roofline_implicit import s_product_counts
+    from skeres_tpu_torch.ops import s_product as sp
+
+    report = {}
+    for name, (nc, point_counts) in S_SHAPES.items():
+        x = s_product_inputs(nc, point_counts, device)
+        rows, placed, v_cam = x["rows"], x["placed"], x["v"].view(nc, 9)
+        point_args = (rows, True, x["cam"], v_cam, x["seg"], None, x["cinv"], x["s_e"])
+        wc = sp.point_sums(*point_args)
+
+        def camera(wc, sums=sp.camera_sums):  # S v as implicit_s_product adds D_f v
+            return x["d"] * v_cam + sums(placed, True, x["pidx"], x["counts"], v_cam, wc,
+                                         x["s_f"])
+
+        def kernels():
+            return camera(sp.point_sums(*point_args))
+
+        def plain():
+            return camera(sp.point_sums_reference(*point_args), sp.camera_sums_reference)
+
+        got, again, ref = kernels(), kernels(), plain()
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        check(torch.equal(got, again), f"S product at {name}: two calls differ")
+        check(rel <= S_RTOL, f"S product at {name}: kernels and plain version differ by {rel:.3e}")
+        t = [cuda_ms(kernels, calls=1), cuda_ms(plain, calls=1), cuda_ms(plain, calls=1),
+             cuda_ms(kernels, calls=1)]
+        point_ms = cuda_ms(lambda: sp.point_sums(*point_args), calls=1)
+        camera_ms = cuda_ms(lambda: camera(wc), calls=1)
+        solver = types.SimpleNamespace(e_batches=[0], sorted_info={0: None},
+                                       batch_info=[dict(ret_slots=[(0, 0, 0, 9)])])
+        asm = {"per_batch": [(None, rows, rows[:, :, 9:])], "cinv": x["cinv"]}
+        counted = s_product_counts(solver, asm, x["v"])
+        bound_ms, bound_by = bound(counted["bytes"], counted["flops"], counted["peak"])
+        ms = statistics.median([t[0], t[3]])
+        print(f"[S product] {name}: {rows.shape[0]} rows, {x['seg'].shape[0] - 1} points, "
+              f"{nc} x {x['K']} placed, float64: kernels {t[0]:.4f}/{t[3]:.4f} ms (point pass "
+              f"{point_ms:.4f}, camera pass {camera_ms:.4f}), plain {t[1]:.4f}/{t[2]:.4f} ms "
+              f"(medians of 20, in turns); bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{counted['bytes'] / 1e9:.3f} GB), {100 * bound_ms / ms:.2f} % of it; max|diff| "
+              f"{err:.3e} (rel {rel:.3e})")
+        report[name] = dict(ms=ms, point_ms=point_ms, camera_ms=camera_ms,
+                            plain_ms=statistics.median([t[1], t[2]]), bound_ms=bound_ms,
+                            bound_by=bound_by, max_abs_err=err, rel_err=rel,
+                            rows=rows.shape[0], K=x["K"])
+        del x, rows, placed, wc, got, again, ref
+        torch.cuda.empty_cache()
+    return report
+
+
 def bound(nbytes: float, flop: float, flops_per_s: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / flops_per_s
@@ -3881,6 +4017,11 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
     torch.cuda.empty_cache()
     script_paths = timed("measuring scripts", phase_measuring_scripts, bal49_final)
     timed("spans and stamps", phase_spans_and_stamps, device)
+    s_report = timed("S product", phase_s_product, device)
+    # the pair's launches on the main path: phase 37's padded float64
+    # ITERATIVE_SCHUR solve, one launch of each kernel a product
+    n = general_paths["venice layout float64 ITERATIVE_SCHUR padded"]
+    s_launches = {"point": n["S point"], "camera": n["S camera"]}
     k3_err, k3_ms, k3_plain, k3_bytes, k3_flop = venice["k3"]
     k2_ms, k2_plain, k2_library, k2_n = venice["k2"]
     n1 = 9 * 49  # K1's n on the main path: the BAL-49 S
@@ -3955,6 +4096,18 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
             "plain_ms": k3_plain,
             "bound_ms": k3_bound[0],
             "bound_by": k3_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "point_sums, camera_sums (the implicit S product's pair)",
+            "route": "cuda",
+            "source": "skeres_tpu_torch/csrc/s_product.cu",
+            "replaces": None,
+            "launches": s_launches,
+            "launches_by_path": {k: {"point": v["S point"], "camera": v["S camera"]} for k, v in {
+                **big_paths, **tr_paths, **solver_paths, **new_paths, **cov["launches"],
+                **general_paths, **mesh_paths, **script_paths}.items() if "S point" in v},
+            "by_shape": s_report,
             "library_ms": None,
         },
     ]}))

@@ -101,6 +101,13 @@ from skeres_tpu_torch.ops.cholesky import (
     chol_solve,
     cholesky_inverse_factor,
 )
+from skeres_tpu_torch.ops.s_product import (
+    MAX_SIZES,
+    camera_sums,
+    point_sums,
+    rows_apply,
+    rows_apply_t,
+)
 from skeres_tpu_torch.ops.segment_reduce import (
     apply_reduce_plan,
     apply_sharded_reduce_plan,
@@ -169,20 +176,6 @@ def padded_plan(cam_idx, pt_idx, nc: int, n_shards: int, rank: int, sort_thresho
     pt = torch.as_tensor(pt_idx, dtype=torch.int64, device=cam.device)
     pidx_pad = torch.cat([pt[lo:hi], pt.new_zeros(1)])[src]
     return K, (src, pidx_pad)
-
-
-def _rows_apply(mat, v):
-    """Per-row product ``mat (B, m, t) @ v (B, t) -> (B, m)`` of the
-    observation rows (m = 2), as a multiply and a sum: ``torch.einsum``
-    lowers it to a batched product of 2 x t matrices, 5-18x slower on an
-    NVIDIA H100 80GB HBM3 (700 W) at 5M rows (``chip_smoke.py`` phase 18
-    times both)."""
-    return (mat * v[:, None, :]).sum(-1)
-
-
-def _rows_apply_t(mat, u):
-    """Per-row transposed product ``mat (B, m, t)^T @ u (B, m) -> (B, t)``."""
-    return (mat * u[:, :, None]).sum(1)
 
 
 class SchurSolver:
@@ -442,6 +435,9 @@ class SchurSolver:
                 self._plan_padded(bi, sort_threshold, pad_waste)
         if self.e_batch in self.sorted_info:
             self._keeps_a = self._keeps_ftf = False
+        # the S product's point pass (implicit_s_product) applies C^-1 and
+        # s_e itself where the one observation batch is padded
+        self._one_padded = len(e_batches) == 1 and e_batches[0] in self.sorted_info
 
     def _whole_rows(self, bi, s):
         """Slot ``s``'s block of every row of batch ``bi``, on the solver's
@@ -453,7 +449,8 @@ class SchurSolver:
 
     def _plan_padded(self, bi, sort_threshold, pad_waste):
         """The camera-padded layout of batch ``bi`` where its gates hold
-        (one retained slot, then ``padded_plan``): ``sorted_info[bi]`` with
+        (one retained slot; under ITERATIVE_SCHUR, sizes the S product's
+        kernels take; then ``padded_plan``): ``sorted_info[bi]`` with
         the rank's placement ``src``, the point of each placed row
         ``pidx_pad``, nc and K; else the refusing gate in
         ``_layout_notes``."""
@@ -465,7 +462,12 @@ class SchurSolver:
             self._layout_notes.append(f"batch {bi}: off (structure: "
                                       f"{len(info['ret_slots'])} retained slots a row)")
             return
-        s, gi, _, _ = info["ret_slots"][0]
+        s, gi, _, t = info["ret_slots"][0]
+        sizes = (b.residual_dim, t, self.e_size)
+        if self.iterative and any(x > most for x, most in zip(sizes, MAX_SIZES)):
+            self._layout_notes.append(f"batch {bi}: off (S product kernels: (m, t, e) {sizes} "
+                                      f"past {MAX_SIZES})")
+            return
         nc = program.groups[gi].num_blocks
         K, plan = padded_plan(self._whole_rows(bi, s), self._whole_rows(bi, info["e_slot"]), nc,
                               ev.n_shards, ev.rank, sort_threshold, pad_waste)
@@ -474,7 +476,19 @@ class SchurSolver:
             return
         src, pidx_pad = plan
         kind = "local" if ev.mesh is None else "sharded"
-        self.sorted_info[bi] = dict(kind=kind, nc=nc, K=K, src=src, pidx_pad=pidx_pad)
+        # the S product's kernel plans (ops/s_product.py): the rank's rows
+        # by point, as offsets into row order or, where the rows are not in
+        # point order, into a permutation sorted by point; and the placed
+        # rows of each camera that hold observations (the first of its K)
+        idx = ev._batch_const[bi][1]
+        pt, perm = idx[info["e_slot"]], None
+        if len(pt) > 1 and not bool((pt[1:] >= pt[:-1]).all()):
+            pt, perm = torch.sort(pt, stable=True)
+        self.sorted_info[bi] = dict(
+            kind=kind, nc=nc, K=K, src=src, pidx_pad=pidx_pad,
+            f_first=info["ret_slots"][0][2] < info["e_col"], pt_perm=perm,
+            pt_seg=torch.searchsorted(pt, torch.arange(self.num_points + 1, device=pt.device)),
+            cam_rows=torch.bincount(idx[s], minlength=nc))
         m, T = b.residual_dim, b.block_tangent_size
         placed = nc * K * m * (T + 1) * torch.finfo(ev.dtype).bits // 8
         shards = "" if ev.mesh is None else f", {ev.n_shards} shards"
@@ -600,6 +614,25 @@ class SchurSolver:
         red = vals.reshape(-1, self.sorted_info[bi]["K"], *vals.shape[1:]).sum(1)
         return self.ev.all_reduce(red)
 
+    def _point_pass(self, asm, bi, v, cinv=None, s_e=None):
+        """``W^T v`` by point over padded batch ``bi``'s scaled rows in row
+        order, times ``C^-1`` and ``s_e`` where given
+        (``ops/s_product.point_sums``): (n_pts, e), the rank's rows."""
+        sinfo = self.sorted_info[bi]
+        s, gi = self.batch_info[bi]["ret_slots"][0][:2]
+        return point_sums(asm["per_batch"][bi][1], sinfo["f_first"], self.ev._batch_const[bi][1][s],
+                          self._ret_view(v, gi), sinfo["pt_seg"], sinfo["pt_perm"], cinv, s_e)
+
+    def _camera_pass(self, asm, bi, v, wc, conj):
+        """``s_f F^T (F (s_f v) - E wc)`` by camera over padded batch
+        ``bi``'s placed rows (``s_f`` where they are unscaled)
+        (``ops/s_product.camera_sums``): (nc, t), the rank's rows."""
+        sinfo = self.sorted_info[bi]
+        gi = self.batch_info[bi]["ret_slots"][0][1]
+        placed = asm["cam"][bi].unflatten(1, (self.ev.program.batches[bi].residual_dim, -1))
+        return camera_sums(placed, sinfo["f_first"], sinfo["pidx_pad"], sinfo["cam_rows"],
+                           self._ret_view(v, gi), wc, None if conj is None else conj[1])
+
     def _cam_bcast(self, bi, rows, v_cam):
         """The per-row product ``rows (nc*K, m, t) @ v_cam[camera of the
         row]`` (nc*K, m), with each camera's vector ``v_cam (nc, t)``
@@ -646,7 +679,7 @@ class SchurSolver:
             placed = self._place_rows(bi, b.jac.reshape(n, m * T), b.r)
             cam_raw[bi] = placed[:, : m * T]
             F = placed[:, : m * T].unflatten(1, (m, T))[:, :, c : c + t]
-            vals = torch.cat([_rows_apply_t(F, placed[:, m * T :]), (F * F).sum(1)], dim=1)
+            vals = torch.cat([rows_apply_t(F, placed[:, m * T :]), (F * F).sum(1)], dim=1)
             accs[gi] = accs[gi] + self._cam_reduce(bi, vals)
         ete0_raw = None
         for bi, b in enumerate(blocks):
@@ -657,7 +690,7 @@ class SchurSolver:
                     continue
                 c, t = ev._slot_cols[bi][s]
                 cols = b.jac[:, :, c : c + t]
-                gb = _rows_apply_t(cols, b.r)
+                gb = rows_apply_t(cols, b.r)
                 if s == info["e_slot"]:
                     ete = torch.einsum("bme,bmf->bef", cols, cols).reshape(-1, e * e)
                     red = ev.slot_reduce(bi, s, torch.cat([gb, ete], dim=1))
@@ -794,14 +827,14 @@ class SchurSolver:
                 gi, F, E, pidx = self._cam_fe(asm, bi)
                 conj = self._cam_conj(asm, bi)
                 ve = v_e if conj is None else v_e * conj[2]
-                red = self._cam_reduce(bi, _rows_apply_t(F, _rows_apply(E, ve[pidx])))
+                red = self._cam_reduce(bi, rows_apply_t(F, rows_apply(E, ve[pidx])))
                 red = red if conj is None else red * conj[1]
                 accs[gi] = red if gi not in accs else accs[gi] + red
                 continue
             _, jac, E = asm["per_batch"][bi]
-            Ev = _rows_apply(E, v_e[info["pidx"]])
+            Ev = rows_apply(E, v_e[info["pidx"]])
             for s, gi, c, t in info["ret_slots"]:
-                red = self.ev.slot_reduce(bi, s, _rows_apply_t(jac[:, :, c : c + t], Ev))
+                red = self.ev.slot_reduce(bi, s, rows_apply_t(jac[:, :, c : c + t], Ev))
                 accs[gi] = red if gi not in accs else accs[gi] + red
         return self._ret_assemble(accs, asm["d_f"])
 
@@ -813,7 +846,7 @@ class SchurSolver:
         out = None
         for s, gi, c, t in self.batch_info[bi]["ret_slots"]:
             vs = self._ret_view(v_f, gi)[idx[s]]
-            part = (_rows_apply(jac[:, :, c : c + t], vs) if v_f.dim() == 1
+            part = (rows_apply(jac[:, :, c : c + t], vs) if v_f.dim() == 1
                     else torch.bmm(jac[:, :, c : c + t], vs))
             out = part if out is None else out + part
         return out
@@ -827,7 +860,7 @@ class SchurSolver:
         for bi in self.e_batches:
             E = asm["per_batch"][bi][2]
             red = self.ev.slot_reduce(bi, self.batch_info[bi]["e_slot"],
-                                      _rows_apply_t(E, self._f_rows(asm, bi, v_f)))
+                                      rows_apply_t(E, self._f_rows(asm, bi, v_f)))
             out = red if out is None else out + red
         return out if out is not None else v_f.new_zeros((self.num_points, self.e_size))
 
@@ -1427,7 +1460,7 @@ class SchurSolver:
                 conj = self._cam_conj(prep, bi)
                 if conj is not None:
                     v_f, v_e = v_f * conj[0], v_e * conj[2]
-                jv = self._cam_bcast(bi, F, self._ret_view(v_f, gi)) + _rows_apply(E, v_e[pidx])
+                jv = self._cam_bcast(bi, F, self._ret_view(v_f, gi)) + rows_apply(E, v_e[pidx])
             else:
                 jv = torch.einsum("bmi,bi->bm", jac, self.ev.v_rows(bi, v))
             total = total + torch.sum(jv * jv)
@@ -1456,43 +1489,61 @@ def implicit_s_product(solver, asm, v):
     (reference: ``implicit_schur_complement.cc``
     RightMultiplyAndAccumulate).
 
-    A padded batch takes the same per-row ``F^T (F v - E wc)`` on its
-    placed rows in one pass, v broadcast by camera, summed by
-    ``_cam_reduce``. Where the rows are unscaled (the minimizer's
-    ``prepare(cam_raw, scale)``), the scaled rows are ``F_s = F s_f``
-    and ``E_s = E s_e`` (the Jacobi scale is diagonal), so
+    A padded batch takes the kernel pair of ``ops/s_product.py`` (their
+    plain versions on the CPU): the point pass over its scaled rows in row
+    order, and the same per-row ``F^T (F v - E wc)`` on its placed rows in
+    the camera pass, v read by camera. Where the rows are unscaled (the
+    minimizer's ``prepare(cam_raw, scale)``), the scaled rows are
+    ``F_s = F s_f`` and ``E_s = E s_e`` (the Jacobi scale is diagonal), so
 
         F_s^T (F_s v - E_s wc) = s_f (F^T (F (s_f v) - E (s_e wc))):
 
-    v and wc go in scaled by s_ret (whose camera span is s_f) and s_e,
-    the camera sums come out scaled by s_f. The JAX package's padded
-    branch (``skeres_tpu/core/schur.py:1268-1292``) leaves out this
-    conjugation, so on that path its PCG multiplies by the S of the
-    unscaled Jacobian.
+    v goes in scaled by s_f and wc by s_e, the camera sums come out scaled
+    by s_f. The JAX package's padded branch
+    (``skeres_tpu/core/schur.py:1268-1292``) leaves out this conjugation, so
+    on that path its PCG multiplies by the S of the unscaled Jacobian.
+    Where the padded batch is the one observation batch, the point pass
+    applies ``C^-1`` and ``s_e`` itself. Under a mesh each pass gives the
+    rank's table, then one ``all_reduce``.
 
     One ``skeres.schur.s_product`` span a call (inside
     ``skeres.schur.pcg``)."""
     with span("skeres.schur.s_product"):
-        wc = torch.einsum("pef,pf->pe", asm["cinv"], solver._wt_apply(asm, v))
+        ev = solver.ev
+        wc, wc_of = None, {}  # C^-1 W^T v, and the wc each padded batch reads
+        if solver._one_padded:
+            bi = solver.e_batch
+            conj = solver._cam_conj(asm, bi)
+            wcp = solver._point_pass(asm, bi, v, asm["cinv"], None if conj is None else conj[2])
+            wc_of[bi] = wcp if ev.mesh is None else ev.all_reduce(wcp.contiguous())
+        else:
+            wtv = v.new_zeros((solver.num_points, solver.e_size))
+            for bi in solver.e_batches:
+                if bi in solver.sorted_info:
+                    wtv = wtv + ev.all_reduce(solver._point_pass(asm, bi, v).contiguous())
+                else:
+                    E = asm["per_batch"][bi][2]
+                    wtv = wtv + ev.slot_reduce(bi, solver.batch_info[bi]["e_slot"],
+                                               rows_apply_t(E, solver._f_rows(asm, bi, v)))
+            wc = torch.einsum("pef,pf->pe", asm["cinv"], wtv)
+            for bi in solver.sorted_info:
+                conj = solver._cam_conj(asm, bi)
+                wc_of[bi] = wc if conj is None else wc * conj[2]
         accs = {}
         for bi, (r, jac, E) in enumerate(asm["per_batch"]):
             info = solver.batch_info[bi]
             if not info["ret_slots"]:
                 continue
             if bi in solver.sorted_info:
-                gi, Fs, Es, pidx = solver._cam_fe(asm, bi)
+                gi = info["ret_slots"][0][1]
                 conj = solver._cam_conj(asm, bi)
-                v_in, wc_in = (v, wc) if conj is None else (v * conj[0], wc * conj[2])
-                Fv = (solver._cam_bcast(bi, Fs, solver._ret_view(v_in, gi))
-                      - _rows_apply(Es, wc_in[pidx]))
-                red = solver._cam_reduce(bi, _rows_apply_t(Fs, Fv))
-                red = red if conj is None else red * conj[1]
+                red = ev.all_reduce(solver._camera_pass(asm, bi, v, wc_of[bi], conj))
                 accs[gi] = red if gi not in accs else accs[gi] + red
                 continue
             Fv = solver._f_rows(asm, bi, v)
-            if E is not None:
-                Fv = Fv - _rows_apply(E, wc[info["pidx"]])
+            if E is not None:  # an observation batch off the layout: wc is set
+                Fv = Fv - rows_apply(E, wc[info["pidx"]])
             for slot, gi, c, t in info["ret_slots"]:
-                red = solver.ev.slot_reduce(bi, slot, _rows_apply_t(jac[:, :, c : c + t], Fv))
+                red = solver.ev.slot_reduce(bi, slot, rows_apply_t(jac[:, :, c : c + t], Fv))
                 accs[gi] = red if gi not in accs else accs[gi] + red
         return asm["d_f"] * v + solver._ret_assemble(accs, v)

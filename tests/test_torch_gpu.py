@@ -9,6 +9,8 @@ card and no jax:
 (``--noconftest`` because ``tests/conftest.py`` configures jax).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from skeres_tpu_torch.core.types import LinearSolverType
 from skeres_tpu_torch.io.bal import build_bal_problem, synthetic_bal
 from skeres_tpu_torch.ops import cholesky as k1
 from skeres_tpu_torch.ops import pair_product as k3
+from skeres_tpu_torch.ops import s_product as sp
 
 
 @pytest.fixture
@@ -772,3 +775,175 @@ def test_plans_built_on_card_equal_cpu_plans(cuda, shuffled):
     for name, on_card, on_cpu in kept:
         assert on_card.is_cuda, name
         assert torch.equal(on_card.cpu(), on_cpu), name
+
+
+def _s_pass_inputs(device, dtype, m, t, e, f_first, shuffled):
+    """Random inputs of both S passes on ``device``: 3,000 points seen by
+    1-12 rows each, 40 cameras; the rows' values 2 wider than m (t + e), as
+    the minimizer's placed rows, and placed camera by camera."""
+    g = torch.Generator().manual_seed(t * 10 + e)
+    n_pts, nc, w = 3000, 40, m * (t + e)
+    pt = torch.repeat_interleave(torch.arange(n_pts), torch.randint(1, 13, (n_pts,), generator=g))
+    b = len(pt)
+    perm = torch.randperm(b, generator=g) if shuffled else torch.arange(b)
+    row_pt = torch.empty_like(pt)
+    row_pt[perm] = pt  # row perm[q] belongs to the q-th point-sorted slot
+    cam = torch.randint(0, nc, (b,), generator=g)
+    wide = torch.randn(b, w + 2, generator=g, dtype=torch.float64).to(dtype)
+    counts = torch.bincount(cam, minlength=nc)
+    K = int(counts.max())
+    order = torch.argsort(cam, stable=True)
+    slot = torch.arange(b) - torch.cumsum(counts, 0)[cam[order]] + counts[cam[order]]
+    placed = wide.new_zeros((nc * K, w + 2))
+    pidx = torch.zeros(nc * K, dtype=torch.int64)
+    placed[cam[order] * K + slot] = wide[order]
+    pidx[cam[order] * K + slot] = row_pt[order]
+    x = dict(rows=wide[:, :w].contiguous().unflatten(1, (m, t + e)), cam=cam,
+             seg=torch.searchsorted(pt, torch.arange(n_pts + 1)),
+             perm=perm if shuffled else None, pidx=pidx, counts=counts,
+             v_cam=torch.randn(nc, t, generator=g, dtype=torch.float64).to(dtype),
+             cinv=torch.randn(n_pts, e, e, generator=g, dtype=torch.float64).to(dtype),
+             s_e=torch.rand(n_pts, e, generator=g, dtype=torch.float64).to(dtype),
+             s_f=torch.rand(nc, t, generator=g, dtype=torch.float64).to(dtype))
+    x = {k: None if v is None else v.to(device) for k, v in x.items()}
+    x["placed"] = placed.to(device)[:, :w].unflatten(1, (m, t + e))
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["grouped", "shuffled"])
+@pytest.mark.parametrize("shape", [(2, 9, 3, True), (2, 9, 3, False), (3, 4, 3, True),
+                                   (2, 6, 3, False)],
+                         ids=["ba", "ba points first", "stereo", "calibrated"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_s_passes_match_plain_versions_on_card(cuda, dtype, tol, shape, order):
+    """Each pass of the S product against its plain version on the same
+    card tensors, with and without C^-1, s_e and s_f, within
+    ``tol`` of max|reference| (sums of up to 12 rows of 9-term products in
+    another order); two calls on the same inputs equal bit for bit; one
+    launch a call. (2, 9, 3) with F first takes the instance of its own
+    sizes, the rest the one with sizes read at run time."""
+    m, t, e, f_first = shape
+    x = _s_pass_inputs(cuda, dtype, m, t, e, f_first, order == "shuffled")
+    before = (sp.point_sums.launches, sp.camera_sums.launches)
+    for cinv, s_e in ((None, None), (x["cinv"], None), (x["cinv"], x["s_e"])):
+        args = (x["rows"], f_first, x["cam"], x["v_cam"], x["seg"], x["perm"], cinv, s_e)
+        got, again = sp.point_sums(*args), sp.point_sums(*args)
+        ref = sp.point_sums_reference(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+    wc = got
+    assert wc.stride(0) == (4 if e == 3 else e)
+    for s_f in (None, x["s_f"]):
+        for table in (wc, wc.contiguous()):
+            args = (x["placed"], f_first, x["pidx"], x["counts"], x["v_cam"], table, s_f)
+            got, again = sp.camera_sums(*args), sp.camera_sums(*args)
+            ref = sp.camera_sums_reference(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert (sp.point_sums.launches, sp.camera_sums.launches) == (before[0] + 6, before[1] + 8)
+
+
+def _padded_scene(shuffled):
+    bal = synthetic_bal(16, 500, 4)
+    if shuffled:
+        rows = np.random.default_rng(3).permutation(len(bal.point_index))
+        bal = dataclasses.replace(bal, camera_index=bal.camera_index[rows],
+                                  point_index=bal.point_index[rows],
+                                  observations=bal.observations[rows])
+    return bal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["grouped", "shuffled"])
+@pytest.mark.parametrize("cam_raw", [True, False], ids=["cam_raw", "prescaled"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-12)])
+def test_padded_s_product_kernels_on_card_match_plain(cuda, dtype, tol, cam_raw, order):
+    """``implicit_s_product`` on a padded scene on the card (the kernel
+    pair, one launch each a product, bit for bit on a second call) against
+    the same product on the CPU (the plain versions), with the
+    minimizer's unscaled placed rows and with pre-scaled ones, rows grouped
+    by point or shuffled (the permutation plan), within ``tol`` of
+    max|S v|: S v is the difference of F^T F v and W C^-1 W^T v, each
+    summed in another order on the two devices, so float32 keeps about
+    four digits of it."""
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.linear_solvers import lm_diagonal
+    from skeres_tpu_torch.core.schur import SchurSolver, implicit_s_product
+
+    program = build_bal_problem(_padded_scene(order == "shuffled"))[0].compile()
+    products = {}
+    for dev in (cuda, torch.device("cpu")):
+        ev = Evaluator(program, dev, dtype)
+        _, blocks = ev.blocks(program.initial_state(dev, dtype))
+        g, diag = ev.gradient_and_diag(blocks)
+        scale = 1.0 / (1.0 + torch.sqrt(diag))
+        schur = SchurSolver(ev, iterative=True, sort_threshold=1, pad_waste=100.0)
+        assert (schur.sorted_info[0]["pt_perm"] is None) == (order == "grouped")
+        data = schur.scale_data(schur.solver_data(blocks), scale)
+        if cam_raw:
+            _, _, raw = schur.gradient_and_diag_padded(blocks)
+            prep = schur.prepare(data, cam_raw=raw, scale=scale)
+        else:
+            prep = schur.prepare(data)
+        asm = schur._assemble(prep, g * scale, lm_diagonal(diag * scale**2, 1e-4, 1e-6, 1e32))
+        v = torch.linspace(-1.0, 1.0, schur.num_f, dtype=dtype, device=dev)
+        before = (sp.point_sums.launches, sp.camera_sums.launches)
+        sv = implicit_s_product(schur, asm, v)
+        again = implicit_s_product(schur, asm, v)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (sp.point_sums.launches, sp.camera_sums.launches) == (before[0] + 2,
+                                                                         before[1] + 2)
+            assert torch.equal(sv, again)
+        products[dev.type] = sv.cpu()
+    ref = products["cpu"]
+    assert float((products["cuda"] - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_iterative_schur_kernels_in_solves_on_card(cuda, monkeypatch):
+    """A padded ITERATIVE_SCHUR (SCHUR_JACOBI) solve in float64 on the card:
+    on the host loop every S product launches each kernel once (the
+    counters grow by the number of products); on the device loop the
+    captured step records them (the counters grow by the captures' products,
+    not the replays'), and the solve keeps the host loop's decisions, PCG
+    counts and costs to rtol 1e-8, as the device-loop tests hold."""
+    from skeres_tpu_torch.core import schur as schur_mod
+    from skeres_tpu_torch.core.types import PreconditionerType
+
+    calls = []
+    product = schur_mod.implicit_s_product
+
+    def counting(*args):
+        calls.append(1)
+        return product(*args)
+
+    monkeypatch.setattr(schur_mod, "implicit_s_product", counting)
+    runs = []
+    for device_loop in (False, True):
+        problem, _, _ = build_bal_problem(synthetic_bal(16, 500, 4))
+        calls.clear()
+        before = (sp.point_sums.launches, sp.camera_sums.launches)
+        runs.append(stt.solve(stt.SolverOptions(
+            linear_solver_type=LinearSolverType.ITERATIVE_SCHUR,
+            preconditioner_type=PreconditionerType.SCHUR_JACOBI, max_num_iterations=8,
+            run_full_iteration_budget=True, initial_trust_region_radius=1.0,
+            jacobian_sort_threshold=1, jacobian_pad_waste=100.0,
+            use_device_loop=device_loop, device_loop_chunk_iterations=4,
+            dtype=torch.float64, device=cuda), problem))
+        assert runs[-1].camera_padded_layout.startswith("batch 0: 16 x ")
+        grown = (sp.point_sums.launches - before[0], sp.camera_sums.launches - before[1])
+        assert grown == (len(calls), len(calls)) and len(calls) > 0
+        if not device_loop:
+            assert len(calls) >= sum(it.linear_solver_iterations for it in runs[-1].iterations)
+    host, device = runs
+    assert device.device_loop_capture_time_in_seconds > 0.0
+    assert [it.step_is_successful for it in device.iterations] == [
+        it.step_is_successful for it in host.iterations]
+    counts = [[it.linear_solver_iterations for it in s.iterations] for s in (device, host)]
+    assert counts[0] == counts[1] and max(counts[0]) > 1
+    np.testing.assert_allclose([it.cost for it in device.iterations],
+                               [it.cost for it in host.iterations], rtol=1e-8)
