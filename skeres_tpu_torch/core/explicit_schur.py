@@ -8,8 +8,7 @@ of the dense-W path passes its gate (venice-1778: 192 GB):
   S = blockdiag(F^T F + D_f) - W C^-1 W^T
 
 - the per-row ``A_r = F_r^T E_r`` blocks are laid on a point grid
-  (P, kp) (a pure reshape when every point has kp observations in row
-  order);
+  (P, kp) by one gather;
 - the OFF-diagonal blocks are the pair products ``Y_pk A_pl^T`` (k < l)
   of every point, computed by K3 (``ops/pair_product.py``), reduced onto
   the unique camera pairs by a planned hierarchical sum: each level
@@ -290,12 +289,7 @@ class ExplicitSchurPlan:
         with span("skeres.plan.pairs.sums"):
             self.n_straddle = 0  # points whose rows straddle a shard boundary
             if self.mesh is None:
-                # uniform point-sorted rows: the grid is the identity reshape of the rows
-                self.grid_is_reshape = bool(
-                    num_points * kp == B and bool((counts == kp).all())
-                    and torch.equal(grid_src, torch.arange(B, device=dev))
-                )
-                self.grid_src = None if self.grid_is_reshape else grid_src
+                self.grid_src = grid_src
                 self.swap_mask = swap_g
                 self.pair_valid = valid_g
                 self.n_pair_rows = len(pair_id_g)
@@ -309,7 +303,6 @@ class ExplicitSchurPlan:
                 self.levels = _freeze_levels(levels, device)
                 del levels
             else:
-                self.grid_is_reshape = False
                 uniq = torch.unique(ids)
                 self._plan_sharded(B, pt.cpu().numpy(),
                                    grid_src.cpu().numpy().reshape(num_points, kp),
@@ -469,12 +462,8 @@ class ExplicitSchurPlan:
             grid = padded[self.grid_src].reshape(-1, self.kp * d)
             fix = all_reduce_sum(padded[self.fix_src], self.mesh)
             return {"grid": grid, "fix": fix.reshape(self.n_straddle, self.kp * d)}
-        if self.grid_is_reshape:
-            grid = a_flat.reshape(self.np_, self.kp * d)
-        else:
-            padded = torch.cat([a_flat, a_flat.new_zeros((1, d))])
-            grid = padded[self.grid_src].reshape(self.np_, self.kp * d)
-        return {"grid": grid}
+        padded = torch.cat([a_flat, a_flat.new_zeros((1, d))])
+        return {"grid": padded[self.grid_src].reshape(self.np_, self.kp * d)}
 
     def _pair_values(self, grid, cinv_rows, swap, valid):
         """(Pn, kp*f*e) grid -> (Pn*npairs, f*f) pair values by K3."""

@@ -242,7 +242,7 @@ class TrustRegionMinimizer:
     def _prep_data(self, blocks, scale, cam_raw=None):
         """The Schur solvers scale and prepare once per linearization, and
         every re-solve after a rejected step reuses it (with ``cam_raw``,
-        the unscaled placed rows of ``gradient_and_diag_padded``); the
+        the unscaled placed rows of ``SchurSolver.gradient_and_diag``); the
         others keep their data unscaled and scale at solve time (cheap for
         them)."""
         data = self._solver_data(blocks)
@@ -345,13 +345,12 @@ class TrustRegionMinimizer:
         with span("skeres.step.linearize"):
             ev = self.ev
             cost, blocks = ev.blocks(state)
-            cam_raw = None
-            if self.schur_solver is not None and self.schur_solver.sorted_info:
-                # the camera sums on the padded layout, whose placed rows
+            if self.schur_solver is not None:
+                # with the placed rows of any camera-padded batch, which
                 # prepare() reuses (skeres_tpu/core/minimizer.py:431-457)
-                g, diag, cam_raw = self.schur_solver.gradient_and_diag_padded(blocks)
+                g, diag, cam_raw = self.schur_solver.gradient_and_diag(blocks)
             else:
-                g, diag = ev.gradient_and_diag(blocks)
+                (g, diag), cam_raw = ev.gradient_and_diag(blocks), None
             if not self.options.jacobi_scaling:
                 scale = torch.ones_like(diag)
             elif scale_prev is None:

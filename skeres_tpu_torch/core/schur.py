@@ -52,12 +52,13 @@ linearization into a dense (nc, K) grid of rows (one ``index_select`` of
 it is then ``reshape(nc, K, D).sum(1)``, whose order is fixed, where the
 generic path sums by ``index_add_``, whose float32 order on the card is
 not; a camera's vector reaches its rows as a broadcast, not a gather.
-``gradient_and_diag_padded`` places the unscaled rows and ``prepare``
-reuses them, so every padded product conjugates with the Jacobi scale
-(``_cam_conj``); the S product too, which the JAX package's does not
-(``_s_matvec``). Under a mesh each rank places its own rows into a grid
-of its own, with the K of the widest shard, and each camera sum is the
-rank's reshape-and-sum, then one ``all_reduce``.
+``gradient_and_diag`` places the unscaled rows and ``prepare`` reuses
+them, so every padded product conjugates with the Jacobi scale
+(``_cam_conj``; ones where ``prepare`` placed rows that came scaled); the
+S product too, which the JAX package's does not (``_s_matvec``). Under a
+mesh each rank places its own rows into a grid of its own, with the K of
+the widest shard, and each camera sum is the rank's reshape-and-sum, then
+one ``all_reduce``.
 
 Under a mesh (the evaluator's ``mesh``, ``parallel/mesh.py``) every row
 term is this rank's rows and every ``slot_reduce`` returns the table
@@ -71,12 +72,13 @@ the shards' products), and the column probe with each chunk's reductions
 reduced; the rows of other batches (priors) that add to S are summed into
 a zero matrix and reduced once.
 
-``prepare()`` keeps the per-row ``A = F^T E`` blocks (540 MB at
-venice-1778 shape in float32) and the per-camera ``F^T F`` sums for every
-solver that reads the camera blocks of S (DENSE_SCHUR's explicit path,
-SCHUR_JACOBI, the cluster preconditioners): they do not depend on mu, so a
-rejected step's re-solve pays only the ``C^-1``-dependent half, and with a
-plan the rows are the point grid K3 reads anyway.
+The camera blocks of S (DENSE_SCHUR's explicit diagonal, SCHUR_JACOBI,
+POWER_SERIES_EXPANSION's base matrix, the cluster preconditioners) come
+from the placed rows of a padded batch and row by row from every other
+batch (``_schur_jacobi_blocks``). ``prepare()`` lays the per-row
+``A = F^T E`` blocks on a plan's point grid (explicit or cluster) once a
+linearization, since they do not depend on mu: a rejected step's re-solve
+pays only the ``C^-1``-dependent pair products.
 """
 
 from __future__ import annotations
@@ -415,26 +417,13 @@ class SchurSolver:
             self.preconditioner_used = PreconditionerType.SCHUR_JACOBI
         elif preconditioner == PreconditionerType.SUBSET:
             self.preconditioner_used = PreconditionerType.JACOBI
-        # which solves read the camera blocks of S in the BA fast form, and so
-        # the A rows (prepare()); the general structure assembles its blocks
-        # row by row (_schur_jacobi_blocks)
-        self._keeps_a = self._ba and (self.explicit_plan is not None or (
-            iterative and self.preconditioner_used in (PreconditionerType.SCHUR_JACOBI,
-                                                       *cluster_kinds)))
-        self._keeps_ftf = self._keeps_a or (
-            self._ba and iterative
-            and self.preconditioner_used == PreconditionerType.POWER_SERIES_EXPANSION)
 
-        # the camera-padded layout, per observation batch; where it holds
-        # the observation batch, the camera blocks come from the placed rows
-        # and neither the A rows nor the F^T F sums are kept
+        # the camera-padded layout, per observation batch
         self.sorted_info = {}
         self._layout_notes = []
         with span("skeres.plan.layout"):
             for bi in e_batches:
                 self._plan_padded(bi, sort_threshold, pad_waste)
-        if self.e_batch in self.sorted_info:
-            self._keeps_a = self._keeps_ftf = False
         # the S product's point pass (implicit_s_product) applies C^-1 and
         # s_e itself where the one observation batch is padded
         self._one_padded = len(e_batches) == 1 and e_batches[0] in self.sorted_info
@@ -623,15 +612,15 @@ class SchurSolver:
         return point_sums(asm["per_batch"][bi][1], sinfo["f_first"], self.ev._batch_const[bi][1][s],
                           self._ret_view(v, gi), sinfo["pt_seg"], sinfo["pt_perm"], cinv, s_e)
 
-    def _camera_pass(self, asm, bi, v, wc, conj):
+    def _camera_pass(self, asm, bi, v, wc):
         """``s_f F^T (F (s_f v) - E wc)`` by camera over padded batch
-        ``bi``'s placed rows (``s_f`` where they are unscaled)
-        (``ops/s_product.camera_sums``): (nc, t), the rank's rows."""
+        ``bi``'s placed rows (``ops/s_product.camera_sums``): (nc, t), the
+        rank's rows."""
         sinfo = self.sorted_info[bi]
         gi = self.batch_info[bi]["ret_slots"][0][1]
         placed = asm["cam"][bi].unflatten(1, (self.ev.program.batches[bi].residual_dim, -1))
         return camera_sums(placed, sinfo["f_first"], sinfo["pidx_pad"], sinfo["cam_rows"],
-                           self._ret_view(v, gi), wc, None if conj is None else conj[1])
+                           self._ret_view(v, gi), wc, self._cam_conj(asm, bi)[1])
 
     def _cam_bcast(self, bi, rows, v_cam):
         """The per-row product ``rows (nc*K, m, t) @ v_cam[camera of the
@@ -643,20 +632,18 @@ class SchurSolver:
         return (rows.view(nc, K, m, t) * v_cam[:, None, None, :]).sum(-1).view(nc * K, m)
 
     def _cam_conj(self, asm, bi):
-        """The Jacobi scale of a padded batch whose placed rows are
-        unscaled (``prepare`` reused them): (s_ret (N_f,), s_f (nc, t) of
-        its retained group, s_e (n_pts, e)); None where the rows were
-        placed scaled. The scaling is diagonal, J_s = J S, so every padded
+        """The Jacobi scale that the placed rows of padded batch ``bi``
+        leave out (``cam_scale``: ones where ``prepare`` placed rows that
+        came scaled): (s_ret (N_f,), s_f (nc, t) of its retained group,
+        s_e (n_pts, e)). The scaling is diagonal, J_s = J S, so every padded
         product takes the scale on its inputs and outputs instead of a pass
         over the placed rows."""
-        scale = asm.get("cam_scale")
-        if scale is None:
-            return None
+        scale = asm["cam_scale"]
         gi = self.batch_info[bi]["ret_slots"][0][1]
         s_ret = self._gather_f(scale)
         return s_ret, self._ret_view(s_ret, gi), self._gather_ge(scale)
 
-    def gradient_and_diag_padded(self, blocks):
+    def gradient_and_diag(self, blocks):
         """g = J^T r and diag(J^T J) as ``Evaluator.gradient_and_diag``
         gives them, with the camera sums of every padded batch taken on its
         placed rows, and the placed copies for ``prepare`` to reuse
@@ -665,8 +652,11 @@ class SchurSolver:
         batch bi (one placement of ``(jac | r)``), and ``cam_raw[-1]`` the
         undamped E^T E (n_pts, e*e), which rides the point-side reduction
         of g and diag. Point-side sums and the other batches take the
-        evaluator's reductions."""
+        evaluator's reductions; where no batch is padded, all of g and diag
+        do, and ``cam_raw`` is None."""
         ev = self.ev
+        if not self.sorted_info:
+            return (*ev.gradient_and_diag(blocks), None)
         program = ev.program
         e = self.e_size
         accs = [torch.zeros((g.num_blocks, 2 * g.tangent_size), dtype=ev.dtype, device=ev.device)
@@ -712,18 +702,17 @@ class SchurSolver:
     def prepare(self, data, cam_raw=None, scale=None):
         """Everything that does not depend on mu, once per linearization:
         the E split, the undamped per-point ``E^T E``, the placed rows of
-        every padded batch (``cam``) and, off the dense-W path, the
-        per-camera sums of ``F^T F``, the A = F^T E rows where a solve reads
-        the camera blocks of S from them, and their point grid where a plan
-        (explicit or cluster: one layout) has K3 read them. Rejected steps
-        re-solve with a new mu from the same prepared data.
+        every padded batch (``cam``) with the scale they leave out
+        (``cam_scale``), and the A = F^T E rows on the point grid where a
+        plan (explicit or cluster: one layout) has K3 read them. Rejected
+        steps re-solve with a new mu from the same prepared data.
 
-        ``cam_raw`` and ``scale``: what ``gradient_and_diag_padded`` placed
+        ``cam_raw`` and ``scale``: what ``gradient_and_diag`` placed
         (unscaled) and the Jacobi scale ``data`` carries. The placed rows
-        are then reused as they are, with ``cam_scale`` set for the padded
-        products to conjugate with, and E^T E is ``cam_raw[-1]`` conjugated
-        (``skeres_tpu/core/schur.py:689-747``); without them the rows of
-        ``data`` are placed as they come."""
+        are then reused as they are, ``cam_scale`` is ``scale``, and E^T E
+        is ``cam_raw[-1]`` conjugated (``skeres_tpu/core/schur.py:689-747``);
+        without them the rows of ``data`` are placed as they come and
+        ``cam_scale`` is ones."""
         with span("skeres.schur.prepare"):
             e = self.e_size
             ete0_raw = None if cam_raw is None or scale is None else cam_raw.get(-1)
@@ -748,30 +737,12 @@ class SchurSolver:
                 prep["cam"] = {bi: cam_raw[bi] if reuse else
                                self._place_rows(bi, data[bi][1].flatten(1))
                                for bi in self.sorted_info}
-                prep["cam_scale"] = scale if reuse else None
-            if self.w_plan is not None or not self._ba:
-                return prep
-            nc, f = self.num_cams, self.f_size
+                prep["cam_scale"] = (scale if reuse else
+                                     ete0.new_ones(self.ev.program.num_tangent))
             plan = self.explicit_plan or self.cluster_plan
             if plan is not None:
                 with span("skeres.schur.grid"):
-                    if plan.grid_is_reshape:
-                        # uniform point-grouped rows: write the grid rows directly
-                        grid = self._explicit_a_grid(per_batch, plan.kp, plan.np_ * plan.kp)
-                        a_rows = grid.view(-1, f * self.e_size)
-                        prep["explicit_grid"] = {"grid": grid}
-                    else:
-                        a_rows = self._explicit_a_flat(per_batch)
-                        prep["explicit_grid"] = plan.build_grid(a_rows)
-                if self._keeps_a:
-                    prep["explicit_a"] = a_rows
-            elif self._keeps_a:
-                prep["explicit_a"] = self._explicit_a_flat(per_batch)
-            if self._keeps_ftf:
-                Fs = per_batch[self.e_batch][1][:, :, self.f_col : self.f_col + f]
-                ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs).reshape(-1, f * f)
-                prep["explicit_ftf"] = self.ev.slot_reduce(
-                    self.e_batch, self.f_slot, ftf).reshape(nc, f, f)
+                    prep["explicit_grid"] = plan.build_grid(self._explicit_a_flat(per_batch))
             return prep
 
     def _explicit_a_flat(self, per_batch):
@@ -779,17 +750,6 @@ class SchurSolver:
         _, jac, E = per_batch[self.e_batch]
         Fs = jac[:, :, self.f_col : self.f_col + self.f_size]
         return torch.einsum("bmf,bme->bfe", Fs, E).reshape(jac.shape[0], -1)
-
-    def _explicit_a_grid(self, per_batch, kp, n_rows):
-        """The point grid (n_pts, kp*f*e) of the A rows when it is a pure
-        reshape of row order (uniform kp observations per point,
-        point-grouped rows): the first ``n_rows`` rows' products, written
-        once in the grid's layout. Values identical to
-        ``build_grid(_explicit_a_flat(...))``."""
-        _, jac, E = per_batch[self.e_batch]
-        Fs = jac[:n_rows, :, self.f_col : self.f_col + self.f_size]
-        a = torch.einsum("bmf,bme->bfe", Fs, E[:n_rows])
-        return a.reshape(n_rows // kp, kp * self.f_size * self.e_size)
 
     def _assemble(self, data, g, d):
         """Per-mu elimination state: damped C^-1 and the rhs pieces.
@@ -803,8 +763,6 @@ class SchurSolver:
             cam=prep.get("cam"),
             cam_scale=prep.get("cam_scale"),
             explicit_grid=prep.get("explicit_grid"),
-            explicit_a=prep.get("explicit_a"),
-            explicit_ftf=prep.get("explicit_ftf"),
             cinv=batched_spd_inverse(ete),
             g_f=self._gather_f(g),
             d_f=self._gather_f(d),
@@ -825,10 +783,8 @@ class SchurSolver:
             info = self.batch_info[bi]
             if bi in self.sorted_info:
                 gi, F, E, pidx = self._cam_fe(asm, bi)
-                conj = self._cam_conj(asm, bi)
-                ve = v_e if conj is None else v_e * conj[2]
-                red = self._cam_reduce(bi, rows_apply_t(F, rows_apply(E, ve[pidx])))
-                red = red if conj is None else red * conj[1]
+                _, s_f, s_e = self._cam_conj(asm, bi)
+                red = self._cam_reduce(bi, rows_apply_t(F, rows_apply(E, (v_e * s_e)[pidx]))) * s_f
                 accs[gi] = red if gi not in accs else accs[gi] + red
                 continue
             _, jac, E = asm["per_batch"][bi]
@@ -931,40 +887,29 @@ class SchurSolver:
         Contributions across two slots of one row are dropped, as in the
         reference's preconditioner assembly.
 
-        On the BA structure the observation batch gives the per-camera
-        ``F^T F`` sums of ``prepare()`` minus the per-row ``Y A^T``
-        (``A = F^T E``, ``Y = A C_p^-1``) summed by camera, of which only
-        ``Y A^T`` depends on mu; elsewhere every retained slot of every
-        batch adds its ``F^T F - Y A^T`` row by row."""
+        A padded batch gives its blocks from its placed rows
+        (``_padded_blocks``); every retained slot of every other batch adds
+        its ``F^T F`` summed by block, minus its per-row ``Y A^T``
+        (``A = F^T E``, ``Y = A C_p^-1``) summed apart."""
         outs = {}
         for bi in self.sorted_info:
             if only_batch is None or bi == only_batch:
                 gi = self.batch_info[bi]["ret_slots"][0][1]
                 red = self._padded_blocks(asm, bi, include_e_correction)
                 outs[gi] = red if gi not in outs else outs[gi] + red
-        if self._ba and self.e_batch not in self.sorted_info:
-            nc, f, e = self.num_cams, self.f_size, self.e_size
-            bi = self.e_batch
-            blocks = asm["explicit_ftf"]
-            if include_e_correction:
-                a = asm["explicit_a"].view(-1, f, e)
-                y = torch.einsum("bfe,beg->bfg", a, asm["cinv"][self.batch_info[bi]["pidx"]])
-                yat = torch.einsum("bfe,bge->bfg", y, a).reshape(-1, f * f)
-                blocks = blocks - self.ev.slot_reduce(bi, self.f_slot, yat).reshape(nc, f, f)
-            outs[self.batch_info[bi]["ret_slots"][0][1]] = blocks
         for bj, (rb, jacb, Eb) in enumerate(asm["per_batch"]):
-            if ((self._ba and bj == self.e_batch) or bj in self.sorted_info
-                    or (only_batch is not None and bj != only_batch)):
+            if bj in self.sorted_info or (only_batch is not None and bj != only_batch):
                 continue
             info = self.batch_info[bj]
             for slot, gi, c, t in info["ret_slots"]:
                 Fs = jacb[:, :, c : c + t]
-                ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs)
+                ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs).reshape(-1, t * t)
+                red = self.ev.slot_reduce(bj, slot, ftf).view(-1, t, t)
                 if Eb is not None and include_e_correction:
                     a = torch.einsum("bmf,bme->bfe", Fs, Eb)
                     y = torch.einsum("bfe,beg->bfg", a, asm["cinv"][info["pidx"]])
-                    ftf = ftf - torch.einsum("bfe,bge->bfg", y, a)
-                red = self.ev.slot_reduce(bj, slot, ftf.reshape(-1, t * t)).view(-1, t, t)
+                    yat = torch.einsum("bfe,bge->bfg", y, a).reshape(-1, t * t)
+                    red = red - self.ev.slot_reduce(bj, slot, yat).view(-1, t, t)
                 outs[gi] = red if gi not in outs else outs[gi] + red
         d_f = asm["d_f"]
         blocks = []
@@ -975,7 +920,7 @@ class SchurSolver:
 
     def _padded_blocks(self, asm, bi, include_e_correction):
         """The camera blocks ``F^T F - Y A^T`` (or ``F^T F`` alone) of padded
-        batch ``bi`` from its placed rows, (nc, t, t): with unscaled rows,
+        batch ``bi`` from its placed rows, (nc, t, t): the rows unscaled,
         ``A_s = s_f A s_e`` and ``C_s^-1`` enters as ``s_e C_s^-1 s_e``, and
         the sums take ``s_f`` on both sides. The per-row ``(t, t)`` products
         are taken for whole cameras at a time, at most
@@ -984,10 +929,10 @@ class SchurSolver:
         sinfo = self.sorted_info[bi]
         nc, K = sinfo["nc"], sinfo["K"]
         t = Fs.shape[2]
-        conj = self._cam_conj(asm, bi)
+        _, s_f, s_e = self._cam_conj(asm, bi)
         cinv = asm["cinv"]
-        if include_e_correction and conj is not None:
-            cinv = cinv * conj[2][:, :, None] * conj[2][:, None, :]
+        if include_e_correction:
+            cinv = cinv * s_e[:, :, None] * s_e[:, None, :]
         per_cam = K * t * t * Fs.element_size()
         step = max(1, min(nc, PADDED_BLOCK_BYTES // max(per_cam, 1)))
         parts = []
@@ -1002,22 +947,18 @@ class SchurSolver:
                 del a, y
             parts.append(self._cam_reduce(bi, ftf))
             del ftf
-        red = torch.cat(parts)
-        if conj is not None:
-            red = red * conj[1][:, :, None] * conj[1][:, None, :]
-        return red
+        return torch.cat(parts) * s_f[:, :, None] * s_f[:, None, :]
 
     def _ftf_diag(self, asm):
         """diag(F^T F) over the retained coordinates, every batch; a padded
-        batch on its placed rows (``s_f^2 diag(F^T F)`` with unscaled
-        rows)."""
+        batch on its placed rows (``s_f^2 diag(F^T F)``, the rows
+        unscaled)."""
         accs = {}
         for bi, (r, jac, E) in enumerate(asm["per_batch"]):
             if bi in self.sorted_info:
                 gi, Fs, _, _ = self._cam_fe(asm, bi)
-                red = self._cam_reduce(bi, torch.sum(Fs * Fs, dim=1))
-                conj = self._cam_conj(asm, bi)
-                red = red if conj is None else red * conj[1] * conj[1]
+                s_f = self._cam_conj(asm, bi)[1]
+                red = self._cam_reduce(bi, torch.sum(Fs * Fs, dim=1)) * s_f * s_f
                 accs[gi] = red if gi not in accs else accs[gi] + red
                 continue
             for slot, gi, c, t in self.batch_info[bi]["ret_slots"]:
@@ -1449,17 +1390,15 @@ class SchurSolver:
         """v^T (J^T J) v = ||J v||^2 in one forward pass over the rows; a
         padded batch of a ``prepare()`` dict on its placed rows, the camera
         vector broadcast and the point vector gathered
-        (``J_s y = F (s_f y_f) + E (s_e y_e)`` with unscaled rows)."""
+        (``J_s y = F (s_f y_f) + E (s_e y_e)``, the rows unscaled)."""
         prep = data if isinstance(data, dict) else None
         pairs = [(r, jac) for (r, jac, _) in data["per_batch"]] if prep is not None else data
         total = torch.zeros((), dtype=v.dtype, device=v.device)
         for bi, (r, jac) in enumerate(pairs):
             if prep is not None and bi in prep.get("cam", {}):
                 gi, F, E, pidx = self._cam_fe(prep, bi)
-                v_f, v_e = self._gather_f(v), self._gather_ge(v)
-                conj = self._cam_conj(prep, bi)
-                if conj is not None:
-                    v_f, v_e = v_f * conj[0], v_e * conj[2]
+                s_ret, _, s_e = self._cam_conj(prep, bi)
+                v_f, v_e = self._gather_f(v) * s_ret, self._gather_ge(v) * s_e
                 jv = self._cam_bcast(bi, F, self._ret_view(v_f, gi)) + rows_apply(E, v_e[pidx])
             else:
                 jv = torch.einsum("bmi,bi->bm", jac, self.ev.v_rows(bi, v))
@@ -1492,9 +1431,9 @@ def implicit_s_product(solver, asm, v):
     A padded batch takes the kernel pair of ``ops/s_product.py`` (their
     plain versions on the CPU): the point pass over its scaled rows in row
     order, and the same per-row ``F^T (F v - E wc)`` on its placed rows in
-    the camera pass, v read by camera. Where the rows are unscaled (the
-    minimizer's ``prepare(cam_raw, scale)``), the scaled rows are
-    ``F_s = F s_f`` and ``E_s = E s_e`` (the Jacobi scale is diagonal), so
+    the camera pass, v read by camera. The placed rows leave out the scale
+    ``prepare`` records (``cam_scale``), so with the scaled rows
+    ``F_s = F s_f`` and ``E_s = E s_e`` (the Jacobi scale is diagonal)
 
         F_s^T (F_s v - E_s wc) = s_f (F^T (F (s_f v) - E (s_e wc))):
 
@@ -1513,8 +1452,7 @@ def implicit_s_product(solver, asm, v):
         wc, wc_of = None, {}  # C^-1 W^T v, and the wc each padded batch reads
         if solver._one_padded:
             bi = solver.e_batch
-            conj = solver._cam_conj(asm, bi)
-            wcp = solver._point_pass(asm, bi, v, asm["cinv"], None if conj is None else conj[2])
+            wcp = solver._point_pass(asm, bi, v, asm["cinv"], solver._cam_conj(asm, bi)[2])
             wc_of[bi] = wcp if ev.mesh is None else ev.all_reduce(wcp.contiguous())
         else:
             wtv = v.new_zeros((solver.num_points, solver.e_size))
@@ -1527,8 +1465,7 @@ def implicit_s_product(solver, asm, v):
                                                rows_apply_t(E, solver._f_rows(asm, bi, v)))
             wc = torch.einsum("pef,pf->pe", asm["cinv"], wtv)
             for bi in solver.sorted_info:
-                conj = solver._cam_conj(asm, bi)
-                wc_of[bi] = wc if conj is None else wc * conj[2]
+                wc_of[bi] = wc * solver._cam_conj(asm, bi)[2]
         accs = {}
         for bi, (r, jac, E) in enumerate(asm["per_batch"]):
             info = solver.batch_info[bi]
@@ -1536,8 +1473,7 @@ def implicit_s_product(solver, asm, v):
                 continue
             if bi in solver.sorted_info:
                 gi = info["ret_slots"][0][1]
-                conj = solver._cam_conj(asm, bi)
-                red = ev.all_reduce(solver._camera_pass(asm, bi, v, wc_of[bi], conj))
+                red = ev.all_reduce(solver._camera_pass(asm, bi, v, wc_of[bi]))
                 accs[gi] = red if gi not in accs else accs[gi] + red
                 continue
             Fv = solver._f_rows(asm, bi, v)

@@ -82,7 +82,7 @@ def _linearized(sc, mod, chunk, **solver_kw):
     solver = SchurSolver(ev, iterative=True, sort_threshold=1, pad_waste=100.0, **solver_kw)
     state = program.initial_state("cpu", torch.float64)
     cost, blocks = ev.blocks(state)
-    g, diag, cam_raw = solver.gradient_and_diag_padded(blocks)
+    g, diag, cam_raw = solver.gradient_and_diag(blocks)
     scale = 1.0 / (1.0 + torch.sqrt(diag))
     prep = solver.prepare(solver.scale_data(solver.solver_data(blocks), scale), cam_raw=cam_raw,
                           scale=scale)

@@ -9,14 +9,12 @@ config and writes ``.jax_cache``); their options are rebuilt here, each
 citing its lines."""
 
 import json
-import pathlib
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import bench as jbench
 import skeres_tpu as st
 import skeres_tpu.ops.rotation as jrot
 from skeres_tpu.core.options import SolverOptions as JOptions
@@ -27,24 +25,14 @@ from skeres_tpu.io import bal as jbal
 from skeres_tpu.io import g2o as jg2o
 from skeres_tpu_torch.io import bal as tbal
 from skeres_tpu_torch.io import g2o as tg2o
-from tools_torch import (
-    bench,
-    bench_common,
-    bench_scaling,
-    bench_sphere,
-    bench_two_signature,
-    bench_venice,
-)
+from tools_torch import bench_common, bench_scaling, bench_sphere, bench_two_signature
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL = 1e-8
 CPU = ["--device", "cpu", "--dtype", "float64"]
-SCRIPTS = {"bench": bench, "bench_venice": bench_venice, "bench_sphere": bench_sphere,
-           "bench_two_signature": bench_two_signature, "bench_scaling": bench_scaling}
+SCRIPTS = {"bench_sphere": bench_sphere, "bench_two_signature": bench_two_signature,
+           "bench_scaling": bench_scaling}
 # each script's flags at a small size
 SMALL = {
-    "bench": ["--num_cameras", "6", "--num_points", "60", "--iters", "5"],
-    "bench_venice": ["--num_cameras", "8", "--num_points", "200", "--chunk", "384"],
     # 60 poses: one loop closure (a 50-pose sphere has none, so its odometry
     # start is already the solution, at a cost of 1e-24). CGNR's iterates
     # drift apart between the packages on the way (5.7e-5 at most, ROADMAP
@@ -98,75 +86,6 @@ def test_without_a_card_the_default_device_raises(name, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.run(module.parse_args(SMALL[name]))
     assert not built
-
-
-def test_bench_matches_jax_run_tpu_solver():
-    """``bench.run_tpu_solver(bal, 5, warmup=False, repeats=1)`` (DENSE_SCHUR,
-    the device loop in one chunk, the full budget; ``bench.py:82-98``)."""
-    out = _run("bench", "--skip_baseline")
-    bal, label = bench.load_workload(6, 60)
-    assert out["metric"] == f"lm_steps_per_sec[{label}]" == "lm_steps_per_sec[synthetic-bal-6-60]"
-    ref = jbench.run_tpu_solver(_jax_bal(bal), 5, warmup=False, repeats=1)
-    assert out["extra"]["steps"] == ref["steps"] == 5
-    np.testing.assert_allclose(out["extra"]["initial_cost"], ref["initial_cost"], rtol=RTOL)
-    np.testing.assert_allclose(out["extra"]["final_cost"], ref["final_cost"], rtol=RTOL)
-    _keys(out, out["metric"], ("initial_cost", "final_cost", "steps", "rate_spread", "baseline"))
-    assert set(out) == {"metric", "value", "unit", "vs_baseline", "extra"}
-    assert out["vs_baseline"] is None and out["extra"]["baseline"] is None
-    assert out["value"] > 0 and out["extra"]["rate_spread"][0] <= out["value"]
-
-
-def test_bench_measures_its_baseline_without_writing_the_cache():
-    """A workload the cache does not hold: the scipy stand-in is measured in
-    the process, and ``BASELINE_MEASURED.json`` stays as it was."""
-    before = (ROOT / "BASELINE_MEASURED.json").read_bytes()
-    out = _run("bench", "--iters", "2")
-    assert (ROOT / "BASELINE_MEASURED.json").read_bytes() == before
-    assert json.loads(before)["workload"] == "synthetic-bal-49-7776"
-    base = out["extra"]["baseline"]
-    assert base["solver"].startswith("scipy.least_squares") and base["steps_per_sec"] > 0
-    np.testing.assert_allclose(out["vs_baseline"], out["value"] / base["steps_per_sec"],
-                               rtol=1e-2)
-    cached = bench.get_baseline(None, "synthetic-bal-49-7776")
-    assert cached["steps_per_sec"] == json.loads(before)["steps_per_sec"]
-
-
-def _jax_venice_options(args):
-    """``tools/bench_venice.py:72-96``."""
-    return JOptions(
-        linear_solver_type=JLinearSolverType[args.linear_solver],
-        preconditioner_type=JPreconditionerType[args.preconditioner],
-        max_num_iterations=args.iters,
-        evaluation_chunk_size=args.chunk,
-        max_linear_solver_iterations=args.max_cg_iterations,
-        use_device_loop=args.device_loop,
-        device_loop_chunk_iterations=args.iters,
-        function_tolerance=args.function_tolerance,
-        gradient_tolerance=0.0,
-        parameter_tolerance=0.0,
-        run_full_iteration_budget=(args.function_tolerance == 0.0),
-        use_explicit_schur_complement=args.explicit_schur,
-        minimizer_progress_to_stdout=not args.device_loop,
-        detailed_step_timings=False,
-    )
-
-
-@pytest.mark.parametrize("flags", [[], ["--linear_solver", "DENSE_SCHUR"], ["--device_loop"]],
-                         ids=["default", "dense_schur", "device_loop"])
-def test_bench_venice_matches_jax(flags):
-    out = _run("bench_venice", *flags)
-    args = bench_venice.parse_args([*SMALL["bench_venice"], *flags, *CPU])
-    bal = tbal.synthetic_bal(args.num_cameras, args.num_points, args.obs_per_point)
-    ref = st.solve(_jax_venice_options(args), jbal.build_bal_problem(_jax_bal(bal))[0])
-    assert out["extra"]["steps"] == _steps(ref) == 10
-    np.testing.assert_allclose(out["extra"]["initial_cost"], ref.initial_cost, rtol=RTOL)
-    np.testing.assert_allclose(out["extra"]["final_cost"], ref.final_cost, rtol=RTOL)
-    assert out["extra"]["final_cost"] < out["extra"]["initial_cost"]
-    _keys(out, "venice_lm_steps_per_sec",
-          ("cams", "points", "obs", "steps", "minimizer_seconds", "wall_seconds_incl_compile",
-           "initial_cost", "final_cost", "termination", "memory", "baseline"))
-    assert out["extra"]["memory"] == {} and out["vs_baseline"] > 0
-    assert (out["extra"]["cams"], out["extra"]["obs"]) == (8, 1000)
 
 
 def test_bench_sphere_matches_jax():
@@ -280,13 +199,12 @@ def test_bench_scaling_rows_match_the_unsharded_jax_solve():
 
 
 def test_main_prints_the_result_last(capsys):
-    """``main()``: the JSON result is the last line, after the device, the
-    solve lines and the report."""
-    bench_venice.main([*SMALL["bench_venice"], "--iters", "2", *CPU])
+    """``main()``: the JSON result is the last line, after the device and
+    the solve lines."""
+    bench_sphere.main([*SMALL["bench_sphere"], "--iters", "2", *CPU])
     lines = capsys.readouterr().out.strip().splitlines()
     out = json.loads(lines[-1])
-    assert out["metric"] == "venice_lm_steps_per_sec" and out["extra"]["steps"] == 2
+    assert out["metric"] == "sphere_pose_graph_lm_steps_per_sec" and out["extra"]["steps"] == 2
     assert lines[0] == 'device: "cpu"'
-    assert any(ln.startswith("[bench_venice] solve {") for ln in lines[:-1])
-    assert any(ln.startswith("Termination:") for ln in lines[:-1])
+    assert any(ln.startswith("[bench_sphere] solve {") for ln in lines[:-1])
     assert bench_common.device_info(torch.device("cpu")) == "cpu"

@@ -1,5 +1,5 @@
 """The camera-padded layout of the port's Schur solvers (``core/schur.py``:
-``padded_plan``, ``gradient_and_diag_padded``, ``prepare(cam_raw, scale)``
+``padded_plan``, ``gradient_and_diag``, ``prepare(cam_raw, scale)``
 and the padded products) against the JAX package's, float64 on the CPU.
 
 Scenes: ``synthetic_bal(6, 50, 3)`` (``tests/test_sharding.py``'s) and
@@ -137,7 +137,7 @@ def test_sorted_info_engages_where_jax_does(case, shards, tensors):
 
 class _Lin:
     """One linearization of a scene in both packages on the minimizer's
-    path: g and diag by ``gradient_and_diag_padded``, the Jacobi scale,
+    path: g and diag with the placed rows, the Jacobi scale,
     and the scaled solver data; solvers of either package on it."""
 
     def __init__(self, scene):
@@ -178,7 +178,7 @@ class _Lin:
         schur = SchurSolver(self.tev, **kw)
         data = schur.scale_data(schur.solver_data(self.tblocks), self.tscale)
         if cam_raw and schur.sorted_info:
-            _, _, raw = schur.gradient_and_diag_padded(self.tblocks)
+            _, _, raw = schur.gradient_and_diag(self.tblocks)
             return schur, schur.prepare(data, cam_raw=raw, scale=self.tscale)
         return schur, schur.prepare(data)
 
@@ -204,13 +204,14 @@ def lin(request):
 
 
 def test_padded_gradient_and_diag_match_jax(lin):
-    """g, diag and the raw E^T E of ``gradient_and_diag_padded`` against
-    the JAX package's, and g and diag against the generic ones."""
+    """g, diag and the raw E^T E of ``gradient_and_diag`` on the layout
+    against the JAX package's ``gradient_and_diag_padded``, and g and diag
+    against the generic ones."""
     jschur = JSchur(lin.jev, iterative=True, **ON)
     tschur = SchurSolver(lin.tev, iterative=True, **ON)
     assert tschur.sorted_info[0]["kind"] == "local"
     jg, jdiag, jraw = jax.jit(jschur.gradient_and_diag_padded)(lin.jblocks)
-    tg, tdiag, traw = tschur.gradient_and_diag_padded(lin.tblocks)
+    tg, tdiag, traw = tschur.gradient_and_diag(lin.tblocks)
     for got, ref in ((tg, jg), (tdiag, jdiag), (traw[-1], jraw[-1]), (tg, lin.jg0),
                      (tdiag, lin.jdiag0)):
         _close(got.numpy(), ref)
@@ -225,7 +226,8 @@ def test_padded_pieces_match_jax_padded(lin, piece, cam_raw):
     ``jtj_quadratic``, diag(F^T F) and the prepared E^T E against the JAX
     padded path (``prepare`` with and without ``cam_raw``), 1e-12."""
     jschur, jdata, tschur, tdata, jasm, tasm = lin.both(cam_raw, iterative=True, **ON)
-    assert (tdata["cam_scale"] is not None) == cam_raw
+    scale = lin.tscale if cam_raw else torch.ones_like(lin.tscale)
+    assert torch.equal(tdata["cam_scale"], scale)
     if piece == "rhs":
         got, ref = tschur._schur_rhs(tasm), jschur._schur_rhs(jasm)
     elif piece.startswith("blocks"):
@@ -240,6 +242,19 @@ def test_padded_pieces_match_jax_padded(lin, piece, cam_raw):
     else:
         got, ref = tdata["ete0"], jdata["ete0"]
     _close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("e_corr", [True, False], ids=["with_e", "without_e"])
+def test_schur_jacobi_blocks_on_and_off_the_layout_agree(lin, e_corr):
+    """The SCHUR_JACOBI blocks (with the E correction) and
+    POWER_SERIES_EXPANSION's base blocks (without) from the placed rows
+    equal those of the row loop, the layout off, 1e-12."""
+    _, _, on_schur, _, _, on = lin.both(True, iterative=True, **ON)
+    _, _, off_schur, _, _, off = lin.both(True, iterative=True, **OFF)
+    assert on_schur.sorted_info and not off_schur.sorted_info
+    got = on_schur._schur_jacobi_blocks(on, include_e_correction=e_corr)[0]
+    ref = off_schur._schur_jacobi_blocks(off, include_e_correction=e_corr)[0]
+    _close(got.numpy(), ref.numpy())
 
 
 def test_prescaled_s_matvec_matches_jax_padded(lin):

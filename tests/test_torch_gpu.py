@@ -698,7 +698,7 @@ def test_padded_s_product_on_card_matches_generic(cuda):
             schur = SchurSolver(ev, iterative=True, sort_threshold=thresh, pad_waste=100.0)
             data = schur.scale_data(schur.solver_data(blocks), scale)
             if thresh == 1:
-                _, _, raw = schur.gradient_and_diag_padded(blocks)
+                _, _, raw = schur.gradient_and_diag(blocks)
                 prep = schur.prepare(data, cam_raw=raw, scale=scale)
             else:
                 prep = schur.prepare(data)
@@ -739,7 +739,8 @@ def test_plans_built_on_card_equal_cpu_plans(cuda, shuffled):
     the card from index tensors on the card equal the CPU build element
     for element, and keep their tensors on the card: 60,000 points seen
     3-6 times each by 300 cameras (about 270k rows, 670k valid pair rows),
-    in point order (the grid a reshape) or shuffled (a gathered grid)."""
+    in point order (the grid's gather reads the rows in order) or
+    shuffled."""
     from skeres_tpu_torch.core.explicit_schur import ExplicitSchurPlan
     from skeres_tpu_torch.core.schur import padded_plan
 
@@ -757,15 +758,15 @@ def test_plans_built_on_card_equal_cpu_plans(cuda, shuffled):
                                        num_points=npts, f_size=9, e_size=3, device=dev)
         layouts[key] = padded_plan(cam_t, pt_t, nc, 1, 0, 100_000, 1.5)
     cpu, card = plans["cpu"], plans["card"]
-    assert card.grid_is_reshape == cpu.grid_is_reshape == (not shuffled)
+    if not shuffled:
+        assert torch.equal(card.grid_src.cpu(), torch.arange(len(pt)))
     assert (card.kp, card.npairs, card.n_uniq) == (cpu.kp, cpu.npairs, cpu.n_uniq)
     kept = [("swap_mask", card.swap_mask, cpu.swap_mask),
             ("pair_valid", card.pair_valid, cpu.pair_valid),
             ("pos2u_combined", card.pos2u_combined, cpu.pos2u_combined),
             ("diag_pair_idx", card.diag_pair_idx, cpu.diag_pair_idx),
-            ("pair_kl", card.pair_kl, cpu.pair_kl)]
-    if shuffled:
-        kept.append(("grid_src", card.grid_src, cpu.grid_src))
+            ("pair_kl", card.pair_kl, cpu.pair_kl),
+            ("grid_src", card.grid_src, cpu.grid_src)]
     assert [(lv.n_dest, lv.cap) for lv in card.levels] == [(lv.n_dest, lv.cap) for lv in cpu.levels]
     kept += [(f"level {k} src", lv.src, lc.src)
              for k, (lv, lc) in enumerate(zip(card.levels, cpu.levels))]
@@ -884,7 +885,7 @@ def test_padded_s_product_kernels_on_card_match_plain(cuda, dtype, tol, cam_raw,
         assert (schur.sorted_info[0]["pt_perm"] is None) == (order == "grouped")
         data = schur.scale_data(schur.solver_data(blocks), scale)
         if cam_raw:
-            _, _, raw = schur.gradient_and_diag_padded(blocks)
+            _, _, raw = schur.gradient_and_diag(blocks)
             prep = schur.prepare(data, cam_raw=raw, scale=scale)
         else:
             prep = schur.prepare(data)

@@ -228,7 +228,7 @@ def test_explicit_gate_gives_the_implicit_path_and_its_reason(scene):
 def test_iterative_solver_builds_no_dense_w_plan(scene):
     tschur, tdata = scene.port(iterative=True, preconditioner=P.JACOBI)
     assert tschur.w_plan is None and tschur.explicit_plan is None and tschur.cluster_plan is None
-    assert "explicit_a" not in tdata and "explicit_ftf" not in tdata  # JACOBI reads neither
+    assert "explicit_grid" not in tdata  # JACOBI reads no point grid
 
 
 @pytest.mark.parametrize("refine", [0, 2])

@@ -74,7 +74,7 @@ def _products(program, cam_raw):
         schur = SchurSolver(ev, iterative=True, **kw)
         data = schur.scale_data(schur.solver_data(blocks), scale)
         if form == "padded" and cam_raw:
-            _, _, raw = schur.gradient_and_diag_padded(blocks)
+            _, _, raw = schur.gradient_and_diag(blocks)
             prep = schur.prepare(data, cam_raw=raw, scale=scale)
         else:
             prep = schur.prepare(data)

@@ -206,19 +206,22 @@ def test_explicit_path_with_k2_dx_matches_jax(monkeypatch):
     (jschur, jdata, jg, jdiag), (tschur, tdata, tg, tdiag) = _big_setup(monkeypatch)
     assert jschur.schur_path == "dense-W"
     assert tschur.schur_path == "explicit" and tschur.num_f == 1080
-    assert tschur.explicit_plan.grid_is_reshape and "explicit_grid" in tdata
+    assert "explicit_grid" in tdata
     jdx, jit_, jj = jax.jit(lambda: jschur.solve_damped(jdata, jg, jdiag, MU, 1e-6, 1e32))()
     tdx, tit, tj = tschur.solve_damped(tdata, tg, tdiag, MU, 1e-6, 1e32)
     assert (tit, tj) == (int(jit_), float(jj)) == (1, 0.0)
     np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), **TOL)
 
 
-def test_hoisted_grid_equals_flat_build(monkeypatch):
-    """prepare()'s grid, written directly in the grid layout, equals
-    ``build_grid(_explicit_a_flat(...))``."""
-    _, (tschur, tdata, _, _) = _big_setup(monkeypatch)
-    plan = tschur.explicit_plan
-    flat = plan.build_grid(tschur._explicit_a_flat(tdata["per_batch"]))["grid"]
-    direct = tschur._explicit_a_grid(tdata["per_batch"], plan.kp, plan.np_ * plan.kp)
-    torch.testing.assert_close(tdata["explicit_grid"]["grid"], flat, rtol=0, atol=0)
-    torch.testing.assert_close(direct, flat, rtol=0, atol=0)
+def test_gradient_and_diag_off_the_layout_is_the_evaluators():
+    """Where no batch takes the camera-padded layout (a scene under the
+    row threshold), ``SchurSolver.gradient_and_diag`` is
+    ``Evaluator.gradient_and_diag`` bit for bit, with no placed rows."""
+    _, (tschur, _, _, _) = _setup(prior=True)
+    assert not tschur.sorted_info
+    tev = tschur.ev
+    _, blocks = tev.blocks(tev.program.initial_state("cpu", torch.float64))
+    g, diag, cam_raw = tschur.gradient_and_diag(blocks)
+    ref_g, ref_diag = tev.gradient_and_diag(blocks)
+    assert cam_raw is None
+    assert torch.equal(g, ref_g) and torch.equal(diag, ref_diag)

@@ -398,8 +398,8 @@ def test_package_imports_neither_jax_nor_skeres_tpu():
         "tools = sorted(p.stem for p in pathlib.Path('tools_torch').glob('*.py'))\n"
         "for m in tools:\n"
         "    importlib.import_module('tools_torch.' + m)\n"
-        "assert {'bench', 'bench_venice', 'bench_sphere', 'bench_two_signature',\n"
-        "        'bench_scaling', 'loop_rates', 'bal_parse_time'} <= set(tools), tools\n"
+        "assert {'bench_sphere', 'bench_two_signature', 'bench_scaling',\n"
+        "        'bal_parse_time', 'trace_spans'} <= set(tools), tools\n"
         "assert 'bench' not in sys.modules, 'the JAX package\\'s bench.py was imported'\n"
         "import chip_smoke\n"
         "for m in ('core.line_search', 'core.gradient_problem', 'core.covariance',\n"

@@ -1,8 +1,8 @@
 """What the port's measuring scripts share.
 
-``tools_torch/bench.py``, ``bench_venice.py``, ``bench_sphere.py``,
-``bench_two_signature.py`` and ``bench_scaling.py`` are the PyTorch
-counterparts of the JAX package's ``bench.py`` and ``tools/bench_*.py``:
+``tools_torch/bench_sphere.py``, ``bench_two_signature.py`` and
+``bench_scaling.py`` are the PyTorch counterparts of the JAX package's
+``tools/bench_*.py``:
 the same flags and defaults, the same ``SolverOptions``, the same JSON
 keys on the last line (``extra.backend`` becomes ``extra.device``), plus
 ``--device`` (default ``cuda``) and ``--dtype`` (default ``float32``, what
