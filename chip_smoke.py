@@ -303,6 +303,17 @@ non-zero and prints no result line):
                turns), beside the bound of the benchmark's
                ``roofline_implicit.s_product_counts``.
 
+ 41. camera blocks — the camera blocks' kernel (``csrc/s_product.cu``,
+               ``camera_blocks``) at the same two padded shapes, float64,
+               with an SPD C^-1 and s_e: against its plain version (1e-12
+               of max|block|), a second call bit for bit, each block
+               symmetric; both timed (CUDA events, median of 20, in turns)
+               beside the bytes it must read (the placed rows that hold
+               observations, their points, C^-1 and s_e once, the blocks
+               written) and, as a second count, with each row's C^-1 and
+               s_e gather. Phase 37's padded solves launch the kernel once
+               a damped solve (the generic form none).
+
 The line before the last is a JSON object describing each kernel (its
 time, its launches on the main path, its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the peak for their type,
@@ -1339,20 +1350,20 @@ def phase_device_loop_bal49(device) -> None:
 def reset_launches() -> None:
     from skeres_tpu_torch.ops.cholesky import cholesky_both, trailing_update_
     from skeres_tpu_torch.ops.pair_product import pair_products
-    from skeres_tpu_torch.ops.s_product import camera_sums, point_sums
+    from skeres_tpu_torch.ops.s_product import camera_blocks, camera_sums, point_sums
 
     cholesky_both.launches = trailing_update_.launches = pair_products.launches = 0
-    point_sums.launches = camera_sums.launches = 0
+    point_sums.launches = camera_sums.launches = camera_blocks.launches = 0
 
 
 def launch_counts() -> dict:
     from skeres_tpu_torch.ops.cholesky import cholesky_both, trailing_update_
     from skeres_tpu_torch.ops.pair_product import pair_products
-    from skeres_tpu_torch.ops.s_product import camera_sums, point_sums
+    from skeres_tpu_torch.ops.s_product import camera_blocks, camera_sums, point_sums
 
     return {"K1": cholesky_both.launches, "K2 update": trailing_update_.launches,
             "K3": pair_products.launches, "S point": point_sums.launches,
-            "S camera": camera_sums.launches}
+            "S camera": camera_sums.launches, "S blocks": camera_blocks.launches}
 
 
 def solve_chain(n, device, dtype, iters, **kw):
@@ -2792,6 +2803,13 @@ def phase_venice_layout(device, problem, program, cams, initial) -> dict:
                     schur_mod.implicit_s_product = product
                 runs[form] = s
                 n = launches[f"venice layout float64 {solver} {form}"] = launch_counts()
+                # the camera blocks (SCHUR_JACOBI, the explicit S's diagonal)
+                # from the placed rows once a damped solve, in the padded form
+                blocks = s.num_linear_solves if form == "padded" else 0
+                print(f"[layout] float64 {solver} {form}: {s.num_linear_solves} damped solves, "
+                      f"camera blocks launches {n['S blocks']}")
+                check(n["S blocks"] == blocks, f"layout float64 {solver} {form}: camera blocks "
+                      f"launched {n['S blocks']} times, expected {blocks}")
                 if solver == "DENSE_SCHUR":
                     check(n["K3"] >= s.num_linear_solves > 0 and n["K2 update"] > 0,
                           f"layout float64 DENSE_SCHUR {form}: K3 or K2 did not launch")
@@ -3883,6 +3901,55 @@ def phase_s_product(device) -> dict:
     return report
 
 
+# -- the camera blocks' kernel (phase 41) ------------------------------------------------
+
+def phase_camera_blocks(device) -> dict:
+    """Phase 41: the camera blocks' kernel at venice's and Final's padded
+    shapes against its plain version, times and bounds."""
+    from skeres_tpu_torch.ops import s_product as sp
+
+    report = {}
+    for name, (nc, point_counts) in S_SHAPES.items():
+        x = s_product_inputs(nc, point_counts, device)
+        cinv = x["cinv"] @ x["cinv"].transpose(1, 2)  # SPD, as C^-1 is
+        args = (x["placed"], True, x["pidx"], x["counts"], 9, cinv, x["s_e"])
+        got, again = sp.camera_blocks(*args), sp.camera_blocks(*args)
+        ref = sp.camera_blocks_reference(*args)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        check(torch.equal(got, again), f"camera blocks at {name}: two calls differ")
+        check(torch.equal(got, got.transpose(1, 2)), f"camera blocks at {name}: not symmetric")
+        check(rel <= S_RTOL, f"camera blocks at {name}: kernel and plain version differ by "
+              f"{rel:.3e}")
+        del got, again, ref
+        torch.cuda.empty_cache()
+        t = [cuda_ms(lambda: sp.camera_blocks(*args), calls=1),
+             cuda_ms(lambda: sp.camera_blocks_reference(*args), calls=1),
+             cuda_ms(lambda: sp.camera_blocks_reference(*args), calls=1),
+             cuda_ms(lambda: sp.camera_blocks(*args), calls=1)]
+        rows, n_pts, item = int(x["counts"].sum()), cinv.shape[0], 8
+        # read once: the 2 x 12 values and the point of every placed row that
+        # holds an observation, the counts, C^-1 and s_e; the blocks written
+        nbytes = rows * (24 + 1) * item + nc * item + n_pts * 12 * item + nc * 81 * item
+        gathered = nbytes + rows * 12 * item - n_pts * 12 * item  # C^-1, s_e a row
+        flop = rows * 2 * (27 + 36 + 90)  # M, M F, F^T (M F): multiply-adds a row
+        bound_ms, bound_by = bound(nbytes, flop, 34e12)  # float64 outside the tensor cores
+        gathered_ms = bound(gathered, flop, 34e12)[0]
+        ms = statistics.median([t[0], t[3]])
+        print(f"[camera blocks] {name}: {rows} rows, {n_pts} points, {nc} x {x['K']} placed, "
+              f"float64: kernel {t[0]:.4f}/{t[3]:.4f} ms, plain {t[1]:.4f}/{t[2]:.4f} ms "
+              f"(medians of 20, in turns); bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e9:.3f} GB), {100 * bound_ms / ms:.2f} % of it; with each row's C^-1 "
+              f"and s_e gathered {gathered_ms:.4f} ms ({gathered / 1e9:.3f} GB), "
+              f"{100 * gathered_ms / ms:.2f} %; max|diff| {err:.3e} (rel {rel:.3e})")
+        report[name] = dict(ms=ms, plain_ms=statistics.median([t[1], t[2]]), bound_ms=bound_ms,
+                            bound_by=bound_by, gathered_bound_ms=gathered_ms, max_abs_err=err,
+                            rel_err=rel, rows=rows, K=x["K"])
+        del x, cinv, args
+        torch.cuda.empty_cache()
+    return report
+
+
 def bound(nbytes: float, flop: float, flops_per_s: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / flops_per_s
@@ -3992,6 +4059,7 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
     script_paths = timed("measuring scripts", phase_measuring_scripts)
     timed("spans and stamps", phase_spans_and_stamps, device)
     s_report = timed("S product", phase_s_product, device)
+    blocks_report = timed("camera blocks", phase_camera_blocks, device)
     # the pair's launches on the main path: phase 37's padded float64
     # ITERATIVE_SCHUR solve, one launch of each kernel a product
     n = general_paths["venice layout float64 ITERATIVE_SCHUR padded"]
@@ -4082,6 +4150,18 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
                 **big_paths, **tr_paths, **solver_paths, **new_paths, **cov["launches"],
                 **general_paths, **mesh_paths, **script_paths}.items() if "S point" in v},
             "by_shape": s_report,
+            "library_ms": None,
+        },
+        {
+            "name": "camera_blocks (the camera blocks of S)",
+            "route": "cuda",
+            "source": "skeres_tpu_torch/csrc/s_product.cu",
+            "replaces": None,
+            "launches": n["S blocks"],
+            "launches_by_path": {k: v["S blocks"] for k, v in {
+                **big_paths, **tr_paths, **solver_paths, **new_paths, **cov["launches"],
+                **general_paths, **mesh_paths, **script_paths}.items() if "S blocks" in v},
+            "by_shape": blocks_report,
             "library_ms": None,
         },
     ]}))

@@ -74,8 +74,9 @@ a zero matrix and reduced once.
 
 The camera blocks of S (DENSE_SCHUR's explicit diagonal, SCHUR_JACOBI,
 POWER_SERIES_EXPANSION's base matrix, the cluster preconditioners) come
-from the placed rows of a padded batch and row by row from every other
-batch (``_schur_jacobi_blocks``). ``prepare()`` lays the per-row
+from the placed rows of a padded batch (``ops/s_product.camera_blocks``, a
+kernel on the card) and row by row from every other batch
+(``_schur_jacobi_blocks``). ``prepare()`` lays the per-row
 ``A = F^T E`` blocks on a plan's point grid (explicit or cluster) once a
 linearization, since they do not depend on mu: a rejected step's re-solve
 pays only the ``C^-1``-dependent pair products.
@@ -105,6 +106,7 @@ from skeres_tpu_torch.ops.cholesky import (
 )
 from skeres_tpu_torch.ops.s_product import (
     MAX_SIZES,
+    camera_blocks,
     camera_sums,
     point_sums,
     rows_apply,
@@ -125,9 +127,6 @@ __all__ = ["SchurSolver", "implicit_s_product", "padded_plan"]
 DENSE_W_LIMIT_BYTES = 2 << 30  # the JAX package's gate (as float32 bytes)
 PROBE_CHUNK = 128  # the identity columns the column-probe S applies S to at once
 FALLBACK_CG_ITERATIONS = 32
-# the most bytes of per-row (t, t) products that the SCHUR_JACOBI blocks of a
-# camera-padded batch hold at once (three such tensors live at a time)
-PADDED_BLOCK_BYTES = 4 << 30
 
 
 def _cam_padded_src(idx, nc: int, K: int, n_valid=None, sentinel=None) -> torch.Tensor:
@@ -438,8 +437,8 @@ class SchurSolver:
 
     def _plan_padded(self, bi, sort_threshold, pad_waste):
         """The camera-padded layout of batch ``bi`` where its gates hold
-        (one retained slot; under ITERATIVE_SCHUR, sizes the S product's
-        kernels take; then ``padded_plan``): ``sorted_info[bi]`` with
+        (one retained slot; sizes the kernels of ``ops/s_product.py``
+        take; then ``padded_plan``): ``sorted_info[bi]`` with
         the rank's placement ``src``, the point of each placed row
         ``pidx_pad``, nc and K; else the refusing gate in
         ``_layout_notes``."""
@@ -453,7 +452,7 @@ class SchurSolver:
             return
         s, gi, _, t = info["ret_slots"][0]
         sizes = (b.residual_dim, t, self.e_size)
-        if self.iterative and any(x > most for x, most in zip(sizes, MAX_SIZES)):
+        if any(x > most for x, most in zip(sizes, MAX_SIZES)):
             self._layout_notes.append(f"batch {bi}: off (S product kernels: (m, t, e) {sizes} "
                                       f"past {MAX_SIZES})")
             return
@@ -588,16 +587,16 @@ class SchurSolver:
         each row (nc*K,))."""
         info = self.batch_info[bi]
         _, gi, c, t = info["ret_slots"][0]
-        rows = asm["cam"][bi].unflatten(1, (self.ev.program.batches[bi].residual_dim, -1))
+        rows = self._placed(asm, bi)
         ec = info["e_col"]
         return (gi, rows[:, :, c : c + t], rows[:, :, ec : ec + self.e_size],
                 self.sorted_info[bi]["pidx_pad"])
 
     def _cam_reduce(self, bi, vals):
-        """Sum the placed rows' values ``vals (n*K, ...)`` of ``n`` whole
-        cameras (all the batch's, or a block of them) by camera ->
-        ``(n, ...)``: a reshape and a sum, in a fixed order; under a mesh
-        the rank's sums, then one ``all_reduce`` of the table. (The JAX
+        """Sum the placed rows' values ``vals (nc*K, ...)`` of the batch's
+        ``nc`` cameras by camera -> ``(nc, ...)``: a reshape and a sum, in a
+        fixed order; under a mesh the rank's sums, then one ``all_reduce``
+        of the table. (The JAX
         package's ``_cam_reduce`` also takes the row function and its
         operands, for ``shard_map``; here the caller computes the rows.)"""
         red = vals.reshape(-1, self.sorted_info[bi]["K"], *vals.shape[1:]).sum(1)
@@ -612,15 +611,20 @@ class SchurSolver:
         return point_sums(asm["per_batch"][bi][1], sinfo["f_first"], self.ev._batch_const[bi][1][s],
                           self._ret_view(v, gi), sinfo["pt_seg"], sinfo["pt_perm"], cinv, s_e)
 
+    def _placed(self, asm, bi):
+        """The placed rows of padded batch ``bi`` as the kernels of
+        ``ops/s_product`` take them: (nc*K, m, T)."""
+        return asm["cam"][bi].unflatten(1, (self.ev.program.batches[bi].residual_dim, -1))
+
     def _camera_pass(self, asm, bi, v, wc):
         """``s_f F^T (F (s_f v) - E wc)`` by camera over padded batch
         ``bi``'s placed rows (``ops/s_product.camera_sums``): (nc, t), the
         rank's rows."""
         sinfo = self.sorted_info[bi]
         gi = self.batch_info[bi]["ret_slots"][0][1]
-        placed = asm["cam"][bi].unflatten(1, (self.ev.program.batches[bi].residual_dim, -1))
-        return camera_sums(placed, sinfo["f_first"], sinfo["pidx_pad"], sinfo["cam_rows"],
-                           self._ret_view(v, gi), wc, self._cam_conj(asm, bi)[1])
+        return camera_sums(self._placed(asm, bi), sinfo["f_first"], sinfo["pidx_pad"],
+                           sinfo["cam_rows"], self._ret_view(v, gi), wc,
+                           self._cam_conj(asm, bi)[1])
 
     def _cam_bcast(self, bi, rows, v_cam):
         """The per-row product ``rows (nc*K, m, t) @ v_cam[camera of the
@@ -891,63 +895,49 @@ class SchurSolver:
         (``_padded_blocks``); every retained slot of every other batch adds
         its ``F^T F`` summed by block, minus its per-row ``Y A^T``
         (``A = F^T E``, ``Y = A C_p^-1``) summed apart."""
-        outs = {}
-        for bi in self.sorted_info:
-            if only_batch is None or bi == only_batch:
-                gi = self.batch_info[bi]["ret_slots"][0][1]
-                red = self._padded_blocks(asm, bi, include_e_correction)
-                outs[gi] = red if gi not in outs else outs[gi] + red
-        for bj, (rb, jacb, Eb) in enumerate(asm["per_batch"]):
-            if bj in self.sorted_info or (only_batch is not None and bj != only_batch):
-                continue
-            info = self.batch_info[bj]
-            for slot, gi, c, t in info["ret_slots"]:
-                Fs = jacb[:, :, c : c + t]
-                ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs).reshape(-1, t * t)
-                red = self.ev.slot_reduce(bj, slot, ftf).view(-1, t, t)
-                if Eb is not None and include_e_correction:
-                    a = torch.einsum("bmf,bme->bfe", Fs, Eb)
-                    y = torch.einsum("bfe,beg->bfg", a, asm["cinv"][info["pidx"]])
-                    yat = torch.einsum("bfe,bge->bfg", y, a).reshape(-1, t * t)
-                    red = red - self.ev.slot_reduce(bj, slot, yat).view(-1, t, t)
-                outs[gi] = red if gi not in outs else outs[gi] + red
-        d_f = asm["d_f"]
-        blocks = []
-        for (start, nb, t), gi in zip(self.ret_blocks, self._ret_group_order):
-            dd = torch.diag_embed(d_f[start : start + nb * t].view(nb, t))
-            blocks.append(dd if gi not in outs else outs[gi] + dd)
-        return blocks
+        with span("skeres.schur.blocks"):
+            outs = {}
+            for bi in self.sorted_info:
+                if only_batch is None or bi == only_batch:
+                    gi = self.batch_info[bi]["ret_slots"][0][1]
+                    red = self._padded_blocks(asm, bi, include_e_correction)
+                    outs[gi] = red if gi not in outs else outs[gi] + red
+            for bj, (rb, jacb, Eb) in enumerate(asm["per_batch"]):
+                if bj in self.sorted_info or (only_batch is not None and bj != only_batch):
+                    continue
+                info = self.batch_info[bj]
+                for slot, gi, c, t in info["ret_slots"]:
+                    Fs = jacb[:, :, c : c + t]
+                    ftf = torch.einsum("bmf,bmg->bfg", Fs, Fs).reshape(-1, t * t)
+                    red = self.ev.slot_reduce(bj, slot, ftf).view(-1, t, t)
+                    if Eb is not None and include_e_correction:
+                        a = torch.einsum("bmf,bme->bfe", Fs, Eb)
+                        y = torch.einsum("bfe,beg->bfg", a, asm["cinv"][info["pidx"]])
+                        yat = torch.einsum("bfe,bge->bfg", y, a).reshape(-1, t * t)
+                        red = red - self.ev.slot_reduce(bj, slot, yat).view(-1, t, t)
+                    outs[gi] = red if gi not in outs else outs[gi] + red
+            d_f = asm["d_f"]
+            blocks = []
+            for (start, nb, t), gi in zip(self.ret_blocks, self._ret_group_order):
+                dd = torch.diag_embed(d_f[start : start + nb * t].view(nb, t))
+                blocks.append(dd if gi not in outs else outs[gi] + dd)
+            return blocks
 
     def _padded_blocks(self, asm, bi, include_e_correction):
         """The camera blocks ``F^T F - Y A^T`` (or ``F^T F`` alone) of padded
-        batch ``bi`` from its placed rows, (nc, t, t): the rows unscaled,
-        ``A_s = s_f A s_e`` and ``C_s^-1`` enters as ``s_e C_s^-1 s_e``, and
-        the sums take ``s_f`` on both sides. The per-row ``(t, t)`` products
-        are taken for whole cameras at a time, at most
-        ``PADDED_BLOCK_BYTES`` of them a pass (one pass where they fit)."""
-        _, Fs, E, pidx = self._cam_fe(asm, bi)
+        batch ``bi`` from its placed rows, (nc, t, t)
+        (``ops/s_product.camera_blocks``): the rows unscaled, ``A_s =
+        s_f A s_e`` and ``C_s^-1`` enters as ``s_e C_s^-1 s_e``, and the
+        sums take ``s_f`` on both sides; under a mesh the rank's sums, then
+        one ``all_reduce``."""
         sinfo = self.sorted_info[bi]
-        nc, K = sinfo["nc"], sinfo["K"]
-        t = Fs.shape[2]
+        placed = self._placed(asm, bi)
+        t = self.batch_info[bi]["ret_slots"][0][3]
         _, s_f, s_e = self._cam_conj(asm, bi)
-        cinv = asm["cinv"]
-        if include_e_correction:
-            cinv = cinv * s_e[:, :, None] * s_e[:, None, :]
-        per_cam = K * t * t * Fs.element_size()
-        step = max(1, min(nc, PADDED_BLOCK_BYTES // max(per_cam, 1)))
-        parts = []
-        for c0 in range(0, nc, step):
-            rows = slice(c0 * K, min(nc, c0 + step) * K)
-            f_rows = Fs[rows]
-            ftf = torch.einsum("bmf,bmg->bfg", f_rows, f_rows)
-            if include_e_correction:
-                a = torch.einsum("bmf,bme->bfe", f_rows, E[rows])
-                y = torch.bmm(a, cinv[pidx[rows]])
-                ftf = ftf - torch.bmm(y, a.transpose(1, 2))
-                del a, y
-            parts.append(self._cam_reduce(bi, ftf))
-            del ftf
-        return torch.cat(parts) * s_f[:, :, None] * s_f[:, None, :]
+        cinv, s_e = (asm["cinv"], s_e) if include_e_correction else (None, None)
+        red = camera_blocks(placed, sinfo["f_first"], sinfo["pidx_pad"], sinfo["cam_rows"], t,
+                            cinv, s_e)
+        return self.ev.all_reduce(red) * s_f[:, :, None] * s_f[:, None, :]
 
     def _ftf_diag(self, asm):
         """diag(F^T F) over the retained coordinates, every batch; a padded

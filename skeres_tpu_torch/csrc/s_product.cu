@@ -46,6 +46,32 @@
 //     skipped), then a warp-shuffle tree and one sum over the warps;
 //     s_f applied, the camera's sums written.
 //
+// A third kernel reads the camera pass's plan for the camera blocks of S
+// (the SCHUR_JACOBI preconditioner, the diagonal blocks of the explicit S):
+//
+//   blocks       B_c = sum_{rows r of camera c} F_r^T (I - E_r (s_e C_p^-1 s_e) E_r^T) F_r
+//
+// (the caller scales by s_f on both sides; without C^-1, F^T F alone).
+// Replaces no TPU kernel: the JAX package's padded blocks
+// (skeres_tpu/core/schur.py:1146-1177) are plain jnp. Added because the
+// port's blocks, batched GEMMs of 9 x 2 x 9 and 9 x 3 x 3 products that
+// each wrote a (rows, 9, 9) or (rows, 9, 3) tensor, took about 0.5 s a
+// damped solve at BAL Final's shape (float64, an H100), where this kernel
+// takes 4.5 ms and the bytes it has to read 1.9 ms (2.6 ms counting each
+// row's C_p^-1 and s_e gather). It is bound by the same bytes as the
+// camera pass, plus that gather (four or five 32-byte sectors a row):
+//
+//   - one block a camera (128 threads, three blocks an SM), its threads
+//     striding over the camera's placed rows that hold observations; a
+//     row's 2 x 12 values come in 16-byte loads;
+//   - per row, the m x m matrix M = I - E (s_e C^-1 s_e) E^T (3 values at
+//     m = 2), then F^T M F added into the t(t+1)/2 upper entries of the
+//     block (45 at t = 9), kept in registers: no (t, e) or (t, t)
+//     intermediate leaves the thread;
+//   - a warp-shuffle tree and one sum over the warps, then the symmetric
+//     t x t block written whole. The instance whose sizes are read at run
+//     time keeps its (up to 136) sums in shared memory, one warp a block.
+//
 // Every sum is taken in a fixed order (no atomics), so two calls on the
 // same inputs agree bit for bit. Sums accumulate in the working type.
 // (m, t, e) = (2, 9, 3) with the camera columns first (bundle adjustment)
@@ -361,6 +387,158 @@ camera_kernel(const T* __restrict__ rows, long ldr, int vec, RunDims rd,
   }
 }
 
+// The t(t+1)/2 upper entries of a thread's block sums: registers where the
+// sizes are fixed; where they are read at run time, this thread's column
+// of a table in shared memory (up to 136 sums a thread, which registers
+// cannot hold in float64).
+constexpr int kRunThreads = 32;  // the camera blocks' run-time instance: one warp a block
+// the camera blocks' (2, 9, 3) instance: at its 139 registers a thread (float64)
+// three blocks share an SM, where one of 256 threads fills it alone (venice's
+// shape 0.66 ms against 0.74, Final's 4.52 against 4.59, on an H100)
+constexpr int kBlocksFixedThreads = 128;
+
+template <typename T, class D>
+struct BlockSums {
+  T v[D::t * (D::t + 1) / 2];
+  __device__ __forceinline__ T& operator()(int q) { return v[q]; }
+};
+
+template <typename T>
+struct BlockSums<T, RunDims> {
+  T* p;
+  __device__ __forceinline__ T& operator()(int q) { return p[q * kRunThreads]; }
+};
+
+template <class D>
+constexpr int kBlocksThreads = kFixed<D> ? kBlocksFixedThreads : kRunThreads;
+
+template <typename T, class D>
+__global__ void __launch_bounds__(kBlocksThreads<D>)
+blocks_kernel(const T* __restrict__ rows, long ldr, int vec, RunDims rd,
+              const int64_t* __restrict__ pidx, const int64_t* __restrict__ counts, long K,
+              const T* __restrict__ cinv, const T* __restrict__ s_e, T* __restrict__ out) {
+  constexpr int NT = kBlocksThreads<D>;
+  constexpr int XQ = D::xt * (D::xt + 1) / 2;  // the most upper entries
+  const D d = dims_of<D>(rd);
+  const int nq = d.t * (d.t + 1) / 2;
+  __shared__ T s_red[NT / 32][XQ];
+  __shared__ T s_sums[kFixed<D> ? 1 : XQ * NT];
+  const long c = blockIdx.x;
+  const int tid = threadIdx.x;
+  BlockSums<T, D> acc;
+  if constexpr (!kFixed<D>) acc.p = s_sums + tid;
+#pragma unroll
+  for (int q = 0; q < XQ; ++q) {
+    if (q < nq) acc(q) = 0;
+  }
+
+  const long n = counts[c];
+  const T* base = rows + c * K * ldr;
+  const int64_t* pc = pidx + c * K;
+  for (long j = tid; j < n; j += NT) {
+    T cs[D::xe][D::xe];  // s_e C_p^-1 s_e of the row's point
+    if (cinv) {
+      const long p = pc[j];
+      const T* cp = cinv + p * d.e * d.e;
+      const T* sp = s_e ? s_e + p * d.e : nullptr;
+#pragma unroll
+      for (int a = 0; a < D::xe; ++a) {
+#pragma unroll
+        for (int b = 0; b < D::xe; ++b) {
+          T x = 0;
+          if (a < d.e && b < d.e) {
+            x = cp[a * d.e + b];
+            if (sp) x = x * sp[a] * sp[b];
+          }
+          cs[a][b] = x;
+        }
+      }
+    }
+    with_row<T>(d, base + j * ldr, vec, [&](const auto& row) {
+      T mm[D::xm][D::xm];  // M = I - E cs E^T, symmetric
+#pragma unroll
+      for (int i = 0; i < D::xm; ++i) {
+        T g[D::xe];  // row i of E cs
+#pragma unroll
+        for (int l = 0; l < D::xe; ++l) {
+          T s = 0;
+#pragma unroll
+          for (int a = 0; a < D::xe; ++a) {
+            if (cinv && i < d.m && a < d.e && l < d.e) s += row(i, d.ec + a) * cs[a][l];
+          }
+          g[l] = s;
+        }
+#pragma unroll
+        for (int k = i; k < D::xm; ++k) {
+          T s = 0;
+#pragma unroll
+          for (int l = 0; l < D::xe; ++l) {
+            if (cinv && k < d.m && l < d.e) s += g[l] * row(k, d.ec + l);
+          }
+          mm[i][k] = (i == k ? T(1) : T(0)) - s;
+          mm[k][i] = mm[i][k];
+        }
+      }
+      T h[D::xm][D::xt];  // M F
+#pragma unroll
+      for (int i = 0; i < D::xm; ++i) {
+#pragma unroll
+        for (int b = 0; b < D::xt; ++b) {
+          T s = 0;
+#pragma unroll
+          for (int k = 0; k < D::xm; ++k) {
+            if (i < d.m && k < d.m && b < d.t) s += mm[i][k] * row(k, d.fc + b);
+          }
+          h[i][b] = s;
+        }
+      }
+      int q = 0;  // F^T (M F), the upper entries row by row
+#pragma unroll
+      for (int a = 0; a < D::xt; ++a) {
+#pragma unroll
+        for (int b = a; b < D::xt; ++b) {
+          if (b < d.t) {
+            T s = 0;
+#pragma unroll
+            for (int i = 0; i < D::xm; ++i) {
+              if (i < d.m) s += row(i, d.fc + a) * h[i][b];
+            }
+            acc(q) += s;
+            ++q;
+          }
+        }
+      }
+    });
+  }
+
+  // the block's sums: a butterfly in each warp, then the warps in order
+  const int warp = tid >> 5;
+#pragma unroll
+  for (int q = 0; q < XQ; ++q) {
+    if (q < nq) {
+      T x = acc(q);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+      if ((tid & 31) == 0) s_red[warp][q] = x;
+    }
+  }
+  __syncthreads();
+  T* o = out + c * d.t * d.t;
+  for (int q = tid; q < nq; q += NT) {
+    T s = 0;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) s += s_red[w][q];
+    int a = 0, first = 0;  // entry q is (a, b), b >= a
+    while (q >= first + d.t - a) {
+      first += d.t - a;
+      ++a;
+    }
+    const int b = a + q - first;
+    o[a * d.t + b] = s;
+    o[b * d.t + a] = s;
+  }
+}
+
 bool dims_ok(int m, int t, int e) {
   return m >= 1 && m <= kMaxM && t >= 1 && t <= kMaxT && e >= 1 && e <= kMaxE;
 }
@@ -421,6 +599,28 @@ int camera_sums(const void* rows, long ldr, int vec, int m, int t, int e, int f_
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int camera_blocks(const void* rows, long ldr, int vec, int m, int t, int e, int f_first,
+                  const void* pidx, const void* counts, long nc, long K, const void* cinv,
+                  const void* s_e, void* out, void* stream) {
+  if (!dims_ok(m, t, e) || nc < 0 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nc == 0) return 0;
+  const RunDims rd = run_dims(m, t, e, f_first);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel, int threads) {
+    kernel<<<static_cast<unsigned>(nc), threads, 0, s>>>(
+        static_cast<const T*>(rows), ldr, vec, rd, static_cast<const int64_t*>(pidx),
+        static_cast<const int64_t*>(counts), K, static_cast<const T*>(cinv),
+        static_cast<const T*>(s_e), static_cast<T*>(out));
+  };
+  if (is_ba(m, t, e, f_first)) {
+    launch(blocks_kernel<T, BA>, kBlocksThreads<BA>);
+  } else {
+    launch(blocks_kernel<T, RunDims>, kBlocksThreads<RunDims>);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define SKERES_S_POINT(NAME, T)                                                               \
@@ -440,7 +640,17 @@ int camera_sums(const void* rows, long ldr, int vec, int m, int t, int e, int f_
                           ldw, wvec, out, stream);                                            \
   }
 
+#define SKERES_S_BLOCKS(NAME, T)                                                              \
+  extern "C" int NAME(const void* rows, long ldr, int vec, int m, int t, int e, int f_first,  \
+                      const void* pidx, const void* counts, long nc, long K,                  \
+                      const void* cinv, const void* s_e, void* out, void* stream) {           \
+    return camera_blocks<T>(rows, ldr, vec, m, t, e, f_first, pidx, counts, nc, K, cinv,      \
+                            s_e, out, stream);                                                \
+  }
+
 SKERES_S_POINT(skeres_s_point_f32, float)
 SKERES_S_POINT(skeres_s_point_f64, double)
 SKERES_S_CAMERA(skeres_s_camera_f32, float)
 SKERES_S_CAMERA(skeres_s_camera_f64, double)
+SKERES_S_BLOCKS(skeres_s_blocks_f32, float)
+SKERES_S_BLOCKS(skeres_s_blocks_f64, double)

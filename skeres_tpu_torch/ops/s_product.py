@@ -1,5 +1,6 @@
 """The implicit Schur-complement product's two passes over a camera-padded
-observation batch, a hand-written CUDA kernel pair.
+observation batch, a hand-written CUDA kernel pair, and the camera blocks
+of S from the same placed rows, a third kernel.
 
 ``S v = (F^T F + D_f) v - W C^-1 W^T v`` on a batch whose rows hold one
 camera block F (m x t) and one point block E (m x e) each:
@@ -11,16 +12,21 @@ camera block F (m x t) and one point block E (m x e) each:
   grouped by point through ``seg`` (offsets, (n_pts + 1,)) and, where the
   rows are not in point order, ``perm`` (a permutation sorted by point);
 - :func:`camera_sums`, the camera pass: per camera c the sum over its
-  placed rows of ``F^T (F (s_f v_c) - E wc[p])``, scaled by ``s_f``.
+  placed rows of ``F^T (F (s_f v_c) - E wc[p])``, scaled by ``s_f``;
+- :func:`camera_blocks`, the camera blocks: per camera c the sum over its
+  placed rows of ``F^T (I - E (s_e C_p^-1 s_e) E^T) F`` (``F^T F`` alone
+  without ``cinv``), the diagonal blocks of S before the caller's ``s_f``.
 
 The kernels are ``csrc/s_product.cu`` (its header says what bounds them on
 the card: the bytes of the two passes), built at first use by
 ``ops/build.py``. A CUDA tensor launches them or raises; a CPU tensor takes
-the plain versions, :func:`point_sums_reference` and
-:func:`camera_sums_reference`, the port's PyTorch product before the
-kernels: row products as a multiply and a sum, segment sums by point, the
-camera sums a reshape and a sum. ``point_sums.launches`` and
-``camera_sums.launches`` count kernel launches.
+the plain versions, :func:`point_sums_reference`,
+:func:`camera_sums_reference` and :func:`camera_blocks_reference`, the
+port's PyTorch code before the kernels: row products as a multiply and a
+sum, segment sums by point, batched products of the per-row blocks, the
+camera sums a reshape and a sum. ``point_sums.launches``,
+``camera_sums.launches`` and ``camera_blocks.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -35,7 +41,10 @@ from skeres_tpu_torch.ops.build import load_library
 
 __all__ = [
     "MAX_SIZES",
+    "PADDED_BLOCK_BYTES",
     "build_kernels",
+    "camera_blocks",
+    "camera_blocks_reference",
     "camera_sums",
     "camera_sums_reference",
     "point_sums",
@@ -45,6 +54,9 @@ __all__ = [
 ]
 
 MAX_SIZES = (4, 16, 4)  # the most (m, t, e) the kernels take
+# the most bytes of per-row (t, t) products that the plain camera blocks hold
+# at once (three such tensors live at a time)
+PADDED_BLOCK_BYTES = 4 << 30
 
 
 def rows_apply(mat, v):
@@ -74,6 +86,9 @@ def build_kernels():
         camera = getattr(lib, f"skeres_s_camera_{dt}")
         camera.argtypes = [p, n, i, i, i, i, i, p, p, n, n, p, p, p, n, i, p, p]
         camera.restype = ctypes.c_int
+        blocks = getattr(lib, f"skeres_s_blocks_{dt}")
+        blocks.argtypes = [p, n, i, i, i, i, i, p, p, n, n, p, p, p, p]
+        blocks.restype = ctypes.c_int
     return lib, log
 
 
@@ -83,8 +98,8 @@ def _split(rows, f_first: bool, t: int):
     return (rows[:, :, :t], rows[:, :, t:]) if f_first else (rows[:, :, e:], rows[:, :, :e])
 
 
-def _check(what, rows, v_cam, floats, indices):
-    """The checks both passes share: float32 or float64 of one dtype, int64
+def _check(what, rows, t, floats, indices):
+    """The checks the kernels share: float32 or float64 of one dtype, int64
     indices, one device, rows (n, m, t + e) whose values a row are
     contiguous, and (m, t, e) within ``MAX_SIZES``."""
     dtype, dev = rows.dtype, rows.device
@@ -92,10 +107,10 @@ def _check(what, rows, v_cam, floats, indices):
         raise TypeError(f"{what} takes float32 or float64 rows, got {dtype}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cuda (or its plain version on cpu), not {dev}")
-    if rows.ndim != 3 or v_cam.ndim != 2 or rows.shape[2] <= v_cam.shape[1]:
-        raise ValueError(f"{what} takes rows (n, m, t + e) and a camera table (n_cams, t), got "
-                         f"{tuple(rows.shape)} and {tuple(v_cam.shape)}")
-    m, t = rows.shape[1], v_cam.shape[1]
+    if rows.ndim != 3 or rows.shape[2] <= t:
+        raise ValueError(f"{what} takes rows (n, m, t + e) of t = {t} camera columns, got "
+                         f"{tuple(rows.shape)}")
+    m = rows.shape[1]
     e = rows.shape[2] - t
     if rows.stride(2) != 1 or rows.stride(1) != rows.shape[2]:
         raise ValueError(f"{what} takes rows whose m x (t + e) values are contiguous, got strides "
@@ -112,6 +127,13 @@ def _check(what, rows, v_cam, floats, indices):
             raise ValueError(f"{what} takes {name} contiguous int64 (n,) on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
     return m, t, e
+
+
+def _camera_table(what, v_cam) -> int:
+    """The columns t of a camera table (n_cams, t)."""
+    if v_cam.ndim != 2:
+        raise ValueError(f"{what} takes a camera table (n_cams, t), got {tuple(v_cam.shape)}")
+    return v_cam.shape[1]
 
 
 def _vec(rows) -> int:
@@ -149,7 +171,8 @@ def point_sums(rows, f_first: bool, cam, v_cam, seg, perm=None, cinv=None, s_e=N
     ``cinv`` (n_pts, e, e); ``s_e`` (n_pts, e). On the card the result is a
     view of an (n_pts, 4) table where e = 3, so that the camera pass
     gathers a point's values in one aligned load."""
-    m, t, e = _check("point_sums", rows, v_cam, {"v_cam": v_cam, "cinv": cinv, "s_e": s_e},
+    m, t, e = _check("point_sums", rows, _camera_table("point_sums", v_cam),
+                     {"v_cam": v_cam, "cinv": cinv, "s_e": s_e},
                      {"cam": cam, "seg": seg, "perm": perm})
     n_pts = seg.shape[0] - 1
     if cinv is not None and tuple(cinv.shape) != (n_pts, e, e):
@@ -201,8 +224,8 @@ def camera_sums(placed, f_first: bool, pidx, counts, v_cam, wc, s_f=None):
     skips); ``pidx`` (n_cams * K,) int64 the point of each placed row;
     ``counts`` (n_cams,) int64; ``v_cam``, ``s_f`` (n_cams, t); ``wc``
     (n_pts, e), its rows any stride (:func:`point_sums` gives 4 for e = 3)."""
-    m, t, e = _check("camera_sums", placed, v_cam, {"v_cam": v_cam, "s_f": s_f},
-                     {"pidx": pidx, "counts": counts})
+    m, t, e = _check("camera_sums", placed, _camera_table("camera_sums", v_cam),
+                     {"v_cam": v_cam, "s_f": s_f}, {"pidx": pidx, "counts": counts})
     nc = v_cam.shape[0]
     if nc == 0 or placed.shape[0] % nc or pidx.shape[0] != placed.shape[0]:
         raise ValueError(f"camera_sums takes placed rows and pidx of n_cams * K rows, got "
@@ -234,5 +257,75 @@ def camera_sums(placed, f_first: bool, pidx, counts, v_cam, wc, s_f=None):
     return out
 
 
+def camera_blocks_reference(placed, f_first: bool, pidx, counts, t: int, cinv=None, s_e=None):
+    """Plain version of :func:`camera_blocks`: the per-row ``(t, t)``
+    products ``F^T F - A (s_e C^-1 s_e) A^T`` (``A = F^T E``) as batched
+    products, taken for whole cameras at a time, at most
+    ``PADDED_BLOCK_BYTES`` of them a pass (one pass where they fit), each
+    pass summed by camera as a reshape and a sum (it reads every placed row;
+    the unused slots' zero rows add nothing)."""
+    nc = counts.shape[0]
+    K = placed.shape[0] // nc
+    F, E = _split(placed, f_first, t)
+    if cinv is not None and s_e is not None:
+        cinv = cinv * s_e[:, :, None] * s_e[:, None, :]
+    per_cam = K * t * t * F.element_size()
+    step = max(1, min(nc, PADDED_BLOCK_BYTES // max(per_cam, 1)))
+    parts = []
+    for c0 in range(0, nc, step):
+        rows = slice(c0 * K, min(nc, c0 + step) * K)
+        f_rows = F[rows]
+        ftf = torch.einsum("bmf,bmg->bfg", f_rows, f_rows)
+        if cinv is not None:
+            a = torch.einsum("bmf,bme->bfe", f_rows, E[rows])
+            y = torch.bmm(a, cinv[pidx[rows]])
+            ftf = ftf - torch.bmm(y, a.transpose(1, 2))
+            del a, y
+        parts.append(ftf.reshape(-1, K, t, t).sum(1))
+        del ftf
+    return torch.cat(parts)
+
+
+def camera_blocks(placed, f_first: bool, pidx, counts, t: int, cinv=None, s_e=None):
+    """The camera blocks: ``(n_cams, t, t)``, per camera c
+    ``sum_r F_r^T (I - E_r (s_e,p C_p^-1 s_e,p) E_r^T) F_r`` over its placed
+    rows r of point p = ``pidx[r]`` (``F^T F`` alone where ``cinv`` is None;
+    ``s_e``: left out where None). ``C_p^-1`` is read as the symmetric
+    matrix it is, and each block is written symmetric.
+
+    ``placed`` (n_cams * K, m, t + e), ``pidx`` and ``counts`` as
+    :func:`camera_sums` takes them; ``t`` the camera columns; ``cinv``
+    (n_pts, e, e); ``s_e`` (n_pts, e), only with ``cinv``."""
+    m, t, e = _check("camera_blocks", placed, t, {"cinv": cinv, "s_e": s_e},
+                     {"pidx": pidx, "counts": counts})
+    nc = counts.shape[0]
+    if nc == 0 or placed.shape[0] % nc or pidx.shape[0] != placed.shape[0]:
+        raise ValueError(f"camera_blocks takes placed rows and pidx of n_cams * K rows, got "
+                         f"{placed.shape[0]} and {pidx.shape[0]} for {nc} cameras")
+    if s_e is not None and cinv is None:
+        raise ValueError("camera_blocks takes s_e only with cinv, which it scales")
+    if cinv is not None and (cinv.ndim != 3 or tuple(cinv.shape[1:]) != (e, e)):
+        raise ValueError(f"camera_blocks takes cinv (n_pts, {e}, {e}), got {tuple(cinv.shape)}")
+    if s_e is not None and tuple(s_e.shape) != (cinv.shape[0], e):
+        raise ValueError(f"camera_blocks takes s_e ({cinv.shape[0]}, {e}), got "
+                         f"{tuple(s_e.shape)}")
+    if placed.device.type == "cpu":
+        return camera_blocks_reference(placed, f_first, pidx, counts, t, cinv, s_e)
+    out = torch.empty((nc, t, t), dtype=placed.dtype, device=placed.device)
+    lib, _ = build_kernels()
+    fn = lib.skeres_s_blocks_f32 if placed.dtype == torch.float32 else lib.skeres_s_blocks_f64
+    with torch.cuda.device(placed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(placed.data_ptr(), placed.stride(0), _vec(placed), m, t, e, int(f_first),
+                 pidx.data_ptr(), counts.data_ptr(), nc, placed.shape[0] // nc,
+                 None if cinv is None else cinv.data_ptr(),
+                 None if s_e is None else s_e.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"camera_blocks launch failed: CUDA error {err}")
+    camera_blocks.launches += 1
+    return out
+
+
 point_sums.launches = 0
 camera_sums.launches = 0
+camera_blocks.launches = 0

@@ -40,7 +40,9 @@ The spans:
   ``skeres.schur.prepare``, which holds ``skeres.schur.grid``),
   ``skeres.step.damped_solve`` (``skeres.schur.s_build``,
   ``skeres.schur.factor``, ``skeres.schur.pcg``,
-  ``skeres.schur.back_substitute``), ``skeres.step.candidate_cost``;
+  ``skeres.schur.back_substitute``; the camera blocks of S
+  ``skeres.schur.blocks`` inside the first or the third),
+  ``skeres.step.candidate_cost``;
 - ``skeres.device_loop.chunk``: a chunk's replays and its one fetch.
 
 Inside the device loop's captured step a span is opened once, while the

@@ -19,6 +19,7 @@ from skeres_tpu_torch.core import schur as schur_mod
 from skeres_tpu_torch.core.evaluator import Evaluator
 from skeres_tpu_torch.core.linear_solvers import lm_diagonal
 from skeres_tpu_torch.core.schur import SchurSolver, implicit_s_product
+from skeres_tpu_torch.ops import s_product as sp
 
 CELL = "final13682.iterative-schur"
 CUT = {"num_cameras": 16, "num_points": 120, "num_observations": 780,
@@ -142,7 +143,7 @@ def test_padded_blocks_by_camera_blocks(scene, monkeypatch, cameras_a_pass):
     whole = solver._schur_jacobi_blocks(asm)[0]
     step_whole = solver.solve_damped(prep, g, diag, 1e-4, 1e-6, 1e32)[0]
     K = solver.sorted_info[0]["K"]
-    monkeypatch.setattr(schur_mod, "PADDED_BLOCK_BYTES", cameras_a_pass * K * 81 * 8)
+    monkeypatch.setattr(sp, "PADDED_BLOCK_BYTES", cameras_a_pass * K * 81 * 8)
     parts = solver._schur_jacobi_blocks(asm)[0]
     assert float(torch.max(torch.abs(parts - whole)) / torch.max(torch.abs(whole))) <= 1e-14
     step = solver.solve_damped(prep, g, diag, 1e-4, 1e-6, 1e32)[0]

@@ -847,6 +847,33 @@ def test_s_passes_match_plain_versions_on_card(cuda, dtype, tol, shape, order):
     assert (sp.point_sums.launches, sp.camera_sums.launches) == (before[0] + 6, before[1] + 8)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 9, 3, True), (2, 9, 3, False), (3, 4, 3, True),
+                                   (4, 16, 4, True)],
+                         ids=["ba", "ba points first", "stereo", "widest"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_camera_blocks_match_plain_version_on_card(cuda, dtype, tol, shape):
+    """The camera blocks' kernel against its plain version on the same card
+    tensors, ``F^T F`` alone, with an SPD C^-1, and with C^-1 and s_e,
+    within ``tol`` of max|reference| (sums of about 500 rows of products in
+    another order); each block symmetric; two calls equal bit for bit; one
+    launch a call. (2, 9, 3) with F first takes the instance of its own
+    sizes, the rest the one with sizes read at run time, (4, 16, 4) its
+    largest."""
+    m, t, e, f_first = shape
+    x = _s_pass_inputs(cuda, dtype, m, t, e, f_first, False)
+    cinv = x["cinv"] @ x["cinv"].transpose(1, 2)
+    before = sp.camera_blocks.launches
+    for c, s_e in ((None, None), (cinv, None), (cinv, x["s_e"])):
+        args = (x["placed"], f_first, x["pidx"], x["counts"], t, c, s_e)
+        got, again = sp.camera_blocks(*args), sp.camera_blocks(*args)
+        ref = sp.camera_blocks_reference(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, got.transpose(1, 2))
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert sp.camera_blocks.launches == before + 6
+
+
 def _padded_scene(shuffled):
     bal = synthetic_bal(16, 500, 4)
     if shuffled:
@@ -905,13 +932,98 @@ def test_padded_s_product_kernels_on_card_match_plain(cuda, dtype, tol, cam_raw,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cam_raw", [True, False], ids=["cam_raw", "prescaled"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-12)])
+def test_padded_camera_blocks_on_card_match_plain(cuda, dtype, tol, cam_raw):
+    """The camera blocks of S on a padded scene on the card (SCHUR_JACOBI's,
+    and POWER_SERIES_EXPANSION's without the E correction: the kernel, one
+    launch a build, bit for bit on a second build) against the same blocks
+    on the CPU (the plain version), with the minimizer's unscaled placed
+    rows and with pre-scaled ones, within ``tol`` of max|block|: each block
+    is F^T F less its E correction, summed in another order on the two
+    devices."""
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.linear_solvers import lm_diagonal
+    from skeres_tpu_torch.core.schur import SchurSolver
+
+    program = build_bal_problem(_padded_scene(False))[0].compile()
+    blocks = {}
+    for dev in (cuda, torch.device("cpu")):
+        ev = Evaluator(program, dev, dtype)
+        _, rows = ev.blocks(program.initial_state(dev, dtype))
+        g, diag = ev.gradient_and_diag(rows)
+        scale = 1.0 / (1.0 + torch.sqrt(diag))
+        schur = SchurSolver(ev, iterative=True, sort_threshold=1, pad_waste=100.0)
+        data = schur.scale_data(schur.solver_data(rows), scale)
+        if cam_raw:
+            _, _, raw = schur.gradient_and_diag(rows)
+            prep = schur.prepare(data, cam_raw=raw, scale=scale)
+        else:
+            prep = schur.prepare(data)
+        asm = schur._assemble(prep, g * scale, lm_diagonal(diag * scale**2, 1e-4, 1e-6, 1e32))
+        for e_corr in (True, False):
+            before = sp.camera_blocks.launches
+            got = schur._schur_jacobi_blocks(asm, include_e_correction=e_corr)[0]
+            again = schur._schur_jacobi_blocks(asm, include_e_correction=e_corr)[0]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert sp.camera_blocks.launches == before + 2
+                assert torch.equal(got, again)
+            blocks[dev.type, e_corr] = got.cpu()
+    for e_corr in (True, False):
+        ref = blocks["cpu", e_corr]
+        assert float((blocks["cuda", e_corr] - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_dense_schur_past_the_kernel_sizes_keeps_off_the_layout_on_card(cuda):
+    """DENSE_SCHUR on the card with the layout forced on, for a batch of
+    three stacked reprojection residuals a row (m = 6, past the kernels'
+    (4, 16, 4)): the layout is refused, the camera blocks come from the row
+    loop with no kernel launch, and equal the CPU's within 1e-12 of
+    max|block|."""
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.linear_solvers import lm_diagonal
+    from skeres_tpu_torch.core.schur import SchurSolver
+    from skeres_tpu_torch.models.reprojection import snavely_reprojection_error
+
+    bal = synthetic_bal(8, 90, 3)
+    problem = stt.Problem()
+    cameras = problem.add_parameter_block_array(bal.cameras, name="cameras")
+    points = problem.add_parameter_block_array(bal.points, name="points")
+    problem.set_schur_elimination_group(points, 0)
+    problem.set_schur_elimination_group(cameras, 1)
+    problem.add_residual_blocks(
+        lambda p, d: torch.cat([snavely_reprojection_error(p, d) * 0.5**k for k in range(3)]),
+        None, [(cameras, bal.camera_index), (points, bal.point_index)],
+        data=bal.observations, name="stacked")
+    program = problem.compile()
+    blocks = {}
+    for dev in (cuda, torch.device("cpu")):
+        ev = Evaluator(program, dev, torch.float64)
+        _, rows = ev.blocks(program.initial_state(dev, torch.float64))
+        g, diag = ev.gradient_and_diag(rows)
+        scale = 1.0 / (1.0 + torch.sqrt(diag))
+        schur = SchurSolver(ev, iterative=False, sort_threshold=1, pad_waste=100.0)
+        assert schur.sorted_info == {}
+        prep = schur.prepare(schur.scale_data(schur.solver_data(rows), scale))
+        asm = schur._assemble(prep, g * scale, lm_diagonal(diag * scale**2, 1e-4, 1e-6, 1e32))
+        before = sp.camera_blocks.launches
+        blocks[dev.type] = schur._schur_jacobi_blocks(asm)[0].cpu()
+        assert sp.camera_blocks.launches == before
+    ref = blocks["cpu"]
+    assert float((blocks["cuda"] - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
 def test_iterative_schur_kernels_in_solves_on_card(cuda, monkeypatch):
     """A padded ITERATIVE_SCHUR (SCHUR_JACOBI) solve in float64 on the card:
     on the host loop every S product launches each kernel once (the
-    counters grow by the number of products); on the device loop the
-    captured step records them (the counters grow by the captures' products,
-    not the replays'), and the solve keeps the host loop's decisions, PCG
-    counts and costs to rtol 1e-8, as the device-loop tests hold."""
+    counters grow by the number of products) and every damped solve the
+    camera blocks' kernel once; on the device loop the captured step records
+    them (the counters grow by the captures' products, not the replays'),
+    and the solve keeps the host loop's decisions, PCG counts and costs to
+    rtol 1e-8, as the device-loop tests hold."""
     from skeres_tpu_torch.core import schur as schur_mod
     from skeres_tpu_torch.core.types import PreconditionerType
 
@@ -928,6 +1040,7 @@ def test_iterative_schur_kernels_in_solves_on_card(cuda, monkeypatch):
         problem, _, _ = build_bal_problem(synthetic_bal(16, 500, 4))
         calls.clear()
         before = (sp.point_sums.launches, sp.camera_sums.launches)
+        blocks_before = sp.camera_blocks.launches
         runs.append(stt.solve(stt.SolverOptions(
             linear_solver_type=LinearSolverType.ITERATIVE_SCHUR,
             preconditioner_type=PreconditionerType.SCHUR_JACOBI, max_num_iterations=8,
@@ -940,6 +1053,7 @@ def test_iterative_schur_kernels_in_solves_on_card(cuda, monkeypatch):
         assert grown == (len(calls), len(calls)) and len(calls) > 0
         if not device_loop:
             assert len(calls) >= sum(it.linear_solver_iterations for it in runs[-1].iterations)
+            assert sp.camera_blocks.launches - blocks_before == runs[-1].num_linear_solves
     host, device = runs
     assert device.device_loop_capture_time_in_seconds > 0.0
     assert [it.step_is_successful for it in device.iterations] == [

@@ -74,15 +74,20 @@ COMMON = {"skeres.solve", "skeres.plan.compile", "skeres.plan.evaluator", "skere
           "skeres.schur.back_substitute", "skeres.step.candidate_cost", "skeres.postprocess"}
 
 
-@pytest.mark.parametrize("solver,want", [
+@pytest.mark.parametrize("solver,want,blocks_in", [
     ("DENSE_SCHUR", {"skeres.plan.pairs", "skeres.plan.pairs.metadata", "skeres.plan.pairs.sums",
-                     "skeres.schur.grid", "skeres.schur.s_build", "skeres.schur.factor"}),
-    ("ITERATIVE_SCHUR", {"skeres.schur.pcg", "skeres.schur.s_product"}),
+                     "skeres.schur.grid", "skeres.schur.s_build", "skeres.schur.factor",
+                     "skeres.schur.blocks"}, "skeres.schur.s_build"),
+    ("ITERATIVE_SCHUR", {"skeres.schur.pcg", "skeres.schur.s_product", "skeres.schur.blocks"},
+     "skeres.schur.pcg"),
 ])
-def test_spans_of_a_solve(monkeypatch, solver, want):
+def test_spans_of_a_solve(monkeypatch, solver, want, blocks_in):
     """Two solves under one profiler (DENSE_SCHUR on the explicit S; both on
     the camera-padded layout): every span of the path, inside the
-    ``skeres.solve`` of its own solve, whose numbers follow each other."""
+    ``skeres.solve`` of its own solve, whose numbers follow each other. The
+    camera blocks (``skeres.schur.blocks``) lie in the explicit S's build or
+    in PCG, where SCHUR_JACOBI reads them."""
+    parent = {**PARENT, "skeres.schur.blocks": blocks_in}
     monkeypatch.setattr(schur_mod, "DENSE_W_LIMIT_BYTES", 0)
     kw = dict(linear_solver_type=LinearSolverType[solver],
               preconditioner_type=PreconditionerType.SCHUR_JACOBI,
@@ -105,7 +110,7 @@ def test_spans_of_a_solve(monkeypatch, solver, want):
     for e in spans:
         if e.name == "skeres.solve":
             continue
-        assert enclosing(e).name == PARENT[e.name], e.name
+        assert enclosing(e).name == parent[e.name], e.name
         root = e
         while root.name != "skeres.solve":
             root = enclosing(root)
