@@ -314,6 +314,17 @@ non-zero and prints no result line):
                s_e gather. Phase 37's padded solves launch the kernel once
                a damped solve (the generic form none).
 
+ 42. visibility — the benchmark's Final-4585 site scene (4,585 cameras,
+               9,125,125 observations) on the card: the visibility plan
+               (``core/visibility.py``, CANONICAL_VIEWS, the forest's
+               chains) timed on its second run, its clusters, chains,
+               longest chain, slot sizes and padded share; the
+               CLUSTER_TRIDIAGONAL build and factor
+               (``cluster_preconditioner``) and the chain apply
+               (``apply_cluster_preconditioner``) timed (CUDA events), the
+               apply against its plain version (``dense_cluster_solve``:
+               each chain's matrix dense, ``torch.linalg.solve``) to 1e-8.
+
 The line before the last is a JSON object describing each kernel (its
 time, its launches on the main path, its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the peak for their type,
@@ -3950,6 +3961,72 @@ def phase_camera_blocks(device) -> dict:
     return report
 
 
+# -- visibility clusters at Final-4585's counts (phase 42) ------------------------------
+
+VISIBILITY_SEED = 2_718_281_828_459
+
+
+def phase_visibility(device) -> dict:
+    """Phase 42: the visibility plan (``core/visibility.py``) of the
+    benchmark's Final-4585 site scene and the CLUSTER_TRIDIAGONAL factor and
+    chain apply on its clusters, float64 on the card: the plan timed (its
+    second run), its clusters, chains and padding; the build and factor
+    and the apply timed (CUDA events); the apply against its plain version
+    (each chain's block tridiagonal matrix dense, ``torch.linalg.solve``)."""
+    from benchmark import harness
+    from skeres_tpu_torch.core import schur as schur_mod
+    from skeres_tpu_torch.core import visibility as vis
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.linear_solvers import lm_diagonal
+    from skeres_tpu_torch.core.types import PreconditionerType, VisibilityClusteringType
+
+    cell = harness.load_cell("final4585.cluster-tridiagonal")
+    config = cell["config_data"]
+    mod = harness.load_module("scenes", config["generator"])
+    scene = mod.generate(config, VISIBILITY_SEED, device)
+    nc, npt = config["num_cameras"], config["num_points"]
+    cam = torch.as_tensor(scene.camera_index, device=device).long()
+    pt = torch.as_tensor(scene.point_index, device=device).long()
+    plan_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clusters = vis.plan_visibility(cam, pt, nc, npt, "CANONICAL_VIEWS", chains=True)
+        torch.cuda.synchronize()
+        plan_s.append(time.perf_counter() - t0)
+    about = clusters.describe()
+    check(about["chains"] > 1 and about["padded_share"] < 0.5,
+          f"visibility plan: {about}")
+    problem, _ = mod.build_problem(scene)
+    ev = Evaluator(problem.compile(), device=device, chunk_size=1 << 20)
+    _, blocks = ev.blocks(ev.program.initial_state(device, torch.float64))
+    g, diag = ev.gradient_and_diag(blocks)
+    scale = 1.0 / (1.0 + torch.sqrt(diag))
+    g, diag = g * scale, diag * scale**2
+    solver = schur_mod.SchurSolver(ev, iterative=True,
+                                   preconditioner=PreconditionerType.CLUSTER_TRIDIAGONAL,
+                                   visibility_clustering=VisibilityClusteringType.CANONICAL_VIEWS)
+    check(solver.cluster_layout is not None, "visibility plan: no cluster layout")
+    data = solver.prepare(solver.scale_data(solver.solver_data(blocks), scale))
+    asm = solver._assemble(data, g, lm_diagonal(diag, 1e-4, 1e-6, 1e32))
+    factors = schur_mod.cluster_preconditioner(solver, asm)
+    v = torch.randn(solver.num_f, dtype=torch.float64, device=device)
+    got = schur_mod.apply_cluster_preconditioner(solver, factors, v)
+    plain = schur_mod.dense_cluster_solve(solver, asm, v, factors["band_scale"])
+    torch.cuda.synchronize()
+    rel = float(torch.linalg.norm(got - plain) / torch.linalg.norm(plain))
+    check(rel <= 1e-8, f"visibility apply against its plain version: {rel:.3e}")
+    factor_ms = cuda_ms(lambda: schur_mod.cluster_preconditioner(solver, asm), reps=3, calls=1)
+    apply_ms = cuda_ms(lambda: schur_mod.apply_cluster_preconditioner(solver, factors, v))
+    report = dict(about, plan_s=plan_s, factor_ms=factor_ms, apply_ms=apply_ms, rel_err=rel,
+                  band_scale=factors["band_scale"], steps=len(solver.cluster_layout.steps),
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[visibility] Final-4585 scene: {json.dumps(report)}")
+    del solver, asm, data, blocks, factors, ev, problem
+    torch.cuda.empty_cache()
+    return report
+
+
 def bound(nbytes: float, flop: float, flops_per_s: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / flops_per_s
@@ -4060,6 +4137,7 @@ def run_phases(t_start: float, cpu_scoreboards: subprocess.Popen) -> int:
     timed("spans and stamps", phase_spans_and_stamps, device)
     s_report = timed("S product", phase_s_product, device)
     blocks_report = timed("camera blocks", phase_camera_blocks, device)
+    timed("visibility", phase_visibility, device)
     # the pair's launches on the main path: phase 37's padded float64
     # ITERATIVE_SCHUR solve, one launch of each kernel a product
     n = general_paths["venice layout float64 ITERATIVE_SCHUR padded"]

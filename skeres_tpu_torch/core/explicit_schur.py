@@ -20,10 +20,13 @@ of the dense-W path passes its gate (venice-1778: 192 GB):
 
 With ``cluster_of`` (a cluster id per camera) the plan is the CLUSTER_JACOBI
 and CLUSTER_TRIDIAGONAL preconditioners': pairs across clusters are dropped
-(with ``cluster_band``, pairs of adjacent clusters are kept), so the
+(with ``cluster_band``, pairs of adjacent clusters are kept; with
+``chain_of``, only those of adjacent clusters of one chain), so the
 unique-pair table stays small however many cameras, and
 :meth:`cluster_offdiag` and :meth:`cluster_band_offdiag` gather it into
-batched per-cluster matrices. K3 computes the pair products of either
+batched per-cluster matrices (index-range clusters), or
+:meth:`block_maps` and :meth:`gather_blocks` into the blocks of any
+layout (visibility clusters, ``core/visibility.py``). K3 computes the pair products of either
 plan; on a cluster plan most pairs are invalid and come out as zero rows.
 
 All index arrays are problem structure, built once, by torch ops on the
@@ -180,21 +183,24 @@ def _check_level0_waste(levels, n_rows: int, factor: float = 3.0):
 
 
 def _pair_metadata(grid_cam: torch.Tensor, num_cameras: int, iu, ju, cluster_of=None,
-                   cluster_band=False):
+                   cluster_band=False, chain_of=None):
     """Per-point-row pair bookkeeping from a (Pn, kp) camera grid:
     (swap (Pn, npair) bool, valid (Pn, npair) bool, pair_id (Pn*npair,)
     with -1 for invalid), on the grid's device. With ``cluster_of`` (a
     cluster id per camera, a tensor on that device), pairs whose cameras
     lie in different clusters are dropped, the CLUSTER_JACOBI restriction;
     ``cluster_band`` keeps the pairs of adjacent clusters too (the
-    CLUSTER_TRIDIAGONAL band)."""
+    CLUSTER_TRIDIAGONAL band), and with ``chain_of`` (a chain id per
+    cluster) only those of adjacent clusters of one chain."""
     npair = len(iu)
     ca = grid_cam[:, iu].reshape(-1)
     cb = grid_cam[:, ju].reshape(-1)
     pair_valid = (ca >= 0) & (cb >= 0)
     if cluster_of is not None:
-        dcl = (cluster_of[ca.clamp(min=0)] - cluster_of[cb.clamp(min=0)]).abs()
-        pair_valid &= dcl <= (1 if cluster_band else 0)
+        ka, kb = cluster_of[ca.clamp(min=0)], cluster_of[cb.clamp(min=0)]
+        pair_valid &= (ka - kb).abs() <= (1 if cluster_band else 0)
+        if chain_of is not None and cluster_band:
+            pair_valid &= chain_of[ka] == chain_of[kb]
     swap = ca > cb
     pair_id = torch.where(pair_valid, torch.minimum(ca, cb) * num_cameras + torch.maximum(ca, cb),
                           -1)
@@ -237,6 +243,9 @@ class ExplicitSchurPlan:
         # keep only the pairs inside a cluster (the CLUSTER_JACOBI plan)
         cluster_band: bool = False,  # keep the pairs of adjacent clusters too and
         # build the (c, c+1) band maps (CLUSTER_TRIDIAGONAL)
+        chain_of: Optional[torch.Tensor] = None,  # (n_clusters,) chain id per
+        # cluster: the band keeps only the pairs inside a chain, and the
+        # caller lays the clusters out (``block_maps``; visibility clusters)
         *,
         device,
         mesh=None,
@@ -280,8 +289,9 @@ class ExplicitSchurPlan:
             kl = self.pair_kl.long()
             cluster_t = None if self.cluster_of is None else torch.as_tensor(self.cluster_of,
                                                                             device=dev)
+            chain_t = None if chain_of is None else torch.as_tensor(chain_of, device=dev)
             swap_g, valid_g, pair_id_g = _pair_metadata(
-                grid_cam, num_cameras, kl[0], kl[1], cluster_t, self.cluster_band)
+                grid_cam, num_cameras, kl[0], kl[1], cluster_t, self.cluster_band, chain_t)
             del grid_cam
             rows = torch.nonzero(pair_id_g >= 0).view(-1)
             ids = pair_id_g[rows]
@@ -333,36 +343,41 @@ class ExplicitSchurPlan:
 
             # -- cluster block maps: slot (c, i, j) -> unique-pair row ----------
             if self.cluster_of is not None:
-                ncl = int(self.cluster_of.max()) + 1 if num_cameras else 0
+                self._pos2u, self._pos2u_t = pos2u, pos2u_t  # for block_maps
+                self.n_clusters = int(self.cluster_of.max()) + 1 if num_cameras else 0
+            if self.cluster_of is not None and chain_of is None:
+                ncl = self.n_clusters
                 members = [np.nonzero(self.cluster_of == c)[0] for c in range(ncl)]
                 cs = max((len(m) for m in members), default=1)
                 cam_of = np.full((ncl, cs), -1, dtype=np.int64)
                 for c, m in enumerate(members):
                     cam_of[c, : len(m)] = m
-                self.n_clusters = ncl
                 self.cluster_slot_size = cs
                 self.cluster_cam_of = cam_of  # (ncl, cs) on the host, -1 = pad
                 cam_of_t = torch.as_tensor(cam_of, device=dev)
 
-                def block_maps(rows_cam, cols_cam):
-                    """Per (cluster, i, j) the unique-pair row of the pair
-                    (rows_cam[c, i], cols_cam[c, j]) in either orientation;
-                    ``n_uniq`` (a zero row) where unobserved or padded."""
-                    shape = (len(rows_cam), cs, cs)
-                    a = rows_cam[:, :, None].expand(shape)
-                    b = cols_cam[:, None, :].expand(shape)
-                    ok = ((a >= 0) & (b >= 0)).reshape(-1)
-                    flat = torch.where(ok, (a.clamp(min=0) * num_cameras
-                                            + b.clamp(min=0)).reshape(-1), 0)
-                    return (torch.where(ok, pos2u[flat], n_uniq),
-                            torch.where(ok, pos2u_t[flat], n_uniq))
-
-                self.cluster_map_u, self.cluster_map_l = block_maps(cam_of_t, cam_of_t)
+                self.cluster_map_u, self.cluster_map_l = self.block_maps(cam_of_t, cam_of_t)
                 # cluster c (rows) against cluster c + 1 (columns); both
                 # orientations, so the build holds for any cluster_of
                 self.band_map_u = self.band_map_l = None
                 if self.cluster_band and ncl > 1:
-                    self.band_map_u, self.band_map_l = block_maps(cam_of_t[:-1], cam_of_t[1:])
+                    self.band_map_u, self.band_map_l = self.block_maps(cam_of_t[:-1],
+                                                                       cam_of_t[1:])
+
+    def block_maps(self, rows_cam: torch.Tensor, cols_cam: torch.Tensor):
+        """Per (k, i, j) the unique-pair row of the camera pair
+        (rows_cam[k, i], cols_cam[k, j]), as stored (``map_u``, the
+        lower-numbered camera's rows) and transposed (``map_l``), flat;
+        ``n_uniq`` (a zero row) where unobserved, and for a camera < 0 or
+        ``>= nc`` (a padded slot). A plan built with ``cluster_of`` only."""
+        nc = self.nc
+        shape = (len(rows_cam), rows_cam.shape[1], cols_cam.shape[1])
+        a = rows_cam[:, :, None].expand(shape)
+        b = cols_cam[:, None, :].expand(shape)
+        ok = ((a >= 0) & (a < nc) & (b >= 0) & (b < nc)).reshape(-1)
+        flat = torch.where(ok, (a.clamp(0, nc - 1) * nc + b.clamp(0, nc - 1)).reshape(-1), 0)
+        return (torch.where(ok, self._pos2u[flat], self.n_uniq),
+                torch.where(ok, self._pos2u_t[flat], self.n_uniq))
 
     # -- the sharded plan (skeres_tpu/core/explicit_schur.py:469-606) --------
 
@@ -528,16 +543,21 @@ class ExplicitSchurPlan:
         diagonal blocks beyond the same-camera pair fold."""
         return self.dense_s_full(uniq_flat, uniq_flat.new_zeros((self.nc, self.f * self.f)))
 
-    def _cluster_blocks(self, uniq_flat, map_u, map_l, n: int):
-        """(n, cs*f, cs*f) matrices from the unique-pair table: block
-        (i, j) of matrix c reads its pair's row as stored (``map_u``, the
-        lower-numbered camera's rows) or transposed (``map_l``). K3 writes
-        f-major rows, so the transpose of a block is the transpose of its
-        (f, f) view."""
-        cs, f = self.cluster_slot_size, self.f
+    def gather_blocks(self, uniq_flat, map_u, map_l, n: int, a: int, b: int):
+        """(n, a*f, b*f) matrices from the unique-pair table by the maps of
+        :meth:`block_maps`: block (i, j) of matrix k reads its pair's row as
+        stored (``map_u``) or transposed (``map_l``). K3 writes f-major
+        rows, so the transpose of a block is the transpose of its (f, f)
+        view."""
+        f = self.f
         padded = torch.cat([uniq_flat, uniq_flat.new_zeros((1, f * f))])
         blocks = padded[map_u] + _transpose_blocks(padded[map_l], f)
-        return blocks.view(n, cs, cs, f, f).permute(0, 1, 3, 2, 4).reshape(n, cs * f, cs * f)
+        return blocks.view(n, a, b, f, f).permute(0, 1, 3, 2, 4).reshape(n, a * f, b * f)
+
+    def _cluster_blocks(self, uniq_flat, map_u, map_l, n: int):
+        """(n, cs*f, cs*f) matrices of the index-range clusters."""
+        cs = self.cluster_slot_size
+        return self.gather_blocks(uniq_flat, map_u, map_l, n, cs, cs)
 
     def cluster_offdiag(self, uniq_flat):
         """Batched (n_clusters, cs*f, cs*f) off-diagonal correction blocks

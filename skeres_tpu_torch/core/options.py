@@ -22,6 +22,7 @@ from skeres_tpu_torch.core.types import (
     MinimizerType,
     PreconditionerType,
     TrustRegionStrategyType,
+    VisibilityClusteringType,
 )
 
 __all__ = ["SolverOptions"]
@@ -37,6 +38,12 @@ class SolverOptions:
     dogleg_type: DoglegType = DoglegType.TRADITIONAL_DOGLEG
     linear_solver_type: LinearSolverType = LinearSolverType.DENSE_QR
     preconditioner_type: PreconditionerType = PreconditionerType.JACOBI
+    # CLUSTER_JACOBI / CLUSTER_TRIDIAGONAL: cluster the cameras by visibility
+    # (CANONICAL_VIEWS or SINGLE_LINKAGE, core/visibility.py); unset (None),
+    # the clusters are contiguous ranges of cluster_jacobi_size camera
+    # indices, one chain in index order, as the JAX package's. A string is
+    # taken as the enum's name
+    visibility_clustering_type: Optional[VisibilityClusteringType] = None
     max_num_spse_iterations: int = 5
     spse_tolerance: float = 0.1
     use_explicit_schur_complement: bool = False
@@ -151,6 +158,11 @@ class SolverOptions:
     # never terminate before max_num_iterations: the convergence and
     # failure tests are skipped, so a benchmark gets a fixed step count
     run_full_iteration_budget: bool = False
+
+    def __post_init__(self):
+        if isinstance(self.visibility_clustering_type, str):
+            self.visibility_clustering_type = VisibilityClusteringType[
+                self.visibility_clustering_type]
 
     def is_valid(self) -> tuple[bool, str]:
         """Counterpart of Solver::Options::IsValid."""

@@ -161,6 +161,15 @@ def _solve(options: SolverOptions, problem: Problem, program: Optional[Program])
         )
     summary.num_devices = evaluator.n_shards
     schur_solver = None
+    if (options.visibility_clustering_type is not None and options.use_device_loop
+            and solver_type == LinearSolverType.ITERATIVE_SCHUR
+            and options.minimizer_type == MinimizerType.TRUST_REGION
+            and options.preconditioner_type in (PreconditionerType.CLUSTER_JACOBI,
+                                                PreconditionerType.CLUSTER_TRIDIAGONAL)):
+        raise NotImplementedError(
+            "visibility_clustering_type under use_device_loop: the visibility clusters' factor "
+            "reads on the host whether to halve the band, which a CUDA graph cannot capture; "
+            "solve on the host loop (use_device_loop=False)")
     if solver_type in (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR):
         log = logging.getLogger("skeres_tpu_torch")
         with span("skeres.plan.schur"):
@@ -181,6 +190,7 @@ def _solve(options: SolverOptions, problem: Problem, program: Optional[Program])
                 pair_cap=options.schur_pair_cap,
                 cluster_size=options.cluster_jacobi_size,
                 cluster_boost=options.cluster_jacobi_boost,
+                visibility_clustering=options.visibility_clustering_type,
             )
         used = schur_solver.preconditioner_used
         if options.preconditioner_type == PreconditionerType.SUBSET:

@@ -13,6 +13,7 @@ __all__ = [
     "DoglegType",
     "LinearSolverType",
     "PreconditionerType",
+    "VisibilityClusteringType",
     "LineSearchDirectionType",
     "LineSearchType",
     "TerminationType",
@@ -56,6 +57,14 @@ class PreconditionerType(enum.Enum):
     CLUSTER_JACOBI = "CLUSTER_JACOBI"
     CLUSTER_TRIDIAGONAL = "CLUSTER_TRIDIAGONAL"
     SUBSET = "SUBSET"
+
+
+class VisibilityClusteringType(enum.Enum):
+    """How CLUSTER_JACOBI and CLUSTER_TRIDIAGONAL cluster the cameras
+    (reference: ``visibility_clustering_type``; ``core/visibility.py``)."""
+
+    CANONICAL_VIEWS = "CANONICAL_VIEWS"
+    SINGLE_LINKAGE = "SINGLE_LINKAGE"
 
 
 class LineSearchDirectionType(enum.Enum):

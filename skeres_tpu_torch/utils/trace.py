@@ -33,7 +33,9 @@ The spans:
   ``skeres.plan.evaluator``, ``skeres.plan.schur`` (the Schur solver: its
   dense-W plan ``skeres.plan.w``, its pair plan ``skeres.plan.pairs`` with
   ``.metadata`` and ``.sums``, the camera-padded layout
-  ``skeres.plan.layout``, the cluster plan ``skeres.plan.cluster``),
+  ``skeres.plan.layout``, the cluster plan ``skeres.plan.cluster``, which
+  under visibility clustering holds ``skeres.plan.cluster.visibility``,
+  ``.views`` and ``.forest``),
   ``skeres.device_loop.capture``, ``skeres.minimize``,
   ``skeres.postprocess``;
 - a step: ``skeres.step.linearize`` (in it ``skeres.schur.place`` and
@@ -41,7 +43,10 @@ The spans:
   ``skeres.step.damped_solve`` (``skeres.schur.s_build``,
   ``skeres.schur.factor``, ``skeres.schur.pcg``,
   ``skeres.schur.back_substitute``; the camera blocks of S
-  ``skeres.schur.blocks`` inside the first or the third),
+  ``skeres.schur.blocks`` inside the first or the third; inside
+  ``skeres.schur.pcg`` on visibility clusters, the preconditioner's build
+  and factor ``skeres.schur.cluster_factor`` and each application
+  ``skeres.schur.cluster_apply``),
   ``skeres.step.candidate_cost``;
 - ``skeres.device_loop.chunk``: a chunk's replays and its one fetch.
 

@@ -1062,3 +1062,50 @@ def test_iterative_schur_kernels_in_solves_on_card(cuda, monkeypatch):
     assert counts[0] == counts[1] and max(counts[0]) > 1
     np.testing.assert_allclose([it.cost for it in device.iterations],
                                [it.cost for it in host.iterations], rtol=1e-8)
+
+
+@pytest.mark.gpu
+def test_visibility_cluster_apply_on_card(cuda):
+    """The CLUSTER_TRIDIAGONAL factor and chain apply on canonical-views
+    clusters, float64 on the card, on a 120-camera cut of the benchmark's
+    Final-4585 site scene (a chain a site): the apply against its plain
+    version on the card (each chain's matrix dense) and against the CPU's
+    apply, both to 1e-12 of the solution's norm; the clusters equal the
+    CPU's."""
+    from benchmark import harness
+    from skeres_tpu_torch.core import schur as schur_mod
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.linear_solvers import lm_diagonal
+    from skeres_tpu_torch.core.types import PreconditionerType, VisibilityClusteringType
+
+    cell = harness.load_cell("final4585.cluster-tridiagonal")
+    config = {**cell["config_data"], "num_cameras": 120, "num_points": 1500,
+              "num_observations": 9500, "track_lengths": {"6": 1000, "7": 500}}
+    config["assumed"] = {**config["assumed"], "num_sites": 4, "min_site_cameras": 14,
+                         "bridge_share": 0.0}
+    mod = harness.load_module("scenes", config["generator"])
+    scene = mod.generate(config, 2_718_281_828_459, "cpu")
+    v = torch.tensor(np.random.default_rng(4).standard_normal(120 * 9))
+    out = {}
+    for device in ("cpu", cuda):
+        ev = Evaluator(mod.build_problem(scene)[0].compile(), device=device)
+        _, blocks = ev.blocks(ev.program.initial_state(device, torch.float64))
+        g, diag = ev.gradient_and_diag(blocks)
+        scale = 1.0 / (1.0 + torch.sqrt(diag))
+        solver = schur_mod.SchurSolver(
+            ev, iterative=True, preconditioner=PreconditionerType.CLUSTER_TRIDIAGONAL,
+            visibility_clustering=VisibilityClusteringType.CANONICAL_VIEWS)
+        data = solver.prepare(solver.scale_data(solver.solver_data(blocks), scale))
+        asm = solver._assemble(data, g * scale, lm_diagonal(diag * scale**2, 1e-2, 1e-6, 1e32))
+        factors = schur_mod.cluster_preconditioner(solver, asm)
+        x = v.to(device)
+        out[str(device)] = (schur_mod.apply_cluster_preconditioner(solver, factors, x),
+                            schur_mod.dense_cluster_solve(solver, asm, x, factors["band_scale"]),
+                            solver.visibility.cluster_of.cpu())
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert torch.equal(cpu[2], card[2])
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a.cpu() - b.cpu()) / torch.linalg.norm(b.cpu()))
+
+    assert rel(card[0], card[1]) <= 1e-12 and rel(card[0], cpu[0]) <= 1e-12
