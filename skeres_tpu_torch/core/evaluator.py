@@ -13,6 +13,14 @@ The JAX package pads every batch with weight-0 copies of row 0 so that
 chunks and shards have static shapes; PyTorch needs no static shapes, so
 the port has no pad rows and a short last chunk instead.
 
+A residual function that brings its own batched form (``fn.analytic``, an
+``ops/reprojection.py:AnalyticRows``: the Snavely residual's hand-written
+kernel and closed-form Jacobian, Ceres's analytic ``CostFunction`` beside
+``AutoDiffCostFunction``) is evaluated by it, one launch a chunk written
+straight into the batch outputs, where it computes the same function:
+every slot's manifold Euclidean (tangent = ambient) and no numeric diff.
+Every other batch takes the vmapped program above.
+
 Constant blocks keep their tangent columns, zeroed, as in the JAX package
 (its free mask, ``Program.free_mask``): the Jacobian columns of a constant
 block, and its share of every step (``plus``, ``tangent_diff``). The JAX
@@ -41,6 +49,7 @@ from torch.utils import _pytree as pytree
 
 from skeres_tpu_torch.core.gradient_checker import numeric_jacobian, ridders_jacobian
 from skeres_tpu_torch.core.problem import CompiledBatch, Program
+from skeres_tpu_torch.models.manifolds import EuclideanManifold
 from skeres_tpu_torch.ops.corrector import apply_loss
 from skeres_tpu_torch.ops.segment_reduce import (
     apply_reduce_plan,
@@ -119,6 +128,9 @@ class Evaluator:
                         [0.0 if c else 1.0 for c in g.constant], dtype=dtype, device=self.device)
         self._bounds = program.bounds_arrays(self.device, dtype) if program.has_bounds else None
 
+        # per batch its batched form where it computes the batch's function
+        # (the residual's own ``analytic`` rows), else None: the vmapped program
+        self._analytic = [self._analytic_form(b) for b in program.batches]
         # per batch: (data, per-slot block indices, (B, T) tangent indices)
         # of the rows [lo, hi) this rank holds (every row without a mesh)
         self.row_range = []
@@ -149,6 +161,18 @@ class Evaluator:
             self._slot_cols.append(tuple(cols))
 
     # -- helpers ---------------------------------------------------------------
+
+    def _analytic_form(self, batch: CompiledBatch):
+        """``batch.fn.analytic`` where it computes what the vmapped program
+        would: every slot Euclidean, so that the tangent is the ambient
+        space, and no numeric differences asked for; else None."""
+        form = getattr(batch.fn, "analytic", None)
+        if form is None or batch.numeric_diff:
+            return None
+        if any(type(self.program.groups[gi].manifold) is not EuclideanManifold
+               for gi in batch.slot_groups):
+            return None
+        return form
 
     def slot_reduce(self, bi: int, s: int, values):
         """Sum per-row contributions ``values (B, D)`` into the slot's
@@ -187,18 +211,33 @@ class Evaluator:
 
     # -- batched evaluation ------------------------------------------------------
 
-    def _rows_residuals(self, batch, data, idx, state):
+    def _rows_residuals(self, bi, data, idx, state):
         """Residual-only evaluation over the given rows: cost per block (B,)."""
-        xs = self._gather_slots(batch, idx, state)
-        r = torch.func.vmap(lambda d, *x: batch.fn(tuple(x), _row_data(batch, d)))(data, *xs)
-        s = torch.sum(r * r, dim=-1)
+        batch, form = self.program.batches[bi], self._analytic[bi]
+        if form is not None:
+            half = form.costs(*(state[gi] for gi in batch.slot_groups), *idx, data)
+        else:
+            xs = self._gather_slots(batch, idx, state)
+            r = torch.func.vmap(lambda d, *x: batch.fn(tuple(x), _row_data(batch, d)))(data, *xs)
+            half = 0.5 * torch.sum(r * r, dim=-1)
         if batch.loss is None or not self.apply_loss_function:
-            return 0.5 * s
-        return 0.5 * batch.loss.evaluate(s)[0]
+            return half
+        return 0.5 * batch.loss.evaluate(2.0 * half)[0]  # |r|^2, exactly
 
-    def _rows_residuals_and_jacobian(self, batch, data, idx, state):
+    def _rows_residuals_and_jacobian(self, bi, data, idx, state, out=None):
         """Full evaluation over the given rows: (cost (B,), r (B, m),
         J (B, m, T)), loss-corrected."""
+        return self._correct(bi, idx, *self._raw_rows(bi, data, idx, state, out))
+
+    def _raw_rows(self, bi, data, idx, state, out=None):
+        """(r (B, m), J (B, m, T)) over the given rows, before the robust
+        loss and the constant blocks' mask. The batched form writes r and J
+        into ``out`` (the batch outputs' rows) where given; the vmapped
+        program returns its own."""
+        batch = self.program.batches[bi]
+        form = self._analytic[bi]
+        if form is not None:
+            return form.rows(*(state[gi] for gi in batch.slot_groups), *idx, data, *(out or ()))
         xs = self._gather_slots(batch, idx, state)
         manifolds = [self.program.groups[gi].manifold for gi in batch.slot_groups]
         T, m = batch.block_tangent_size, batch.residual_dim
@@ -230,7 +269,12 @@ class Evaluator:
             )  # (T, m)
             return f(zero), jac_cols.transpose(0, 1)
 
-        r, jac = torch.func.vmap(one_block)(data, *xs)
+        return torch.func.vmap(one_block)(data, *xs)
+
+    def _correct(self, bi, idx, r, jac):
+        """The rows' cost, and r and J corrected by the robust loss, with the
+        constant blocks' columns zeroed."""
+        batch = self.program.batches[bi]
         cost, r_c, (jac_c,) = apply_loss(batch.loss if self.apply_loss_function else None,
                                           r, [jac])
         flags = [self._block_free[gi] for gi in batch.slot_groups]
@@ -245,41 +289,57 @@ class Evaluator:
 
     # -- public functions ----------------------------------------------------------
 
+    def takes_batched_form(self, bi: int) -> bool:
+        """Whether batch ``bi`` is evaluated by its residual's batched form
+        (the closed-form Jacobian) rather than the vmapped program."""
+        return self._analytic[bi] is not None
+
+    def jacobian_rows(self, bi: int, rows: slice, state):
+        """Batch ``bi``'s rows ``rows`` as the solver takes them: (r, J),
+        before the robust loss and the constant blocks' mask."""
+        data, idx = self._chunk_args(bi, rows)
+        return self._raw_rows(bi, data, idx, state)
+
     def cost(self, state):
         total = torch.zeros((), dtype=self.dtype, device=self.device)
         for bi, batch in enumerate(self.program.batches):
             for rows in self._row_slices(bi):
                 data, idx = self._chunk_args(bi, rows)
-                total = total + torch.sum(self._rows_residuals(batch, data, idx, state))
+                total = total + torch.sum(self._rows_residuals(bi, data, idx, state))
         return self.all_reduce(total)
 
     def blocks(self, state) -> Tuple[torch.Tensor, List[BatchBlocks]]:
         """Full evaluation: (cost, per-batch corrected blocks). With
         ``chunk_size`` set, the differentiation and correction transients
         are bounded by one chunk of rows, and each chunk is written into
-        the whole outputs, allocated once (no concatenated copy). Each
-        chunk is one ``skeres.eval.chunk`` span and one count of
+        the whole outputs, allocated once (no concatenated copy; a batch's
+        batched form writes its rows there itself). Each chunk is one
+        ``skeres.eval.chunk`` span and one count of
         ``num_evaluation_chunks``."""
         total = torch.zeros((), dtype=self.dtype, device=self.device)
         out = []
         for bi, batch in enumerate(self.program.batches):
             slices = self._row_slices(bi)
             costs, r, jac = [], None, None
+            if self._analytic[bi] is not None or len(slices) > 1:
+                n = self.row_range[bi][1] - self.row_range[bi][0]
+                m, t = batch.residual_dim, batch.block_tangent_size
+                r = torch.empty((n, m), dtype=self.dtype, device=self.device)
+                jac = torch.empty((n, m, t), dtype=self.dtype, device=self.device)
             for rows in slices:
                 with span("skeres.eval.chunk"):
                     data, idx = self._chunk_args(bi, rows)
-                    cost_c, r_c, jac_c = self._rows_residuals_and_jacobian(batch, data, idx, state)
-                    if len(slices) == 1:  # vmap's outputs may be strided views
+                    dst = None if r is None else (r[rows], jac[rows])
+                    cost_c, r_c, jac_c = self._rows_residuals_and_jacobian(
+                        bi, data, idx, state, dst)
+                    if dst is None:  # one chunk: vmap's outputs may be strided views
                         r, jac = r_c.contiguous(), jac_c.contiguous()
-                    else:
-                        if r is None:
-                            n = self.row_range[bi][1] - self.row_range[bi][0]
-                            r = r_c.new_empty((n, *r_c.shape[1:]))
-                            jac = jac_c.new_empty((n, *jac_c.shape[1:]))
-                        r[rows] = r_c
-                        jac[rows] = jac_c
+                    else:  # what is not already in place
+                        for d, c in zip(dst, (r_c, jac_c)):
+                            if c is not d:
+                                d.copy_(c)
                     costs.append(cost_c)
-                    del r_c, jac_c  # not held through the next chunk
+                    del r_c, jac_c, dst  # not held through the next chunk
                 self.num_evaluation_chunks += 1
             total = total + torch.sum(torch.cat(costs))
             out.append(BatchBlocks(r, jac, self._batch_const[bi][2]))

@@ -96,11 +96,14 @@ def ridders_jacobian(f, zero, relative_step_size: float = 1e-2, max_extrapolatio
 
 def check_program_gradients(program, evaluator, relative_precision: float = 1e-8,
                             step_size: float = 1e-6) -> Tuple[bool, str]:
-    """Every batch's ``torch.func`` Jacobian against central differences at
-    the initial state, in the tangent space of each block (through
-    ``manifold.plus``, as the solver's Jacobians), without the robust loss
-    or the constant blocks' mask, as in the JAX package. Batches added with
-    ``numeric_diff`` are skipped: they solve with numeric derivatives.
+    """Every batch's Jacobian as the solver takes it
+    (``Evaluator.jacobian_rows``: its ``torch.func`` Jacobian, or the closed
+    form of a batch evaluated by its batched form) against central
+    differences at the initial state, in the tangent space of each block
+    (through ``manifold.plus``, as the solver's Jacobians), without the
+    robust loss or the constant blocks' mask, as in the JAX package.
+    Batches added with ``numeric_diff`` are skipped: they solve with
+    numeric derivatives.
 
     Returns (ok, message); the message names the first offending batch,
     the worst relative error and where it is (block, residual, tangent
@@ -118,7 +121,6 @@ def check_program_gradients(program, evaluator, relative_precision: float = 1e-8
         manifolds = [program.groups[gi].manifold for gi in batch.slot_groups]
         T = batch.block_tangent_size
         zero = torch.zeros(T, dtype=ev.dtype, device=ev.device)
-        basis = torch.eye(T, dtype=ev.dtype, device=ev.device)
 
         def one_block(data_row, *x_row):
             def f(delta):
@@ -126,15 +128,15 @@ def check_program_gradients(program, evaluator, relative_precision: float = 1e-8
                 xp = tuple(m.plus(x, d) for m, x, d in zip(manifolds, x_row, ds))
                 return batch.fn(xp, None if batch.data is None else data_row)
 
-            cols = torch.func.vmap(lambda v: torch.func.jvp(f, (zero,), (v,))[1])(basis)
-            return cols.transpose(0, 1), numeric_jacobian(f, zero, step_size)
+            return numeric_jacobian(f, zero, step_size)
 
         # the worst entry over the batch, chunk by chunk (the first of equal
         # maxima, as numpy's argmax over the whole batch)
         worst, where = -1.0, None
         for rows in ev._row_slices(bi):
             data, idx = ev._chunk_args(bi, rows)
-            ja, jn = torch.func.vmap(one_block)(data, *ev._gather_slots(batch, idx, state))
+            ja = ev.jacobian_rows(bi, rows, state)[1]
+            jn = torch.func.vmap(one_block)(data, *ev._gather_slots(batch, idx, state))
             denom = torch.clamp(torch.maximum(ja.abs(), jn.abs()), min=floor)
             rel = ((ja - jn).abs() / denom).reshape(-1)
             if rel.numel() == 0:

@@ -136,7 +136,9 @@ class SolverOptions:
     # rows per streamed evaluation chunk; None = one pass per batch
     evaluation_chunk_size: Optional[int] = None
     # "auto" | "forward" | "reverse": per-block Jacobians from T tangent
-    # jvps or m cotangent vjps; auto picks reverse when 2*m < T
+    # jvps or m cotangent vjps; auto picks reverse when 2*m < T. Nothing to
+    # choose for a residual that brings its closed-form Jacobian (the
+    # Snavely residual's batched form, core/evaluator.py): it is not read there
     jacobian_diff_mode: str = "auto"
     # the Schur solvers' camera-padded layout: an observation batch of at
     # least jacobian_sort_threshold rows is placed into a (cameras, K) grid

@@ -5,13 +5,18 @@ camera model of the Bundle Adjustment in the Large dataset — 9-parameter
 camera (angle-axis rotation (3), translation (3), focal length, k1, k2),
 3-parameter point, 2D pixel observation. Written for ONE observation; the
 evaluator maps it over all observations with ``torch.func.vmap`` and
-differentiates it with ``torch.func.vjp``/``jvp``.
+differentiates it with ``torch.func.vjp``/``jvp``. The unsplit residual
+also brings its batched form with a closed-form Jacobian
+(``snavely_reprojection_error.analytic``, ``ops/reprojection.py``: a CUDA
+kernel on the card), which the evaluator takes where both compute the same
+function (``core/evaluator.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from skeres_tpu_torch.ops import reprojection as batched
 from skeres_tpu_torch.ops import rotation as rot
 
 __all__ = ["snavely_reprojection_error", "snavely_reprojection_error_fixed_k",
@@ -35,6 +40,9 @@ def snavely_reprojection_error(params, observation):
         [focal * distortion * xp - observation[0],
          focal * distortion * yp - observation[1]]
     )
+
+
+snavely_reprojection_error.analytic = batched.SNAVELY
 
 
 def snavely_reprojection_error_fixed_k(params, observation):

@@ -21,7 +21,7 @@ from pathlib import Path
 
 __all__ = ["SOURCES", "build_all", "load_library"]
 
-SOURCES = ("cholesky", "pair_product", "graph_cond", "s_product")  # csrc/<name>.cu
+SOURCES = ("cholesky", "pair_product", "graph_cond", "s_product", "reprojection")  # csrc/<name>.cu
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "skeres_tpu_torch"

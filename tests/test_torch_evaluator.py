@@ -71,6 +71,37 @@ def test_synthetic_bal_matches(loss, chunk, mode):
     _compare(jev, jstate, tev, chunk)
 
 
+@pytest.mark.parametrize("loss,chunk", [(False, None), (False, 300), (True, 300)])
+def test_batched_form_matches_the_vmapped_program(loss, chunk):
+    """The Snavely batch, which takes its batched form (closed-form J),
+    against the same function of the same 12 parameters through
+    ``snavely_reprojection_error_split`` (pose, intrinsics, point), which
+    takes the vmapped autodiff: cost, g, diag, r and J. The camera's g and
+    diag are the split's pose and intrinsics entries side by side. rtol
+    1e-12: the same rows by other formulas (the closed form keeps digits
+    that autodiff loses at small angles; the scene's are large)."""
+    bal = tbal.synthetic_bal(16, 500, 4)
+    kw = dict(loss=CauchyLoss(2.0) if loss else None)
+    fused = Evaluator(tbal.build_bal_problem(bal, **kw)[0].compile(), device="cpu",
+                      chunk_size=chunk)
+    generic = Evaluator(tbal.build_split_bal_problem(bal, **kw)[0].compile(), device="cpu",
+                        chunk_size=chunk)
+    assert fused.takes_batched_form(0) and not generic.takes_batched_form(0)
+    fs = fused.program.initial_state("cpu", torch.float64)
+    gs = generic.program.initial_state("cpu", torch.float64)
+    (fcost, (fb,)), (gcost, (gb,)) = fused.blocks(fs), generic.blocks(gs)
+    close = dict(rtol=1e-12, atol=0)
+    torch.testing.assert_close(fcost, gcost, **close)
+    torch.testing.assert_close(fused.cost(fs), generic.cost(gs), **close)
+    torch.testing.assert_close(fb.r, gb.r, **close)
+    torch.testing.assert_close(fb.jac, gb.jac, rtol=1e-12, atol=1e-12 * float(gb.jac.abs().max()))
+    nc = len(bal.cameras)
+    for f_vec, g_vec in zip(fused.gradient_and_diag([fb]), generic.gradient_and_diag([gb])):
+        cams = torch.cat([g_vec[: 6 * nc].view(nc, 6), g_vec[6 * nc: 9 * nc].view(nc, 3)], 1)
+        want = torch.cat([cams.reshape(-1), g_vec[9 * nc:]])
+        torch.testing.assert_close(f_vec, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
+
+
 def test_plus_and_x_norm_match():
     bal = jbal.synthetic_bal(4, 24, 3)
     jprob, _, _ = jbal.build_bal_problem(bal)

@@ -1109,3 +1109,131 @@ def test_visibility_cluster_apply_on_card(cuda):
         return float(torch.linalg.norm(a.cpu() - b.cpu()) / torch.linalg.norm(b.cpu()))
 
     assert rel(card[0], card[1]) <= 1e-12 and rel(card[0], cpu[0]) <= 1e-12
+
+
+def _snavely_rows_on(device, dtype, n=40_000, seed=0):
+    """n rows of a scene with 300 cameras and 9,000 points on ``device``:
+    rotations of scale 0.3 with one camera in eight under the small-angle
+    threshold, cameras 10 from the points along z (|x|, |y| < 1 in the
+    image plane, as in BAL), focal ~500, k1 and k2 of scale 0.05 and 0.01,
+    observations ~100 pixels."""
+    from skeres_tpu_torch.ops.rotation import _SMALL
+
+    g = np.random.default_rng(seed)
+    cams = g.standard_normal((300, 9))
+    cams[:, 0:3] *= 0.3
+    cams[::8, 0:3] *= np.sqrt(0.5 * _SMALL) / np.linalg.norm(cams[::8, 0:3], axis=1)[:, None]
+    cams[:, 3:6] *= 0.5
+    cams[:, 5] = -10.0
+    cams[:, 6] = 500.0 + 100.0 * g.random(300)
+    cams[:, 7] *= 0.05
+    cams[:, 8] *= 0.01
+    t = lambda a, dt=dtype: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
+    return (t(cams), t(g.standard_normal((9000, 3))),
+            t(g.integers(0, 300, n), torch.int64), t(g.integers(0, 9000, n), torch.int64),
+            t(100.0 * g.standard_normal((n, 2))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-14), (torch.float32, 5e-6)])
+@pytest.mark.parametrize("n", [1, 127, 40_000])
+def test_snavely_rows_match_plain_version_on_card(cuda, dtype, tol, n):
+    """The reprojection kernel against its plain version: J within ``tol``
+    of each row's largest |entry|, r of |r| + |observation| (the terms it
+    is the difference of), the costs likewise; float64 to 1e-14 (the same
+    formulas, contracted into FMAs), float32 to 5e-6 (some 40 float32
+    operations in a chain). Two calls agree bit for bit, and each call is
+    one launch."""
+    from skeres_tpu_torch.ops import reprojection as rp
+
+    args = _snavely_rows_on(cuda, dtype, n)
+    obs = args[-1]
+    before = (rp.snavely_rows.launches, rp.snavely_costs.launches)
+    (r, jac), (r2, jac2) = rp.snavely_rows(*args), rp.snavely_rows(*args)
+    cost, cost2 = rp.snavely_costs(*args), rp.snavely_costs(*args)
+    r_ref, jac_ref = rp.snavely_rows_reference(*args)
+    cost_ref = rp.snavely_costs_reference(*args)
+    torch.cuda.synchronize()
+    assert (rp.snavely_rows.launches - before[0], rp.snavely_costs.launches - before[1]) == (2, 2)
+    assert torch.equal(r, r2) and torch.equal(jac, jac2) and torch.equal(cost, cost2)
+    terms = (r_ref.abs() + obs.abs()).amax(1)
+    assert float(((r - r_ref).abs().amax(1) / terms).max()) <= tol
+    assert float(((jac - jac_ref).abs().amax((1, 2)) / jac_ref.abs().amax((1, 2))).max()) <= tol
+    assert float(((cost - cost_ref).abs() / (terms * terms)).max()) <= tol
+
+
+@pytest.mark.gpu
+def test_evaluator_chunks_launch_once_each_on_card(cuda):
+    """The evaluator on the card takes the kernel for a Snavely batch: one
+    launch a chunk for ``blocks`` and one for ``cost``, the chunked outputs
+    equal to the unchunked ones bit for bit; a host-loop solve launches it
+    once a chunk of each linearization (``num_evaluation_chunks``)."""
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.ops import reprojection as rp
+
+    program = build_bal_problem(synthetic_bal(16, 500, 4))[0].compile()
+    out = {}
+    for chunk in (None, 300):
+        ev = Evaluator(program, device=cuda, chunk_size=chunk)
+        state = program.initial_state(cuda, torch.float64)
+        chunks = len(ev._row_slices(0))
+        before = (rp.snavely_rows.launches, rp.snavely_costs.launches)
+        cost, (b,) = ev.blocks(state)
+        cost_only = ev.cost(state)
+        torch.cuda.synchronize()
+        grown = (rp.snavely_rows.launches - before[0], rp.snavely_costs.launches - before[1])
+        assert grown == (chunks, chunks)
+        out[chunk] = (b.r, b.jac, cost, cost_only)
+    assert len(Evaluator(program, device=cuda, chunk_size=300)._row_slices(0)) == 7
+    for whole, chunked in zip(out[None][:2], out[300][:2]):
+        assert torch.equal(whole, chunked)
+    torch.testing.assert_close(out[300][2], out[None][2], rtol=1e-14, atol=0)
+    torch.testing.assert_close(out[300][3], out[None][3], rtol=1e-14, atol=0)
+    problem = build_bal_problem(synthetic_bal(16, 500, 4))[0]
+    before = rp.snavely_rows.launches
+    s = stt.solve(stt.SolverOptions(
+        linear_solver_type=LinearSolverType.DENSE_SCHUR, max_num_iterations=4,
+        evaluation_chunk_size=300, dtype=torch.float64, device=cuda), problem)
+    assert rp.snavely_rows.launches - before == s.num_evaluation_chunks == 7 * (
+        s.num_jacobian_evaluations)
+
+
+@pytest.mark.gpu
+def test_captured_evaluation_equals_eager_on_card(cuda):
+    """At BAL-49's shape (49 cameras, 7,776 points, 31,104 rows, float64)
+    the device loop's evaluation, the linearization and the candidate
+    cost, captured as a CUDA graph and replayed, equals the eager one bit
+    for bit; the replays launch nothing the counter sees."""
+    from skeres_tpu_torch.core.evaluator import Evaluator
+    from skeres_tpu_torch.core.graph import CapturedStep
+    from skeres_tpu_torch.ops import reprojection as rp
+
+    ev = Evaluator(build_bal_problem(synthetic_bal(49, 7776, 4))[0].compile(), device=cuda)
+    state = ev.program.initial_state(cuda, torch.float64)
+    r = torch.empty((31_104, 2), dtype=torch.float64, device=cuda)
+    jac = torch.empty((31_104, 2, 12), dtype=torch.float64, device=cuda)
+    costs = torch.empty(2, dtype=torch.float64, device=cuda)
+
+    def step():
+        cost, (b,) = ev.blocks(state)
+        r.copy_(b.r)
+        jac.copy_(b.jac)
+        costs[0] = cost
+        costs[1] = ev.cost(state)
+
+    captured = CapturedStep(step, cuda)
+    captured.capture()
+    assert captured.graph is not None
+    for buf in (r, jac, costs):
+        buf.zero_()
+    before = (rp.snavely_rows.launches, rp.snavely_costs.launches)
+    captured()
+    captured()
+    torch.cuda.synchronize()
+    assert (rp.snavely_rows.launches, rp.snavely_costs.launches) == before
+    cost, (b,) = ev.blocks(state)
+    eager_cost = ev.cost(state)
+    torch.cuda.synchronize()
+    captured.release()
+    assert torch.equal(r, b.r) and torch.equal(jac, b.jac)
+    assert float(costs[0]) == float(cost) and float(costs[1]) == float(eager_cost)
